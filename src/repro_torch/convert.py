@@ -1,0 +1,86 @@
+"""Carry state from numpy arrays into the port's objects.
+
+The tests run the JAX package and the port on identical inputs: they read
+a JAX `SearchProblem` / `NSGA2State` out as numpy arrays and rebuild the
+port's counterpart here. (`pareto.json` carries a design in both
+directions.) Nothing here imports the JAX package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import area as area_mod
+from repro_torch.core.nsga2 import NSGA2State
+from repro_torch.device import resolve_device
+from repro_torch.search.problem import SearchProblem
+
+_PROBLEM_ARRAYS = {
+    "feature": torch.int32, "threshold": torch.float32, "path": torch.int8,
+    "path_len": torch.int32, "n_neg": torch.int32, "leaf_class": torch.int32,
+    "leaf_tree": torch.int32, "x8": torch.int32, "x_sel": torch.int32,
+    "y": torch.int32,
+}
+
+
+def problem_from_arrays(fields: dict, scalars: dict,
+                        device="cuda") -> SearchProblem:
+    """The port's `SearchProblem` from a JAX `SearchProblem`'s fields.
+
+    ``fields``: numpy arrays named as the JAX fields (feature, threshold,
+    path, path_len, n_neg, leaf_class, leaf_tree, x8, x_sel, y, area_lut,
+    lut_offsets); ``scalars``: overhead_mm2, exact_accuracy, n_classes,
+    n_features, n_trees, tree_comparators, tree_leaves. The float mm^2 LUT
+    and overhead are converted to the integer quanta the port scores in
+    (they must be whole quanta), and the exact design's area is recomputed
+    in quanta.
+    """
+    dev = resolve_device(device)
+    if int(scalars["n_trees"]) != 1:
+        raise NotImplementedError(
+            "forests (K > 1 trees) are not ported yet: ROADMAP.md Queue 1 "
+            "item 8")
+    units = np.asarray(fields["area_lut"], np.float64) / area_mod.AREA_QUANTUM_MM2
+    overhead = float(scalars["overhead_mm2"]) / area_mod.AREA_QUANTUM_MM2
+    if (np.abs(units - np.round(units)).max(initial=0) > 1e-3
+            or abs(overhead - round(overhead)) > 1e-6):
+        raise ValueError("area LUT / overhead are not whole area quanta")
+    units = np.round(units).astype(np.int32)
+    offsets = np.asarray(fields["lut_offsets"], np.int64)
+    t = {k: torch.as_tensor(np.array(fields[k]), device=dev).to(dt)
+         for k, dt in _PROBLEM_ARRAYS.items()}
+    t8 = np.clip(np.floor(np.asarray(fields["threshold"], np.float64) * 256.0),
+                 0, 255).astype(np.int64)
+    exact_units = int(units[offsets[8] + t8].astype(np.int64).sum()
+                      ) + int(round(overhead))
+    return SearchProblem(
+        **t,
+        area_units=torch.as_tensor(units, device=dev),
+        lut_offsets=torch.as_tensor(offsets, device=dev),
+        overhead_units=int(round(overhead)),
+        exact_units=exact_units,
+        exact_accuracy=float(scalars["exact_accuracy"]),
+        n_classes=int(scalars["n_classes"]),
+        n_features=int(scalars["n_features"]),
+        n_trees=1,
+        tree_comparators=tuple(int(v) for v in scalars["tree_comparators"]),
+        tree_leaves=tuple(int(v) for v in scalars["tree_leaves"]),
+    )
+
+
+def nsga2_state_from_arrays(fields: dict, device="cuda") -> NSGA2State:
+    """The port's `NSGA2State` from numpy arrays genes (P, G), objs (P, M),
+    rank (P,), crowd (P,) and the scalar generation (the JAX key stays
+    behind: the port draws from a `torch.Generator`)."""
+    dev = resolve_device(device)
+
+    def t(name, dtype):
+        return torch.as_tensor(np.array(fields[name]), device=dev).to(dtype)
+
+    return NSGA2State(
+        genes=t("genes", torch.float32),
+        objs=t("objs", torch.float32),
+        rank=t("rank", torch.int32),
+        crowd=t("crowd", torch.float32),
+        generation=int(fields["generation"]),
+    )

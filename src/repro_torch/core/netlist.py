@@ -1,0 +1,322 @@
+"""Gate-level netlist IR of bespoke tree circuits, simulated on torch.
+
+The counterpart of the tree parts of `repro.core.netlist`. A tree plus a
+decoded chromosome (per-comparator precision and substituted integer
+threshold) lowers to 2-input printed gates:
+
+  comparator cells  hard-wired ``X > t'`` chains, one AND2/OR2 per
+                    significant bit above the lowest set bit of ``t' + 1``
+                    (the construction `core.area.comparator_gate_counts`
+                    prices);
+  path-AND cells    one AND tree per leaf over comparator literals;
+  class-OR cells    per-class vote wires, binary-encoded into the class.
+
+Construction is hash-consed (structural CSE) with constant folding, and
+builds on the host. `simulate` evaluates the finished circuit over a batch
+of samples on the samples' device, one gather and one boolean op per logic
+level; it is the hardware oracle `--verify-rtl` and the server are held to.
+Forest vote adders (K > 1) are a later slice of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import area as area_mod
+from repro_torch.core.tree import ParallelTree
+
+# gate opcodes; CONST0/CONST1 are always gates 0 and 1 of every netlist
+CONST0, CONST1, INPUT, NOT, AND, OR, XOR = range(7)
+OP_NAMES = ("const0", "const1", "input", "not", "and", "or", "xor")
+MASTER_BITS = 8
+
+
+class NetlistBuilder:
+    """Hash-consed gate builder with constant folding.
+
+    Gate ids are topologically ordered by construction (operands always
+    precede their gate), so a single linear pass levelizes the netlist.
+    """
+
+    def __init__(self):
+        self.op: list[int] = []
+        self.a: list[int] = []
+        self.b: list[int] = []
+        self._cache: dict[tuple[int, int, int], int] = {}
+        self.zero = self._raw(CONST0, -1, -1)   # gate 0
+        self.one = self._raw(CONST1, -1, -1)    # gate 1
+
+    def _raw(self, op: int, a: int, b: int) -> int:
+        key = (op, a, b)
+        gid = self._cache.get(key)
+        if gid is None:
+            gid = len(self.op)
+            self.op.append(op)
+            self.a.append(a)
+            self.b.append(b)
+            self._cache[key] = gid
+        return gid
+
+    def input_bit(self, feature: int, bit: int) -> int:
+        """Bit `bit` (LSB = 0) of feature `feature`'s 8-bit master code."""
+        return self._raw(INPUT, int(feature), int(bit))
+
+    def not_(self, x: int) -> int:
+        if x == self.zero:
+            return self.one
+        if x == self.one:
+            return self.zero
+        if self.op[x] == NOT:           # ~~x = x
+            return self.a[x]
+        return self._raw(NOT, x, -1)
+
+    def _is_complement(self, x: int, y: int) -> bool:
+        return (self.op[y] == NOT and self.a[y] == x) or (
+            self.op[x] == NOT and self.a[x] == y)
+
+    def and_(self, x: int, y: int) -> int:
+        if x == y:
+            return x
+        if x == self.zero or y == self.zero:
+            return self.zero
+        if x == self.one:
+            return y
+        if y == self.one:
+            return x
+        if self._is_complement(x, y):
+            return self.zero
+        if x > y:                       # commutative normal form
+            x, y = y, x
+        return self._raw(AND, x, y)
+
+    def or_(self, x: int, y: int) -> int:
+        if x == y:
+            return x
+        if x == self.one or y == self.one:
+            return self.one
+        if x == self.zero:
+            return y
+        if y == self.zero:
+            return x
+        if self._is_complement(x, y):
+            return self.one
+        if x > y:
+            x, y = y, x
+        return self._raw(OR, x, y)
+
+    def _reduce(self, wires: list[int], fn) -> int:
+        """Balanced binary reduction (minimizes logic depth/sim levels)."""
+        if not wires:
+            raise ValueError("empty reduction")
+        while len(wires) > 1:
+            nxt = [fn(wires[i], wires[i + 1])
+                   for i in range(0, len(wires) - 1, 2)]
+            if len(wires) % 2:
+                nxt.append(wires[-1])
+            wires = nxt
+        return wires[0]
+
+    def and_many(self, wires: list[int]) -> int:
+        return self._reduce(list(wires), self.and_) if wires else self.one
+
+    def or_many(self, wires: list[int]) -> int:
+        return self._reduce(list(wires), self.or_) if wires else self.zero
+
+    def comparator(self, feature: int, t_int: int, p: int) -> int:
+        """Hard-wired ``X > t'`` where X is the top `p` master-code bits:
+        ``X >= u`` with ``u = t' + 1``; the lowest set bit of u is a free
+        wire and every higher bit one gate (u_i = 1 -> AND, 0 -> OR);
+        ``u = 2^p`` is constant false."""
+        u = int(t_int) + 1
+        if u >= (1 << p):
+            return self.zero
+        tz = (u & -u).bit_length() - 1          # trailing zeros of u
+        # truncated bit j of X is master bit (8 - p + j)
+        g = self.input_bit(feature, MASTER_BITS - p + tz)
+        for i in range(tz + 1, p):
+            xi = self.input_bit(feature, MASTER_BITS - p + i)
+            g = self.and_(xi, g) if (u >> i) & 1 else self.or_(xi, g)
+        return g
+
+
+@dataclasses.dataclass
+class ComparatorCell:
+    """One lowered comparator; `bits`/`t_int` are the EFFECTIVE width and
+    substituted threshold ((p - k, t' >> k) for a k-truncated cell)."""
+
+    feature: int
+    bits: int
+    t_int: int      # SUBSTITUTED integer threshold t' (effective)
+    wire: int       # == 0 (CONST0) when t' = 2^p - 1 folds the cell away
+    trunc: int = 0  # LSB stages dropped from the requested-width cell
+
+
+@dataclasses.dataclass
+class LeafCell:
+    literals: list  # [(comparator index, positive: bool), ...]
+    leaf_class: int
+    wire: int
+
+
+@dataclasses.dataclass
+class TreeCells:
+    comparators: list  # [ComparatorCell]
+    leaves: list       # [LeafCell]
+    votes: list        # per-class one-hot vote wires (OR of own leaves)
+
+
+@dataclasses.dataclass
+class Circuit:
+    """A finished netlist: frozen gate arrays + the cell structure."""
+
+    op: np.ndarray        # int8[G]
+    a: np.ndarray         # int32[G]
+    b: np.ndarray         # int32[G]
+    out_bits: tuple       # class-index wires, LSB first
+    trees: list           # [TreeCells]
+    n_classes: int
+
+    @property
+    def n_gates(self) -> int:
+        return int(self.op.shape[0])
+
+    @property
+    def n_trees(self) -> int:
+        return len(self.trees)
+
+
+def class_bits(n_classes: int) -> int:
+    return max(1, int(np.ceil(np.log2(max(n_classes, 2)))))
+
+
+def build_tree_cells(nb: NetlistBuilder, pt: ParallelTree, bits, t_int,
+                     n_classes: int, trunc=None) -> TreeCells:
+    """Lower one tree's comparators/leaves/votes into the shared builder;
+    `trunc` drops the k lowest stages of each comparator chain."""
+    bits = np.asarray(bits)
+    t_int = np.asarray(t_int)
+    trunc = (np.zeros_like(bits) if trunc is None else np.asarray(trunc))
+    comps = []
+    for c in range(pt.n_comparators):
+        k = int(trunc[c])
+        p_eff = max(int(bits[c]) - k, 0)
+        t_eff = int(t_int[c]) >> k
+        comps.append(ComparatorCell(
+            int(pt.feature[c]), p_eff, t_eff,
+            nb.comparator(int(pt.feature[c]), t_eff, p_eff), trunc=k))
+    leaves = []
+    for l in range(pt.n_leaves):
+        lits = [(c, int(pt.path[l, c]) == 1)
+                for c in range(pt.n_comparators) if int(pt.path[l, c]) != 0]
+        wire = nb.and_many(
+            [comps[c].wire if pos else nb.not_(comps[c].wire)
+             for c, pos in lits])
+        leaves.append(LeafCell(lits, int(pt.leaf_class[l]), wire))
+    votes = [nb.or_many([lf.wire for lf in leaves if lf.leaf_class == c])
+             for c in range(n_classes)]
+    return TreeCells(comps, leaves, votes)
+
+
+def build_circuit(ptrees, bits, t_int, n_classes: int, trunc=None,
+                  vote_adder: str = "exact") -> Circuit:
+    """Tree + decoded chromosome -> verified-hardware netlist. A single tree
+    binary-encodes its one-hot class votes (exactly one leaf fires), so
+    `vote_adder` is inert."""
+    if vote_adder not in ("exact", "approx"):
+        raise ValueError(f"unknown vote_adder {vote_adder!r}")
+    if isinstance(ptrees, ParallelTree):
+        ptrees = [ptrees]
+    if len(ptrees) != 1:
+        raise NotImplementedError(
+            "forest circuits (K > 1 trees) are not ported yet: ROADMAP.md "
+            "Queue 1 item 8")
+    pt = ptrees[0]
+    bits = np.asarray(bits)
+    if pt.n_comparators != bits.shape[0]:
+        raise ValueError(f"chromosome covers {bits.shape[0]} comparators, "
+                         f"trees have {pt.n_comparators}")
+    nb = NetlistBuilder()
+    cells = build_tree_cells(nb, pt, bits, t_int, n_classes, trunc=trunc)
+    n_bits = class_bits(n_classes)
+    out = [nb.or_many([cells.votes[c] for c in range(n_classes)
+                       if (c >> b) & 1]) for b in range(n_bits)]
+    return Circuit(
+        op=np.asarray(nb.op, np.int8),
+        a=np.asarray(nb.a, np.int32),
+        b=np.asarray(nb.b, np.int32),
+        out_bits=tuple(out[:n_bits]),
+        trees=[cells],
+        n_classes=int(n_classes),
+    )
+
+
+def levelize(circuit: Circuit) -> np.ndarray:
+    """(G,) int32 logic level per gate (0 = inputs/constants)."""
+    op, a, b = circuit.op, circuit.a, circuit.b
+    level = np.zeros(circuit.n_gates, np.int32)
+    for i in np.flatnonzero(op >= NOT):
+        la = level[a[i]]
+        lb = level[b[i]] if op[i] != NOT else 0
+        level[i] = max(la, lb) + 1
+    return level
+
+
+def simulate(circuit: Circuit, x8) -> torch.Tensor:
+    """(B,) int32 predicted class over (B, F) integer master codes, on the
+    device of ``x8`` (a numpy array runs on the CPU).
+
+    Gates are grouped by logic level and each level is one gather and one
+    boolean op over all its gates at once.
+    """
+    op, a, b = circuit.op, circuit.a, circuit.b
+    level = levelize(circuit)
+    x8 = torch.as_tensor(x8).to(torch.int32)
+    dev = x8.device
+    n_b = x8.shape[0]
+    vals = torch.zeros((n_b, circuit.n_gates), dtype=torch.bool, device=dev)
+
+    def idx(arr):
+        return torch.as_tensor(np.ascontiguousarray(arr), dtype=torch.int64,
+                               device=dev)
+
+    base = np.flatnonzero(level == 0)
+    feat = idx(np.maximum(a[base], 0))
+    bit = idx(np.maximum(b[base], 0)).to(torch.int32)
+    in_vals = ((x8[:, feat] >> bit[None, :]) & 1).to(torch.bool)
+    base_ops = idx(op[base])[None, :]
+    vals[:, idx(base)] = torch.where(base_ops == INPUT, in_vals,
+                                     base_ops == CONST1)
+
+    for lvl in range(1, int(level.max()) + 1 if (op >= NOT).any() else 1):
+        gates = np.flatnonzero(level == lvl)
+        if gates.size == 0:
+            continue
+        av = vals[:, idx(a[gates])]
+        bv = vals[:, idx(np.maximum(b[gates], 0))]
+        ops = idx(op[gates])[None, :]
+        out = torch.where(
+            ops == NOT, ~av,
+            torch.where(ops == AND, av & bv,
+                        torch.where(ops == OR, av | bv, av ^ bv)))
+        vals[:, idx(gates)] = out
+
+    cls = torch.zeros((n_b,), dtype=torch.int32, device=dev)
+    for i, w in enumerate(circuit.out_bits):
+        cls = cls | (vals[:, w].to(torch.int32) << i)
+    return cls
+
+
+def gate_counts(circuit: Circuit) -> dict:
+    """Logic-gate inventory after CSE/constant propagation."""
+    ops, counts = np.unique(circuit.op, return_counts=True)
+    by_name = {OP_NAMES[o]: int(c) for o, c in zip(ops, counts)}
+    return {name: by_name.get(name, 0) for name in ("and", "or", "not", "xor")}
+
+
+def netlist_area_mm2(circuit: Circuit) -> float:
+    """Synthesized-netlist area: every gate priced, nothing estimated."""
+    c = gate_counts(circuit)
+    return area_mod.gate_area_mm2(n_and=c["and"], n_or=c["or"],
+                                  n_not=c["not"], n_xor=c["xor"])

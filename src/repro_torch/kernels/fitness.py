@@ -1,0 +1,108 @@
+"""Fused population fitness: Hopper kernel and plain version.
+
+Replaces the TPU kernel `repro/kernels/fitness.py::fitness_errors`. For
+every chromosome p it counts the test samples the approximate tree
+classifies correctly:
+
+    x_p   = x_sel >> shift[p]          (x_sel: the hoisted x8[:, feature])
+    d     = x_p > thr[p]
+    votes = (d @ PATH^T == target) @ CLS1H,  clipped to vote_cap[p]
+    count = sum_b (first-max argmax(votes) == y[b])
+
+Only the (P,) counts leave the kernel (`csrc/fitness.cu`; what bounds it on
+the H100 and how the design answers is stated there). The TPU kernel's
+(P, 128) lane-replicated output was a layout artifact; this returns (P,).
+Everything is integer: `floor(x * 2^-(8-p))` of the TPU kernel is
+``x >> (8 - p)`` on integer codes, and ``vote_cap`` is an int32 (1 for the
+approximate vote adder, `repro_torch.core.quant.NO_VOTE_CAP` for the exact
+one). On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA
+tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.tree_infer import (PLAIN_CHUNK, leaf_votes_plain,
+                                           mask_words)
+
+
+@dataclasses.dataclass
+class FitnessOperands:
+    """Chromosome-invariant operands of `fitness_correct_counts`."""
+
+    x_sel_t: torch.Tensor     # (N, B) uint8 gathered codes, sample-minor
+    y: torch.Tensor           # (B,) int32 labels; -1 rows never count
+    path: torch.Tensor        # (L, N) int8 in {-1, 0, 1} (plain version)
+    pos: torch.Tensor         # (L, W) int32 bit masks of the +1 entries
+    neg: torch.Tensor         # (L, W) int32 bit masks of the -1 entries
+    target: torch.Tensor      # (L,) int32 score of a satisfied leaf
+    leaf_class: torch.Tensor  # (L,) int32 in [0, n_classes)
+    n_classes: int
+    n_valid: int              # rows with a label >= 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.path.device
+
+
+def fitness_correct_counts_plain(ops: FitnessOperands, shift: torch.Tensor,
+                                 thr: torch.Tensor,
+                                 vote_cap: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `fitness_correct_counts`."""
+    x_sel = ops.x_sel_t.T
+    counts = []
+    for p0 in range(0, shift.shape[0], PLAIN_CHUNK):
+        votes = leaf_votes_plain(x_sel, shift[p0:p0 + PLAIN_CHUNK],
+                                 thr[p0:p0 + PLAIN_CHUNK], ops.path,
+                                 ops.target, ops.leaf_class, ops.n_classes)
+        votes = torch.minimum(votes, vote_cap[p0:p0 + PLAIN_CHUNK, None, None])
+        pred = torch.argmax(votes, dim=-1)                  # first max
+        counts.append((pred == ops.y[None].long()).sum(-1).to(torch.int32))
+    if not counts:
+        return torch.zeros((0,), dtype=torch.int32, device=shift.device)
+    return torch.cat(counts)
+
+
+def fitness_correct_counts(ops: FitnessOperands, shift: torch.Tensor,
+                           thr: torch.Tensor,
+                           vote_cap: torch.Tensor) -> torch.Tensor:
+    """(P,) int32 correct-sample counts; shift/thr (P, N) int32, vote_cap
+    (P,) int32. Counts its kernel launches in
+    ``fitness_correct_counts.launches``."""
+    if not _build.on_cuda(shift, "fitness_correct_counts"):
+        return fitness_correct_counts_plain(ops, shift, thr, vote_cap)
+    dev = shift.device
+    n_pop, n = shift.shape
+    batch = ops.x_sel_t.shape[1]
+    n_leaves, words = ops.pos.shape
+    _build.require(ops.x_sel_t, "x_sel_t", torch.uint8, dev, (n, batch))
+    _build.require(shift, "shift", torch.int32, dev)
+    _build.require(thr, "thr", torch.int32, dev, (n_pop, n))
+    _build.require(vote_cap, "vote_cap", torch.int32, dev, (n_pop,))
+    _build.require(ops.y, "y", torch.int32, dev, (batch,))
+    if words != mask_words(n):
+        raise ValueError(f"path masks have {words} words per leaf, "
+                         f"expected {mask_words(n)} for {n} comparators")
+    for name in ("pos", "neg"):
+        _build.require(getattr(ops, name), name, torch.int32, dev,
+                       (n_leaves, words))
+    for name in ("target", "leaf_class"):
+        _build.require(getattr(ops, name), name, torch.int32, dev, (n_leaves,))
+    correct = torch.zeros((n_pop,), dtype=torch.int32, device=dev)
+    if n_pop == 0 or batch == 0:
+        return correct
+    fn = _build.function("fitness", "repro_fitness_correct_counts", 10, 6)
+    rc = fn(_build.ptr(ops.x_sel_t), _build.ptr(shift), _build.ptr(thr),
+            _build.ptr(ops.pos), _build.ptr(ops.neg), _build.ptr(ops.target),
+            _build.ptr(ops.leaf_class), _build.ptr(ops.y),
+            _build.ptr(vote_cap), _build.ptr(correct), n_pop, batch, n,
+            n_leaves, ops.n_classes, words, _build.stream(dev))
+    _build.check_launch(rc, "fitness_correct_counts")
+    fitness_correct_counts.launches += 1
+    return correct
+
+
+fitness_correct_counts.launches = 0

@@ -1,0 +1,159 @@
+"""Operand preparation and call sites of the three tree kernels.
+
+The counterpart of `repro.kernels.ops`. The TPU wrappers padded every axis
+to (8, 128) tiles and turned integers into float32; the Hopper kernels mask
+their ragged edges and work on integers, so here the static operands are
+the path matrix packed into bit masks and the per-chromosome operands are
+int32 shifts (``8 - bits``, in place of the float scale ``2^-(8-bits)``)
+and thresholds. Each function runs where its tensors lie: the kernels on a
+CUDA tensor, their plain versions on a CPU tensor.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import quant
+from repro_torch.kernels import domination as _dom
+from repro_torch.kernels import fitness as _fit
+from repro_torch.kernels import tree_infer as _ti
+
+
+def _as_int32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, device=device).to(torch.int32).contiguous()
+
+
+def _leaf_operands(path, path_len, n_neg, leaf_class, n_classes: int, device):
+    path = torch.as_tensor(path, device=device).to(torch.int8).contiguous()
+    leaf_class = _as_int32(leaf_class, device)
+    if leaf_class.numel() and not (0 <= int(leaf_class.min())
+                                   and int(leaf_class.max()) < n_classes):
+        raise ValueError(f"leaf classes must lie in [0, {n_classes})")
+    pos, neg = _ti.pack_path(path)
+    target = _as_int32(path_len, device) - _as_int32(n_neg, device)
+    return path, pos, neg, target, leaf_class
+
+
+def prepare_operands(feature, path, path_len, n_neg, leaf_class,
+                     n_classes: int, n_features: int,
+                     device=None) -> _ti.TreeOperands:
+    """Static `tree_infer_scores` operands from comparator/leaf arrays
+    (``device`` defaults to where ``path`` lies)."""
+    device = device if device is not None else torch.as_tensor(path).device
+    path, pos, neg, target, leaf_class = _leaf_operands(
+        path, path_len, n_neg, leaf_class, n_classes, device)
+    feature = _as_int32(feature, device)
+    if feature.numel() and not (0 <= int(feature.min())
+                                and int(feature.max()) < n_features):
+        raise ValueError(f"comparator features must lie in [0, {n_features})")
+    return _ti.TreeOperands(
+        feature=feature, path=path, pos=pos, neg=neg,
+        target=target, leaf_class=leaf_class, n_classes=int(n_classes),
+        n_features=int(n_features))
+
+
+def prepare_fitness_operands(x_sel, y, path, path_len, n_neg, leaf_class,
+                             n_classes: int,
+                             device=None) -> _fit.FitnessOperands:
+    """Chromosome-invariant `fitness_correct_counts` operands. ``x_sel`` is
+    the hoisted gather ``x8[:, feature]`` (B, N) of codes in [0, 255]."""
+    device = device if device is not None else torch.as_tensor(x_sel).device
+    x_sel = torch.as_tensor(x_sel, device=device)
+    if x_sel.numel() and not (0 <= int(x_sel.min()) and int(x_sel.max()) <= 255):
+        raise ValueError("x_sel codes must lie in [0, 255]")
+    y = _as_int32(y, device)
+    path, pos, neg, target, leaf_class = _leaf_operands(
+        path, path_len, n_neg, leaf_class, n_classes, device)
+    return _fit.FitnessOperands(
+        x_sel_t=x_sel.to(torch.uint8).T.contiguous(), y=y, path=path,
+        pos=pos, neg=neg, target=target, leaf_class=leaf_class,
+        n_classes=int(n_classes), n_valid=int((y >= 0).sum()))
+
+
+def decode_population_full(threshold: torch.Tensor, genes: torch.Tensor):
+    """ONE gene decode shared by the accuracy and area terms.
+
+    threshold (N,) float32; genes (P, 3N+1). Returns (shift, t_eff,
+    bits_eff, vote_cap): (P, N) int32 effective operands with LSB truncation
+    folded in (width p - k, threshold t' >> k, shift 8 - p + k) and the
+    (P,) int32 vote cap.
+    """
+    bits, margin, trunc, vote = quant.decode_tree_genes(genes)
+    t_int = quant.threshold_to_int(threshold[None, :], bits)
+    t_sub = quant.substitute(t_int, margin, bits)
+    bits_eff = bits - trunc
+    t_eff = t_sub >> trunc
+    shift = (quant.MASTER_BITS - bits_eff).contiguous()
+    return shift, t_eff.contiguous(), bits_eff, quant.vote_cap_of(vote)
+
+
+def decode_population(threshold: torch.Tensor, genes: torch.Tensor):
+    """(shift, thr, vote_cap) kernel operands from genes (P, 3N+1)."""
+    shift, t_eff, _, vote_cap = decode_population_full(threshold, genes)
+    return shift, t_eff, vote_cap
+
+
+def fitness_errors(fit_ops: _fit.FitnessOperands, shift: torch.Tensor,
+                   thr: torch.Tensor,
+                   vote_cap: torch.Tensor | None = None) -> torch.Tensor:
+    """(P,) int32 misclassified-sample counts of a population."""
+    if vote_cap is None:
+        vote_cap = torch.full((shift.shape[0],), quant.NO_VOTE_CAP,
+                              dtype=torch.int32, device=shift.device)
+    counts = _fit.fitness_correct_counts(fit_ops, shift, thr, vote_cap)
+    return fit_ops.n_valid - counts
+
+
+def tree_infer_predict(x8: torch.Tensor, operands: _ti.TreeOperands,
+                       shift: torch.Tensor, thr: torch.Tensor,
+                       vote_cap: torch.Tensor | None = None) -> torch.Tensor:
+    """(P, B) int64 predicted classes: the kernel's votes clipped to the
+    vote cap, first-max argmax."""
+    votes = _ti.tree_infer_scores(x8.to(torch.int32).contiguous(), operands,
+                                  shift, thr)
+    if vote_cap is not None:
+        votes = torch.minimum(votes, vote_cap[:, None, None])
+    return torch.argmax(votes, dim=-1)
+
+
+def domination_block(objs_i: torch.Tensor, objs_j: torch.Tensor):
+    """(Pi, Pj) float32 {0, 1} domination slab (rows dominate columns)."""
+    return domination_block_bool(objs_i, objs_j).to(torch.float32)
+
+
+def domination_block_bool(objs_i: torch.Tensor, objs_j: torch.Tensor):
+    """The slab as the bool matrix `core.nsga2` consumes."""
+    return _dom.domination_block(objs_i.to(torch.float32).contiguous(),
+                                 objs_j.to(torch.float32).contiguous())
+
+
+def domination_matrix(objs: torch.Tensor):
+    """(P, P) float32 {0, 1} domination matrix."""
+    return domination_block(objs, objs)
+
+
+def domination_matrix_bool(objs: torch.Tensor):
+    return domination_block_bool(objs, objs)
+
+
+def prepare_design(bits, t_int, trunc=None, vote_adder: str = "exact",
+                   device=None):
+    """Fixed-design kernel operands from a decoded pareto point: (shift,
+    thr) (1, N) int32 and vote_cap (1,) int32, truncation folded in."""
+    if vote_adder not in quant.VOTE_ADDER_MODES:
+        raise ValueError(f"unknown vote_adder {vote_adder!r}")
+    bits = _as_int32(bits, device)
+    t_int = _as_int32(t_int, device)
+    if trunc is not None:
+        k = _as_int32(trunc, device)
+        bits = bits - k
+        t_int = t_int >> k
+    shift = (quant.MASTER_BITS - bits)[None, :].contiguous()
+    cap = 1 if vote_adder == "approx" else quant.NO_VOTE_CAP
+    vote_cap = torch.full((1,), cap, dtype=torch.int32, device=bits.device)
+    return shift, t_int[None, :].contiguous(), vote_cap
+
+
+def classify(x8: torch.Tensor, operands: _ti.TreeOperands, design):
+    """(B,) predicted classes of ONE fixed design: the P = 1 row."""
+    shift, thr, vote_cap = design
+    return tree_infer_predict(x8, operands, shift, thr, vote_cap)[0]

@@ -1,0 +1,241 @@
+"""`run_search`: the NSGA-II search loop of the single-tree search.
+
+The counterpart of the single-device path of `repro.search.engine`:
+
+    problem = search.build_problem(ptree, x_test, y_test, device="cuda")
+    result  = search.run_search(problem, SearchConfig(backend="kernel"))
+
+Generations run as a host loop, one `nsga2.make_step` call each, with the
+draws made from a `torch.Generator` seeded with ``cfg.seed`` on the
+problem's device; `SearchResult.n_dispatches` counts those host calls (the
+initial population included). With ``out_dir`` the pareto front is written
+to ``pareto.json`` in the schema `repro.search.load_pareto_artifact` reads.
+Checkpoint/resume, islands and meshes are later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import nsga2, quant
+from repro_torch.search import backends as _backends
+from repro_torch.search.problem import SearchProblem
+
+
+@dataclasses.dataclass
+class SearchConfig:
+    backend: str = "reference"      # reference | kernel
+    pop_size: int = 64
+    n_generations: int = 40
+    seed: int = 0
+    seed_exact: bool = True         # inject the exact design into the init pop
+    dataset: str | None = None      # dataset label recorded in pareto.json
+    out_dir: str | None = None
+    emit_rtl: bool = False          # write per-pareto-point Verilog (OUT/rtl/)
+    verify_rtl: bool = False        # netlist-simulate every pareto point and
+                                    # assert it equals predict_votes and the
+                                    # tree_infer_scores kernel
+
+
+@dataclasses.dataclass
+class SearchResult:
+    state: nsga2.NSGA2State
+    pareto_objs: np.ndarray    # (K, 2) accuracy-loss / normalized-area
+    pareto_genes: np.ndarray   # (K, 3N+1)
+    backend: str
+    wall_s: float
+    n_evaluations: int
+    n_dispatches: int = 0      # generation-loop calls from the host
+
+    def best_under_loss(self, max_loss: float = 0.01):
+        """Smallest-area pareto point within an accuracy-loss budget."""
+        ok = self.pareto_objs[:, 0] <= max_loss + 1e-9
+        if not ok.any():
+            return None
+        idx = np.flatnonzero(ok)
+        best = idx[np.argmin(self.pareto_objs[idx, 1])]
+        return self.pareto_objs[best], self.pareto_genes[best]
+
+
+def run_search(problem: SearchProblem, cfg: SearchConfig | None = None,
+               **overrides) -> SearchResult:
+    """Search the problem's design space on its device; `overrides` are
+    applied on top of `cfg` (or a default SearchConfig)."""
+    cfg = dataclasses.replace(cfg or SearchConfig(), **overrides)
+    if cfg.backend not in _backends.BACKENDS:
+        raise ValueError(
+            f"unknown backend {cfg.backend!r}; options: {_backends.BACKENDS}")
+    if (cfg.emit_rtl or cfg.verify_rtl) and not cfg.out_dir:
+        raise ValueError("emit_rtl/verify_rtl require out_dir")
+    if cfg.pop_size < 2 or cfg.pop_size % 2:
+        raise ValueError(f"pop_size must be even and >= 2, got {cfg.pop_size}")
+
+    device = problem.device
+    t0 = time.time()
+    fitness = _backends.make_fitness(problem, cfg.backend)
+    nsga_cfg = nsga2.NSGA2Config(pop_size=cfg.pop_size,
+                                 n_generations=cfg.n_generations)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(cfg.seed)
+    seed_genes = problem.exact_genes() if cfg.seed_exact else None
+    draws = nsga2.draw_init(generator, cfg.pop_size, problem.n_genes,
+                            0 if seed_genes is None else 1, device)
+    state = nsga2.init_state(fitness, nsga_cfg, draws, seed_genes=seed_genes)
+    step = nsga2.make_step(fitness, nsga_cfg)
+    for _ in range(cfg.n_generations):
+        state = step(state, nsga2.draw_step(generator, cfg.pop_size,
+                                            problem.n_genes, device))
+    objs, genes = nsga2.pareto_front(state.objs, state.genes)
+    wall_s = time.time() - t0
+
+    result = SearchResult(
+        state=state,
+        pareto_objs=objs,
+        pareto_genes=genes,
+        backend=cfg.backend,
+        wall_s=wall_s,
+        n_evaluations=cfg.pop_size * (1 + cfg.n_generations),
+        n_dispatches=1 + cfg.n_generations,
+    )
+    if cfg.out_dir:
+        write_pareto_artifact(problem, result, cfg.out_dir,
+                              emit_rtl=cfg.emit_rtl,
+                              verify_rtl=cfg.verify_rtl, dataset=cfg.dataset)
+    return result
+
+
+def _make_kernel_predict(problem: SearchProblem):
+    """Single chromosome (3N+1,) -> (B,) predictions through the
+    `tree_infer_scores` kernel: the third leg of the RTL verification
+    triangle."""
+    from repro_torch.kernels import ops as kops
+
+    operands = kops.prepare_operands(
+        problem.feature, problem.path, problem.path_len, problem.n_neg,
+        problem.leaf_class, problem.n_classes, problem.n_features)
+
+    def predict(genes):
+        shift, thr, vote_cap = kops.decode_population(
+            problem.threshold, genes[None, :])
+        return kops.tree_infer_predict(problem.x8, operands, shift, thr,
+                                       vote_cap)[0]
+
+    return predict
+
+
+def netlist_area_ratios(points) -> list[float]:
+    """Per-point netlist/LUT area ratio from `pareto.json` points (the
+    paper's Fig. 5 estimated-vs-actual gap); zero-area points skipped."""
+    return [p["area_netlist_mm2"] / p["area_mm2"] for p in points
+            if p["area_mm2"] > 0]
+
+
+def write_pareto_artifact(problem: SearchProblem, result: SearchResult,
+                          out_dir: str, *, emit_rtl: bool = False,
+                          verify_rtl: bool = False,
+                          dataset: str | None = None) -> str:
+    """pareto.json: objectives + genes + decoded designs + hardware artifact.
+
+    Every point records the decoded `bits`/`margin`/`t_int` (pre-truncation),
+    `trunc` and `vote_adder`, the LUT area estimate beside the netlist area,
+    and the file carries the tree layout, so a design re-materializes from
+    the artifact alone. emit_rtl writes each point's Verilog under OUT/rtl/;
+    verify_rtl simulates each point's netlist over the test set and asserts
+    it equals `predict_votes` and the `tree_infer_scores` kernel.
+    """
+    from repro_torch.core import netlist, rtl
+    from repro_torch.search import artifact as _artifact
+    from repro_torch.search.problem import predict_votes, problem_ptrees
+
+    os.makedirs(out_dir, exist_ok=True)
+    ptrees = problem_ptrees(problem)
+    if emit_rtl:
+        os.makedirs(os.path.join(out_dir, "rtl"), exist_ok=True)
+    kernel_predict = _make_kernel_predict(problem) if verify_rtl else None
+
+    points = []
+    for i, (o, g) in enumerate(zip(result.pareto_objs, result.pareto_genes)):
+        g_t = torch.as_tensor(g, dtype=torch.float32, device=problem.device)
+        bits_t, margin_t, trunc_t, vote_t = quant.decode_tree_genes(g_t)
+        t_sub_t = quant.substitute(
+            quant.threshold_to_int(problem.threshold, bits_t), margin_t,
+            bits_t)
+        bits = bits_t.cpu().numpy()
+        t_sub = t_sub_t.cpu().numpy()
+        trunc = trunc_t.cpu().numpy()
+        vote_adder = "approx" if int(vote_t) else "exact"
+        circuit = netlist.build_circuit(ptrees, bits, t_sub,
+                                        problem.n_classes, trunc=trunc,
+                                        vote_adder=vote_adder)
+        point = {
+            "acc_loss": float(o[0]),
+            "norm_area": float(o[1]),
+            "area_mm2": float(o[1] * problem.exact_area_mm2),
+            "area_netlist_mm2": round(netlist.netlist_area_mm2(circuit), 4),
+            "netlist_gates": netlist.gate_counts(circuit),
+            "bits": bits.tolist(),
+            "margin": margin_t.cpu().numpy().tolist(),
+            "t_int": t_sub.tolist(),
+            "trunc": trunc.tolist(),
+            "vote_adder": vote_adder,
+            "genes": np.asarray(g, np.float64).round(6).tolist(),
+        }
+        if emit_rtl:
+            verilog = rtl.emit_design(ptrees, bits, t_sub, problem.n_classes,
+                                      trunc=trunc, vote_adder=vote_adder)
+            rel = os.path.join("rtl", f"point_{i:02d}.v")
+            with open(os.path.join(out_dir, rel), "w") as f:
+                f.write(verilog)
+            point["rtl"] = rel
+        if verify_rtl:
+            sim = netlist.simulate(circuit, problem.x8).cpu().numpy()
+            ref = predict_votes(problem, bits_t - trunc_t, t_sub_t >> trunc_t,
+                                quant.vote_cap_of(vote_t)).cpu().numpy()
+            ker = kernel_predict(g_t).cpu().numpy()
+            if not (np.array_equal(sim, ref) and np.array_equal(sim, ker)):
+                n_ref = int((sim != ref).sum())
+                n_ker = int((sim != ker).sum())
+                raise AssertionError(
+                    f"pareto point {i}: netlist simulation diverges from "
+                    f"predict_votes on {n_ref} and from the kernel backend "
+                    f"on {n_ker} of {sim.shape[0]} test samples")
+            point["verified"] = True
+        points.append(point)
+
+    payload = {
+        "family": "tree",
+        "backend": result.backend,
+        "wall_s": round(result.wall_s, 3),
+        "n_evaluations": result.n_evaluations,
+        "n_dispatches": result.n_dispatches,
+        "n_trees": problem.n_trees,
+        "n_comparators": problem.n_comparators,
+        "n_classes": problem.n_classes,
+        "tree_comparators": list(problem.tree_comparators),
+        "tree_leaves": list(problem.tree_leaves),
+        "feature": problem.feature.cpu().numpy().tolist(),
+        "threshold": np.asarray(problem.threshold.cpu().numpy(), np.float64)
+                       .round(8).tolist(),
+        "path": problem.path.cpu().numpy().tolist(),
+        "path_len": problem.path_len.cpu().numpy().tolist(),
+        "n_neg": problem.n_neg.cpu().numpy().tolist(),
+        "leaf_class": problem.leaf_class.cpu().numpy().tolist(),
+        "exact_accuracy": problem.exact_accuracy,
+        "exact_area_mm2": problem.exact_area_mm2,
+        "rtl_verified": bool(verify_rtl),
+        "pareto": points,
+    }
+    if dataset is not None:
+        payload["dataset"] = dataset
+    _artifact.validate_payload(payload, where="write_pareto_artifact")
+    path = os.path.join(out_dir, "pareto.json")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f, indent=1)
+    os.replace(tmp, path)
+    return path
