@@ -5,26 +5,36 @@
 
 Phases, each of which stops the script with a non-zero exit on failure:
 
-1. Build the three Hopper kernels from `src/repro_torch/csrc/` (one nvcc per
+1. Build the four Hopper kernels from `src/repro_torch/csrc/` (one nvcc per
    source, all started together, `sm_90a`) and report nvcc's register and
    spill summary.
-2. Hold each kernel to its plain PyTorch version on the card, with exact
-   equality, at the main path's shapes (the `har` dataset: N=588
-   comparators, L=589 leaves, B=3090 test rows, C=6 classes); check that
-   the kernel backend scores the exact design (0, 1); and time both on the
-   device (a `torch.profiler` trace of back-to-back calls) beside the
-   kernel's bound: the larger of its bytes over 3.35 TB/s and its
-   operations over the peak rate of their type (1979 TOP/s int8 for the
-   tree dataflow, 67 TFLOP/s float32 outside the tensor cores for the
-   domination compares).
-3. The main path through the user's entry points: train the `har` tree,
-   `run_search(backend="kernel", pop_size=512, verify_rtl=True)` into a
-   temporary `pareto.json`, then `ClassifyServer.from_artifact` serving
+2. Hold each kernel to its plain PyTorch version on the card at the main
+   paths' shapes (the `har` dataset: a tree of N=588 comparators and L=589
+   leaves, and a printed MLP of F=561 features, H=16 hidden and C=6 output
+   neurons, over B=3090 test rows): exact equality for the tree kernels
+   and for `qmatmul` on integer codes, a stated tolerance for `qmatmul` on
+   float inputs; check that each kernel backend scores the exact design
+   (0, 1); and time both on the device (a `torch.profiler` trace of
+   back-to-back calls) beside the kernel's bound: the larger of its bytes
+   over 3.35 TB/s and its operations over the peak rate of their type
+   (1979 TOP/s int8 for the tree dataflow and for `qmatmul` on integer
+   codes, 67 TFLOP/s float32 outside the tensor cores for the domination
+   compares and `qmatmul` on float32 x, 989 TFLOP/s bf16), and,
+   for `qmatmul`, beside the one PyTorch call that computes the same
+   function (`torch.mm`, TF32 off).
+3. The tree main path through the user's entry points: train the `har`
+   tree, `run_search(backend="kernel", pop_size=512, verify_rtl=True)` into
+   a temporary `pareto.json`, then `ClassifyServer.from_artifact` serving
    requests of 1, 37, 1024 and 3090 rows, each checked against the
-   gate-level netlist simulation. The kernels' launch counters are set to 0
-   just before and read just after, and every kernel must have launched.
-4. Print the kernel list, the card's name and power limit, one JSON line
-   of per-kernel results, and last `{"ok": true, "device": {...}}`.
+   gate-level netlist simulation.
+4. The printed-MLP main path the same way: `har` at hidden 16, pop 512,
+   then `pendigits` at pop 128 (its exact design is far from chance), each
+   served request checked against the netlist and the integer predict.
+   Before each path the kernels' launch counters are set to 0 and just
+   after they are read; every kernel of the path must have launched.
+5. Print where one generation's time goes on each path, the kernel list,
+   the card's name and power limit, one JSON line of per-kernel results,
+   and last `{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or without the repository's `src/` beside it, the
 script exits non-zero and prints no result.
@@ -50,9 +60,13 @@ DATASET = "har"
 POP = 512
 GENS = 8
 SEED = 0
+MLP_HIDDEN = 16
+MLP_RUNS = (("har", 512), ("pendigits", 128))    # (dataset, pop), GENS each
+QMM_RTOL, QMM_ATOL = 1e-5, 1e-3   # qmatmul on float inputs (module doc)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12       # H100 SXM tensor cores, int8 dense
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, bf16 dense
 TPU_KERNELS = {  # kernel -> (port source, the TPU kernel it replaces)
     "fitness_errors": ("src/repro_torch/csrc/fitness.cu",
                        "src/repro/kernels/fitness.py:109"),
@@ -60,6 +74,8 @@ TPU_KERNELS = {  # kernel -> (port source, the TPU kernel it replaces)
                          "src/repro/kernels/domination.py:57"),
     "tree_infer_scores": ("src/repro_torch/csrc/tree_infer.cu",
                           "src/repro/kernels/tree_infer.py:81"),
+    "qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
+                "src/repro/kernels/qmatmul.py:40"),
 }
 
 
@@ -285,8 +301,29 @@ def phase_kernels(problem, rng) -> dict:
     return results
 
 
+TREE_KERNELS = ("fitness_errors", "domination_block", "tree_infer_scores")
+
+
+def serve_latency(server, codes, oracle, what: str) -> dict:
+    """Serve requests of 1, 37, 1024 and all rows of ``codes``, each
+    checked against ``oracle(rows) -> (name, predictions)`` pairs; returns
+    the host-clock latency (ms) per request size and the last predictions."""
+    latency = {}
+    for rows in (1, 37, 1024, codes.shape[0]):
+        t0 = time.perf_counter()
+        served = server.classify(codes[:rows])
+        latency[rows] = (time.perf_counter() - t0) * 1e3
+        for name, want in oracle(rows):
+            check(np.array_equal(served, want),
+                  f"{what}: served predictions of a {rows}-row request "
+                  f"differ from the {name} on {int((served != want).sum())} "
+                  f"rows")
+    return latency, served
+
+
 def phase_main_path(problem, out_dir: str) -> dict:
-    """search -> pareto.json (netlists verified) -> serve, counted."""
+    """The tree path: search -> pareto.json (netlists verified) -> serve,
+    counted."""
     from repro_torch import kernels, search
     from repro_torch.core import netlist
     from repro_torch.datasets import load_dataset
@@ -337,22 +374,16 @@ def phase_main_path(problem, out_dir: str) -> dict:
                                     trunc=trunc, vote_adder=vote_adder)
     ds = load_dataset(DATASET)
     codes = server.featurize(ds.x_test)
-    latency = {}
-    for rows in (1, 37, 1024, codes.shape[0]):
-        t0 = time.perf_counter()
-        served = server.classify(codes[:rows])
-        latency[rows] = (time.perf_counter() - t0) * 1e3
-        gates = netlist.simulate(circuit, torch.as_tensor(
-            codes[:rows], device=problem.device)).cpu().numpy()
-        check(np.array_equal(served, gates),
-              f"served predictions of a {rows}-row request differ from the "
-              f"netlist on {int((served != gates).sum())} rows")
+    latency, served = serve_latency(
+        server, codes, lambda rows: [("netlist", netlist.simulate(
+            circuit, torch.as_tensor(codes[:rows], device=problem.device))
+            .cpu().numpy())], "tree")
     acc = float((served == ds.y_test).mean())
     check(abs(acc - art.point_accuracy(idx)) <= 1e-6,
           f"served accuracy {acc} != recorded {art.point_accuracy(idx)}")
     counts = kernels.launch_counts()
-    check(all(v > 0 for v in counts.values()),
-          f"a kernel of the path never launched: {counts}")
+    check(all(counts[k] > 0 for k in TREE_KERNELS),
+          f"a kernel of the tree path never launched: {counts}")
     log(f"[main] served point {idx} (acc_loss {art.points[idx]['acc_loss']:+.4f}, "
         f"norm_area {art.points[idx]['norm_area']:.4f}) over requests of "
         f"{sorted(latency)} rows == netlist simulation; accuracy {acc:.6f} "
@@ -362,18 +393,208 @@ def phase_main_path(problem, out_dir: str) -> dict:
     return dict(counts=counts, state=result.state)
 
 
-def phase_breakdown(problem, state, rng) -> None:
-    """Where one generation's time goes: a whole `make_step` against its
-    fitness call and its survivor selection (sort + crowding), host clock
-    around synchronised calls, median of 3; the sort's fronts are its host
-    round trips."""
-    from repro_torch.core import nsga2
-    from repro_torch.search import make_kernel_fitness
+def phase_qmatmul(problem, rng) -> dict:
+    """`qmatmul` against its plain version: exact on integer codes at the
+    MLP fitness shape (3090 x 561 @ 561 x 8192, the problem's own codes) and
+    at the serving and verify shapes (N=16); within (QMM_RTOL, QMM_ATOL) on
+    random float32 and bfloat16 x with int8 weights over [-128, 127] and a
+    random scale, at ragged M, K and N. The kernel backend scores the exact
+    design (0, 1). Each case is timed beside its bound (operations at the
+    int8 rate for integer codes, at the float32 or bf16 rate for float x)
+    and, for float32 x,
+    beside `torch.mm` on the same inputs (TF32 off; the weight cast to
+    float32, times the scale, is made before the timed window)."""
+    from repro_torch.families import printed_mlp as pm
+    from repro_torch.kernels import qmatmul as qmm
 
-    fitness = make_kernel_fitness(problem)
-    cfg = nsga2.NSGA2Config(pop_size=POP)
-    step = nsga2.make_step(fitness, cfg)
-    gen = torch.Generator(device=problem.device).manual_seed(SEED + 1)
+    dev = problem.device
+    x = problem.x8f
+    b, f = x.shape
+    h = problem.n_hidden
+    n = POP * h
+    w = torch.as_tensor(rng.integers(-8, 8, (f, n)).astype(np.int8),
+                        device=dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    cases = [("fitness", x, w, ones, True)]
+    for rows in (1, 37, 1024, b):
+        cases.append((f"serve/verify M={rows}", x[:rows].contiguous(),
+                      w[:, :h].contiguous(), ones[:h].contiguous(), True))
+    m_g, k_g, n_g = 300, 777, 515
+    xg = torch.as_tensor(rng.standard_normal((m_g, k_g)).astype(np.float32),
+                         device=dev)
+    wg = torch.as_tensor(rng.integers(-128, 128, (k_g, n_g)).astype(np.int8),
+                         device=dev)
+    sg = torch.as_tensor(rng.uniform(0.001, 0.1, n_g).astype(np.float32),
+                         device=dev)
+    cases += [("general float32", xg, wg, sg, False),
+              ("general bfloat16", xg.to(torch.bfloat16), wg, sg, False)]
+
+    err = 0.0
+    for name, xc, wc, sc, exact in cases:
+        got = qmm.qmatmul(xc, wc, sc)
+        torch.cuda.synchronize()
+        want = qmm.qmatmul_plain(xc, wc, sc)
+        e = float((got - want).abs().max())
+        where = f"qmatmul {name} {tuple(xc.shape)} @ {tuple(wc.shape)}"
+        if exact:
+            check(torch.equal(got, want),
+                  f"{where} differs from its plain version by {e}")
+        else:
+            check(torch.allclose(got, want, rtol=QMM_RTOL, atol=QMM_ATOL),
+                  f"{where} differs from its plain version by {e} (rtol "
+                  f"{QMM_RTOL}, atol {QMM_ATOL})")
+        err = max(err, e)
+    exact_objs = pm.make_kernel_fitness(problem)(torch.as_tensor(
+        problem.exact_genes(), device=dev)[None])
+    check(exact_objs.tolist() == [[0.0, 1.0]],
+          f"the MLP kernel backend scores the exact design "
+          f"{exact_objs.tolist()[0]}, not (0, 1)")
+
+    results = None
+    for name, xc, wc, sc, exact in cases:
+        m, k = xc.shape
+        nn = wc.shape[1]
+        ms, plain_ms, text = timed(lambda: qmm.qmatmul(xc, wc, sc),
+                                   lambda: qmm.qmatmul_plain(xc, wc, sc),
+                                   "qmatmul_kernel", reps=10, plain_reps=5)
+        lib_ms, lib_text = None, "torch.mm n/a (no one call takes bf16 x " \
+                                 "with float32 weights)"
+        if xc.dtype == torch.float32:
+            wf = wc.to(torch.float32) * sc
+            lib_ms = device_ms(lambda: torch.mm(xc, wf), 10)
+            if lib_ms is None:      # the trace held no device activity
+                lib_ms = stream_ms(lambda: torch.mm(xc, wf), 10)
+            lib_text = (f"torch.mm {lib_ms:.4f} ms (TF32 off, weight cast "
+                        f"outside the window)")
+        n_ops = 2 * m * k * nn
+        n_bytes = m * k * xc.element_size() + k * nn + nn * 4 + m * nn * 4
+        # integer codes fit the int8 (u8 x s8) tensor cores exactly; float x
+        # needs float32 FMAs, bfloat16 x the bf16 tensor cores
+        rate = (INT8_OPS_PER_S if exact else FP32_OPS_PER_S
+                if xc.dtype == torch.float32 else BF16_OPS_PER_S)
+        bms, by = bound(n_bytes, n_ops, rate)
+        log(f"[kernel] qmatmul {name} {m}x{k} @ {k}x{nn}: "
+            f"{'equal' if exact else 'within tolerance'}; {text}; "
+            f"{lib_text}; bound {bms:.5f} ms ({by}; {n_ops:.4g} ops, "
+            f"{n_bytes} bytes)")
+        if results is None:
+            results = dict(
+                name="qmatmul", route="cuda", source=TPU_KERNELS["qmatmul"][0],
+                replaces=TPU_KERNELS["qmatmul"][1], launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+    log(f"[kernel] qmatmul: the largest difference from the plain version "
+        f"over all cases is {err:.3g} (integer cases exact)")
+    return results
+
+
+def phase_mlp_path(problem, dataset: str, pop: int, out_dir: str) -> dict:
+    """The printed-MLP path: search -> pareto.json (netlists verified) ->
+    serve, counted; then the kernel fitness against the reference on the
+    final population."""
+    from repro_torch import kernels, search
+    from repro_torch.core import netlist
+    from repro_torch.core.nsga2 import DOMINATION_KERNEL_MIN_POP
+    from repro_torch.datasets import load_dataset
+    from repro_torch.families import printed_mlp as pm
+    from repro_torch.runtime.classify import ClassifyServer
+
+    tag = f"[mlp {dataset}]"
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = search.run_search(problem, backend="kernel", pop_size=pop,
+                               n_generations=GENS, seed=SEED, dataset=dataset,
+                               out_dir=out_dir, verify_rtl=True)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    searched = kernels.launch_counts()
+    objs = result.pareto_objs
+    log(f"{tag} run_search backend=kernel hidden={problem.n_hidden} "
+        f"pop={pop} gens={GENS}: search {result.wall_s:.2f} s, pareto.json "
+        f"+ verify_rtl {t_run - result.wall_s:.2f} s over {len(objs)} "
+        f"points; launches {searched}")
+    check(searched["qmatmul"] >= 1 + GENS + len(objs),
+          "qmatmul launched fewer than once per generation and pareto point")
+    if 2 * pop >= DOMINATION_KERNEL_MIN_POP:
+        check(searched["domination_block"] >= 1 + GENS,
+              "domination_block launched fewer than once per generation")
+    check(bool(((objs[:, 0] <= 0) & (objs[:, 1] <= 1)).any()),
+          "no front point matches or dominates the exact design (0, 1)")
+    check(np.isfinite(objs).all() and objs.shape[1] == 2,
+          "pareto objectives are not finite (K, 2)")
+    log(f"{tag} exact accuracy {problem.exact_accuracy:.6f}; front: "
+        f"{len(objs)} points, loss [{objs[:, 0].min():+.4f}, "
+        f"{objs[:, 0].max():+.4f}], area [{objs[:, 1].min():.4f}, "
+        f"{objs[:, 1].max():.4f}]")
+
+    art = search.load_pareto_artifact(str(pathlib.Path(out_dir) /
+                                          "pareto.json"))
+    check(art.family == "mlp" and art.payload["rtl_verified"] and all(
+        p.get("verified") for p in art.points),
+        "pareto.json does not record every point as verified")
+    idx = art.best_under_loss(0.01)
+    if idx is None:
+        idx = min(range(len(art.points)),
+                  key=lambda i: art.points[i]["acc_loss"])
+    server = ClassifyServer.from_artifact(art, point=idx, backend="kernel",
+                                          device=problem.device)
+    w1, w2 = art.point_design(idx)
+    circuit = netlist.build_mlp_circuit(w1, w2, art.shift, art.n_classes)
+    ds = load_dataset(dataset)
+    codes = server.featurize(ds.x_test)
+
+    def oracle(rows):
+        x = torch.as_tensor(codes[:rows], device=problem.device)
+        return [("netlist", netlist.simulate(circuit, x).cpu().numpy()),
+                ("integer predict", pm.predict_master(w1, w2, art.shift,
+                                                      codes[:rows]))]
+
+    latency, served = serve_latency(server, codes, oracle, f"mlp {dataset}")
+    acc = float((served == ds.y_test).mean())
+    check(abs(acc - art.point_accuracy(idx)) <= 1e-6,
+          f"served accuracy {acc} != recorded {art.point_accuracy(idx)}")
+    counts = kernels.launch_counts()
+    check(counts["qmatmul"] > searched["qmatmul"],
+          "serving the MLP point never launched qmatmul")
+    log(f"{tag} served point {idx} (acc_loss "
+        f"{art.points[idx]['acc_loss']:+.4f}, norm_area "
+        f"{art.points[idx]['norm_area']:.4f}) over requests of "
+        f"{sorted(latency)} rows == netlist simulation == integer predict; "
+        f"accuracy {acc:.6f} == recorded; latency ms "
+        f"{json.dumps({k: round(v, 3) for k, v in latency.items()})}")
+    log(f"{tag} launches over search + serve: {counts}")
+
+    genes = result.state.genes
+    ker = pm.make_kernel_fitness(problem)(genes)
+    ref = pm.make_reference_fitness(problem)(genes)
+    check(torch.equal(ker, ref), "the MLP kernel fitness differs from the "
+          "reference fitness on the final population")
+    log(f"{tag} kernel fitness == reference fitness on the final "
+        f"population ({genes.shape[0]} chromosomes)")
+    return dict(counts=counts, state=result.state)
+
+
+def phase_breakdown(what: str, fitness, state, n_genes: int, device,
+                    kernel: str) -> None:
+    """Where one generation's time goes: a whole `make_step` against its
+    fitness call (and, from a profiler trace, the device time of the
+    fitness kernel ``kernel`` in it) and its survivor selection (sort +
+    crowding) on the step's own pool of parents and children, host clock
+    around synchronised calls, median of 3; the sort's fronts are its host
+    round trips. The device's busy time in a step (every device activity in
+    a profiler trace of it) gives the step's device idle share."""
+    from repro_torch.core import nsga2
+
+    pop = state.genes.shape[0]
+    cfg = nsga2.NSGA2Config(pop_size=pop)
+    children = {}
+
+    def fitness_seen(genes):
+        children["objs"] = fitness(genes)
+        return children["objs"]
+
+    step = nsga2.make_step(fitness_seen, cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
 
     def host_ms(fn, reps=3):
         out = []
@@ -385,17 +606,25 @@ def phase_breakdown(problem, state, rng) -> None:
             out.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(out)
 
-    draws = nsga2.draw_step(gen, POP, problem.n_genes, problem.device)
+    draws = nsga2.draw_step(gen, pop, n_genes, device)
     t_step = host_ms(lambda: step(state, draws))
+    busy = device_ms(lambda: step(state, draws), 3)
     t_fit = host_ms(lambda: fitness(state.genes))
-    pool = torch.cat([state.objs, fitness(state.genes)])
-    t_surv = host_ms(lambda: nsga2.survivors(pool, POP))
-    rank, _, _ = nsga2.survivors(pool, POP)
+    t_kernel = device_ms(lambda: fitness(state.genes), 3, kernel)
+    pool = torch.cat([state.objs, children["objs"]])
+    t_surv = host_ms(lambda: nsga2.survivors(pool, pop))
+    rank, _, _ = nsga2.survivors(pool, pop)
     fronts = int(rank.max()) + 1
-    log(f"[breakdown] one generation (pop {POP}, pool {2 * POP}): step "
-        f"{t_step:.2f} ms = fitness {t_fit:.2f} ms + survivors {t_surv:.2f} "
-        f"ms ({fronts} fronts, one host sync each) + operators and draws "
-        f"{t_step - t_fit - t_surv:.2f} ms")
+    kernel_text = ("not in the trace" if t_kernel is None
+                   else f"{t_kernel:.3f} ms")
+    busy_text = ("not in the trace" if busy is None else
+                 f"{busy:.2f} ms, idle share {1 - busy / t_step:.3f}")
+    log(f"[breakdown] {what}: one generation (pop {pop}, pool {2 * pop}): "
+        f"step {t_step:.2f} ms = fitness {t_fit:.2f} ms (device time of "
+        f"{kernel} in it: {kernel_text}) + survivors {t_surv:.2f} ms "
+        f"({fronts} fronts, one host sync each) + operators and draws "
+        f"{t_step - t_fit - t_surv:.2f} ms; device busy in a step: "
+        f"{busy_text}")
 
 
 def main() -> None:
@@ -411,6 +640,7 @@ def main() -> None:
     from repro_torch.core.train import train_tree
     from repro_torch.core.tree import to_parallel
     from repro_torch.datasets import load_dataset
+    from repro_torch.families import printed_mlp as pm
 
     t_start = time.perf_counter()
     phase_build()
@@ -420,18 +650,50 @@ def main() -> None:
     tree = train_tree(ds.x_train, ds.y_train, ds.n_classes)
     problem = search.build_problem(to_parallel(tree), ds.x_test, ds.y_test,
                                    device="cuda")
-    log(f"[setup] {DATASET}: N={problem.n_comparators} L={problem.n_leaves} "
-        f"B={problem.x8.shape[0]} C={problem.n_classes} "
-        f"F={problem.n_features}, exact accuracy {problem.exact_accuracy:.6f}"
-        f" ({time.perf_counter() - t0:.1f} s to load, train and build)")
+    log(f"[setup] {DATASET} tree: N={problem.n_comparators} "
+        f"L={problem.n_leaves} B={problem.x8.shape[0]} "
+        f"C={problem.n_classes} F={problem.n_features}, exact accuracy "
+        f"{problem.exact_accuracy:.6f} ({time.perf_counter() - t0:.1f} s to "
+        f"load, train and build)")
+    mlp_problems = {}
+    for name, _ in MLP_RUNS:
+        t0 = time.perf_counter()
+        mp = pm.build_problem(name, n_hidden=MLP_HIDDEN, seed=SEED,
+                              device="cuda")
+        mlp_problems[name] = mp
+        log(f"[setup] {name} mlp: F={mp.n_features} H={mp.n_hidden} "
+            f"C={mp.n_classes} B={mp.x8.shape[0]} shift={mp.shift}, exact "
+            f"accuracy {mp.exact_accuracy:.6f}, exact area "
+            f"{mp.exact_area_mm2:.2f} mm^2 ({time.perf_counter() - t0:.1f} s "
+            f"to load, train and build)")
 
     rng = np.random.default_rng(SEED)
     results = phase_kernels(problem, rng)
+    results["qmatmul"] = phase_qmatmul(mlp_problems[MLP_RUNS[0][0]], rng)
+    launches = dict.fromkeys(results, 0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
-        main_path = phase_main_path(problem, out_dir)
-    phase_breakdown(problem, main_path["state"], rng)
-    for name, count in main_path["counts"].items():
+        tree_path = phase_main_path(problem, out_dir)
+    mlp_paths = {}
+    for name, pop in MLP_RUNS:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mlp_") as out_dir:
+            mlp_paths[name] = phase_mlp_path(mlp_problems[name], name, pop,
+                                             out_dir)
+    for path in (tree_path, *mlp_paths.values()):
+        for name, count in path["counts"].items():
+            launches[name] += count
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the main paths never launched: {launches}")
+    for name, count in launches.items():
         results[name]["launches"] = count
+
+    from repro_torch.search import make_kernel_fitness
+    phase_breakdown(f"tree {DATASET}", make_kernel_fitness(problem),
+                    tree_path["state"], problem.n_genes, problem.device,
+                    "fitness_kernel")
+    mp = mlp_problems[MLP_RUNS[0][0]]
+    phase_breakdown(f"mlp {MLP_RUNS[0][0]}", pm.make_kernel_fitness(mp),
+                    mlp_paths[MLP_RUNS[0][0]]["state"], mp.n_genes,
+                    mp.device, "qmatmul_kernel")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,9 +1,9 @@
 """Carry state from numpy arrays into the port's objects.
 
 The tests run the JAX package and the port on identical inputs: they read
-a JAX `SearchProblem` / `NSGA2State` out as numpy arrays and rebuild the
-port's counterpart here. (`pareto.json` carries a design in both
-directions.) Nothing here imports the JAX package.
+a JAX `SearchProblem`, `MLPProblem` or `NSGA2State` out as numpy arrays
+and rebuild the port's counterpart here. (`pareto.json` carries a design
+in both directions.) Nothing here imports the JAX package.
 """
 from __future__ import annotations
 
@@ -84,3 +84,16 @@ def nsga2_state_from_arrays(fields: dict, device="cuda") -> NSGA2State:
         crowd=t("crowd", torch.float32),
         generation=int(fields["generation"]),
     )
+
+
+def mlp_problem_from_arrays(w1_master, w2_master, shift: int, n_classes: int,
+                            x8, y, device="cuda"):
+    """The port's printed-MLP problem from a JAX `MLPProblem`'s masters:
+    ``w1_master`` (F, H) / ``w2_master`` (H, C) int codes in [-8, 7], the
+    static ReLU ``shift``, the test codes ``x8`` (B, F) and labels ``y``.
+    The decode tables, the exact accuracy and the exact area are recomputed
+    in the port, so both packages score the same weights."""
+    from repro_torch.families import printed_mlp
+
+    return printed_mlp.problem_from_masters(w1_master, w2_master, shift,
+                                            n_classes, x8, y, device=device)

@@ -1,10 +1,11 @@
-"""Bespoke-comparator area model, Area LUT and power model (tree parts).
+"""Bespoke-comparator and printed-MLP area models, Area LUT and power model.
 
-A copy of the tree parts of `repro.core.area` (numpy, host side). Hard-wired
-unsigned greater-than ``X > t`` is ``X >= u`` with ``u = t + 1``: bits below
-the lowest set bit of u are free, the lowest set bit is a free wire, and
-every higher bit adds one 2-input gate (AND2 where u_i = 1, OR2 where
-u_i = 0); ``u = 2^p`` is constant false. So gates(t, p) = p - 1 - tz(t + 1).
+A copy of the tree and printed-MLP parts of `repro.core.area` (numpy, host
+side). Hard-wired unsigned greater-than ``X > t`` is ``X >= u`` with
+``u = t + 1``: bits below the lowest set bit of u are free, the lowest set
+bit is a free wire, and every higher bit adds one 2-input gate (AND2 where
+u_i = 1, OR2 where u_i = 0); ``u = 2^p`` is constant false. So
+gates(t, p) = p - 1 - tz(t + 1).
 
 Every gate area is an integer number of AREA_QUANTUM_MM2 quanta. The port
 scores the area objective in those integer quanta (`build_area_unit_lut`),
@@ -84,6 +85,44 @@ def build_area_unit_lut() -> tuple[np.ndarray, np.ndarray]:
     """Integer-quanta twin of `build_area_lut` (same indexing scheme);
     `lut_units * AREA_QUANTUM_MM2` recovers mm^2."""
     return _build_lut(comparator_area_units)
+
+
+# --- printed-MLP MAC / activation cells --------------------------------------
+# A MAC term is lowered as shifted-copy rows through ripple full adders (the
+# netlist's `full_add`: 2 XOR2 + 2 AND2 + 1 OR2); a negative weight costs one
+# extra adder row. The activation cell (ReLU zero-mux or argmax compare leg)
+# is priced per accumulator bit: XOR2 + 2 AND2 + OR2 + NOT. Every constant is
+# a whole number of AREA_QUANTUM_MM2 quanta, so MLP areas sum exactly.
+AREA_FA_MM2 = 2 * AREA_XOR2_MM2 + 2 * AREA_AND2_MM2 + AREA_OR2_MM2
+AREA_ACT_BIT_MM2 = AREA_XOR2_MM2 + 2 * AREA_AND2_MM2 + AREA_OR2_MM2 + AREA_NOT_MM2
+_FA_UNITS = round(AREA_FA_MM2 / AREA_QUANTUM_MM2)
+_ACT_BIT_UNITS = round(AREA_ACT_BIT_MM2 / AREA_QUANTUM_MM2)
+assert abs(_FA_UNITS * AREA_QUANTUM_MM2 - AREA_FA_MM2) < 1e-9
+assert abs(_ACT_BIT_UNITS * AREA_QUANTUM_MM2 - AREA_ACT_BIT_MM2) < 1e-9
+
+
+def mac_area_units(code: int, in_bits: int) -> int:
+    """One integer-weight MAC term in quanta: each set bit of |code| is one
+    shifted-copy row of ``in_bits`` full adders, a negative weight adds one
+    subtractor row, and a zero weight is a free wire."""
+    c = int(code)
+    if c == 0:
+        return 0
+    rows = bin(abs(c)).count("1") + (1 if c < 0 else 0)
+    return rows * int(in_bits) * _FA_UNITS
+
+
+def act_area_units(acc_bits: int) -> int:
+    """Activation cell (ReLU zero-mux or argmax compare leg) in quanta."""
+    return int(acc_bits) * _ACT_BIT_UNITS
+
+
+def mlp_neuron_area_units(codes, in_bits: int, acc_bits: int) -> int:
+    """Area of one printed-MLP neuron in quanta: its MAC terms + one
+    activation cell."""
+    codes = np.asarray(codes).ravel()
+    return (sum(mac_area_units(int(c), in_bits) for c in codes.tolist())
+            + act_area_units(acc_bits))
 
 
 def gate_area_mm2(n_and: int = 0, n_or: int = 0, n_not: int = 0,

@@ -1,8 +1,10 @@
-"""Gate-level netlist IR of bespoke tree circuits, simulated on torch.
+"""Gate-level netlist IR of bespoke trees and printed MLPs, simulated on
+torch.
 
-The counterpart of the tree parts of `repro.core.netlist`. A tree plus a
-decoded chromosome (per-comparator precision and substituted integer
-threshold) lowers to 2-input printed gates:
+The counterpart of the single-tree and printed-MLP parts of
+`repro.core.netlist`. A tree plus a decoded chromosome (per-comparator
+precision and substituted integer threshold) lowers to 2-input printed
+gates:
 
   comparator cells  hard-wired ``X > t'`` chains, one AND2/OR2 per
                     significant bit above the lowest set bit of ``t' + 1``
@@ -11,9 +13,14 @@ threshold) lowers to 2-input printed gates:
   path-AND cells    one AND tree per leaf over comparator literals;
   class-OR cells    per-class vote wires, binary-encoded into the class.
 
+An integer-weight MLP lowers to shifted-copy MAC rows summed by ripple
+adders, a ReLU cell per hidden neuron and a first-max argmax chain over the
+output neurons (`build_mlp_circuit`).
+
 Construction is hash-consed (structural CSE) with constant folding, and
-builds on the host. `simulate` evaluates the finished circuit over a batch
-of samples on the samples' device, one gather and one boolean op per logic
+builds on the host; gate ids and arrays come out identical to the JAX
+package's. `simulate` evaluates the finished circuit over a batch of
+samples on the samples' device, one gather and one boolean op per logic
 level; it is the hardware oracle `--verify-rtl` and the server are held to.
 Forest vote adders (K > 1) are a later slice of the port.
 """
@@ -106,6 +113,23 @@ class NetlistBuilder:
             x, y = y, x
         return self._raw(OR, x, y)
 
+    def xor_(self, x: int, y: int) -> int:
+        if x == y:
+            return self.zero
+        if x == self.zero:
+            return y
+        if y == self.zero:
+            return x
+        if x == self.one:
+            return self.not_(y)
+        if y == self.one:
+            return self.not_(x)
+        if self._is_complement(x, y):
+            return self.one
+        if x > y:
+            x, y = y, x
+        return self._raw(XOR, x, y)
+
     def _reduce(self, wires: list[int], fn) -> int:
         """Balanced binary reduction (minimizes logic depth/sim levels)."""
         if not wires:
@@ -139,6 +163,72 @@ class NetlistBuilder:
             xi = self.input_bit(feature, MASTER_BITS - p + i)
             g = self.and_(xi, g) if (u >> i) & 1 else self.or_(xi, g)
         return g
+
+    # -- arithmetic over LSB-first bit vectors (MLP MACs and argmax) -------
+    def _pad(self, a_bits: list[int], b_bits: list[int]):
+        n = max(len(a_bits), len(b_bits))
+        return (list(a_bits) + [self.zero] * (n - len(a_bits)),
+                list(b_bits) + [self.zero] * (n - len(b_bits)))
+
+    def full_add(self, x: int, y: int, c: int) -> tuple[int, int]:
+        s1 = self.xor_(x, y)
+        return self.xor_(s1, c), self.or_(self.and_(x, y), self.and_(s1, c))
+
+    def add(self, a_bits: list[int], b_bits: list[int]) -> list[int]:
+        """Ripple-carry add; the result keeps the carry out, so sums never
+        wrap."""
+        a_bits, b_bits = self._pad(a_bits, b_bits)
+        out, carry = [], self.zero
+        for x, y in zip(a_bits, b_bits):
+            s, carry = self.full_add(x, y, carry)
+            out.append(s)
+        out.append(carry)
+        return out
+
+    def gt(self, a_bits: list[int], b_bits: list[int]) -> int:
+        """Unsigned a > b."""
+        a_bits, b_bits = self._pad(a_bits, b_bits)
+        g = self.zero
+        for x, y in zip(a_bits, b_bits):        # LSB -> MSB
+            gt_i = self.and_(x, self.not_(y))
+            eq_i = self.not_(self.xor_(x, y))
+            g = self.or_(gt_i, self.and_(eq_i, g))
+        return g
+
+    def mux_vec(self, sel: int, a_bits: list[int],
+                b_bits: list[int]) -> list[int]:
+        """sel ? a : b, bitwise."""
+        a_bits, b_bits = self._pad(a_bits, b_bits)
+        ns = self.not_(sel)
+        return [self.or_(self.and_(sel, x), self.and_(ns, y))
+                for x, y in zip(a_bits, b_bits)]
+
+    def const_vec(self, value: int, width: int) -> list[int]:
+        return [self.one if (value >> i) & 1 else self.zero
+                for i in range(width)]
+
+    def sub(self, a_bits: list[int], b_bits: list[int]) -> list[int]:
+        """Unsigned a - b as ``a + ~b + 1``, carry out dropped: right only
+        when a >= b, so callers select it behind a `gt` (the ReLU cell)."""
+        a_bits, b_bits = self._pad(a_bits, b_bits)
+        out, carry = [], self.one          # the +1 of the two's complement
+        for x, y in zip(a_bits, b_bits):
+            s, carry = self.full_add(x, self.not_(y), carry)
+            out.append(s)
+        return out
+
+    def sum_vecs(self, vecs: list) -> list[int]:
+        """Balanced adder tree over bit vectors (the MAC accumulate)."""
+        if not vecs:
+            return [self.zero]
+        vecs = [list(v) for v in vecs]
+        while len(vecs) > 1:
+            nxt = [self.add(vecs[i], vecs[i + 1])
+                   for i in range(0, len(vecs) - 1, 2)]
+            if len(vecs) % 2:
+                nxt.append(vecs[-1])
+            vecs = nxt
+        return vecs[0]
 
 
 @dataclasses.dataclass
@@ -175,7 +265,7 @@ class Circuit:
     a: np.ndarray         # int32[G]
     b: np.ndarray         # int32[G]
     out_bits: tuple       # class-index wires, LSB first
-    trees: list           # [TreeCells]
+    trees: list           # [TreeCells], or [MlpCells] for an MLP
     n_classes: int
 
     @property
@@ -248,6 +338,108 @@ def build_circuit(ptrees, bits, t_int, n_classes: int, trunc=None,
         b=np.asarray(nb.b, np.int32),
         out_bits=tuple(out[:n_bits]),
         trees=[cells],
+        n_classes=int(n_classes),
+    )
+
+
+@dataclasses.dataclass
+class MacNeuronCell:
+    """One integer-weight neuron: shifted-copy MAC rows + an activation.
+
+    The signed accumulator is an unsigned (pos, neg) pair, positive and
+    negative MAC terms summed apart, so no sign bit exists in hardware: ReLU
+    is ``pos > neg ? pos - neg : 0`` and the argmax compares
+    ``pos_c + neg_best`` against ``pos_best + neg_c``."""
+
+    weights: list       # effective signed integer weights, one per input
+    relu: bool          # hidden neurons apply ReLU + the static right shift
+    pos: list           # unsigned positive-sum wires, LSB first
+    neg: list           # unsigned negative-sum wires, LSB first
+    out: list           # activation output wires (ReLU'd + shifted)
+
+
+@dataclasses.dataclass
+class MlpCells:
+    hidden: list        # [MacNeuronCell], ReLU outputs feed the next layer
+    outputs: list       # [MacNeuronCell], (pos, neg) pairs feed the argmax
+    shift: int          # static right shift applied after every ReLU
+
+
+def _mac_rows(nb: NetlistBuilder, in_vecs, weights):
+    """A neuron's MAC terms as (positive, negative) shifted-copy rows: set
+    bit s of |w| adds the input shifted left by s (s leading CONST0s, free
+    wire), routed by the sign of w."""
+    pos, neg = [], []
+    for vec, w in zip(in_vecs, weights):
+        w = int(w)
+        if w == 0:
+            continue
+        dst = pos if w > 0 else neg
+        mag, s = abs(w), 0
+        while mag:
+            if mag & 1:
+                dst.append([nb.zero] * s + list(vec))
+            mag >>= 1
+            s += 1
+    return pos, neg
+
+
+def build_mac_neuron(nb: NetlistBuilder, in_vecs, weights, *,
+                     relu: bool, shift: int = 0) -> MacNeuronCell:
+    """Lower one integer-weight neuron into the shared builder."""
+    pos_rows, neg_rows = _mac_rows(nb, in_vecs, weights)
+    pos = nb.sum_vecs(pos_rows)
+    neg = nb.sum_vecs(neg_rows)
+    out = []
+    if relu:
+        # pos > neg ? pos - neg : 0 (the mux hides the wrapped pos < neg
+        # case); the static right shift drops low bits, a free wire
+        sel = nb.gt(pos, neg)
+        diff = nb.mux_vec(sel, nb.sub(pos, neg),
+                          [nb.zero] * max(len(pos), len(neg)))
+        out = diff[shift:] if shift < len(diff) else [nb.zero]
+    return MacNeuronCell([int(w) for w in weights], relu, pos, neg, out)
+
+
+def build_mlp_circuit(w1, w2, shift: int, n_classes: int) -> Circuit:
+    """Integer-weight MLP (one hidden ReLU layer) -> netlist.
+
+    ``w1`` (F, H) and ``w2`` (H, C) are EFFECTIVE signed integer weights;
+    ``shift`` is the static right shift after every ReLU; inputs are the
+    8-bit master codes. The argmax chain scans classes in order and replaces
+    the incumbent only on strictly greater, so ties go to the first maximum
+    as `torch.argmax`'s do. Exact against the integer forward pass.
+    """
+    w1 = np.asarray(w1)
+    w2 = np.asarray(w2)
+    n_features, n_hidden = w1.shape
+    if w2.shape != (n_hidden, n_classes):
+        raise ValueError(f"w2 shape {w2.shape} != ({n_hidden}, {n_classes})")
+    nb = NetlistBuilder()
+    in_vecs = [[nb.input_bit(f, i) for i in range(MASTER_BITS)]
+               for f in range(n_features)]
+    hidden = [build_mac_neuron(nb, in_vecs, w1[:, j], relu=True, shift=shift)
+              for j in range(n_hidden)]
+    h_vecs = [cell.out for cell in hidden]
+    outputs = [build_mac_neuron(nb, h_vecs, w2[:, c], relu=False)
+               for c in range(n_classes)]
+
+    n_bits = class_bits(n_classes)
+    best_pos, best_neg = outputs[0].pos, outputs[0].neg
+    best_idx = nb.const_vec(0, n_bits)
+    for c in range(1, n_classes):
+        # s_c > s_best  <=>  pos_c + neg_best > pos_best + neg_c  (unsigned)
+        sel = nb.gt(nb.add(outputs[c].pos, best_neg),
+                    nb.add(best_pos, outputs[c].neg))
+        best_pos = nb.mux_vec(sel, outputs[c].pos, best_pos)
+        best_neg = nb.mux_vec(sel, outputs[c].neg, best_neg)
+        best_idx = nb.mux_vec(sel, nb.const_vec(c, n_bits), best_idx)
+    return Circuit(
+        op=np.asarray(nb.op, np.int8),
+        a=np.asarray(nb.a, np.int32),
+        b=np.asarray(nb.b, np.int32),
+        out_bits=tuple(best_idx[:n_bits]),
+        trees=[MlpCells(hidden, outputs, int(shift))],
         n_classes=int(n_classes),
     )
 

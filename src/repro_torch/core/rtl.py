@@ -1,10 +1,12 @@
-"""Bespoke RTL (Verilog) emission for exact/approximate single trees.
+"""Bespoke RTL (Verilog) emission for single trees and finished netlists.
 
-A copy of the single-tree path of `repro.core.rtl`: the tree is lowered to
-the gate-level netlist IR (`core.netlist`) and the Verilog is printed from
-its cells, so `netlist.simulate` is the emitted module's software oracle.
-The tests require the text to be byte-identical to the JAX package's.
-Forest hierarchies (K > 1) are a later slice of the port.
+A copy of the single-tree path and of `emit_circuit_verilog` of
+`repro.core.rtl`: a tree is lowered to the gate-level netlist IR
+(`core.netlist`) and the Verilog is printed from its cells; any other
+circuit (the printed MLP) is printed gate by gate. Either way
+`netlist.simulate` is the emitted module's software oracle, and the tests
+require the text to be byte-identical to the JAX package's. Forest
+hierarchies (K > 1) are a later slice of the port.
 """
 from __future__ import annotations
 
@@ -70,6 +72,42 @@ def emit_verilog(
     for b in range(n_cls_bits):
         rhs = _class_or_expr(cells, lambda c: (c >> b) & 1)
         lines.append(f"  assign class_out[{b}] = {rhs};")
+    lines.append("endmodule")
+    return "\n".join(lines) + "\n"
+
+
+def emit_circuit_verilog(circuit: nl_mod.Circuit,
+                         module_name: str = "bespoke_circuit") -> str:
+    """Emit a finished gate-level `netlist.Circuit` as structural Verilog:
+    one wire per gate, the 8-bit master-code ports its input gates read,
+    the class-index bits LSB first (the printed-MLP circuits of
+    `netlist.build_mlp_circuit`)."""
+    op, a, b = circuit.op, circuit.a, circuit.b
+    features = sorted({int(f) for f in a[op == nl_mod.INPUT]})
+    n_out = len(circuit.out_bits)
+    lines = [
+        "// Auto-generated bespoke gate-level circuit",
+        f"// gates={int(op.shape[0])} classes={circuit.n_classes}",
+        f"module {module_name} (",
+    ]
+    lines += [f"    input  wire [7:0] x{f}," for f in features]
+    lines += [f"    output wire [{max(n_out - 1, 0)}:0] class_out", ");"]
+    exprs = {0: "1'b0", 1: "1'b1"}  # CONST0/CONST1 are always gates 0 and 1
+    symbols = {nl_mod.AND: "&", nl_mod.OR: "|", nl_mod.XOR: "^"}
+    for g in range(op.shape[0]):
+        o = int(op[g])
+        if o in (nl_mod.CONST0, nl_mod.CONST1):
+            continue
+        if o == nl_mod.INPUT:
+            rhs = f"x{int(a[g])}[{int(b[g])}]"
+        elif o == nl_mod.NOT:
+            rhs = f"~{exprs[int(a[g])]}"
+        else:
+            rhs = f"{exprs[int(a[g])]} {symbols[o]} {exprs[int(b[g])]}"
+        lines.append(f"  wire g{g} = {rhs};")
+        exprs[g] = f"g{g}"
+    for i, w in enumerate(circuit.out_bits):
+        lines.append(f"  assign class_out[{i}] = {exprs[int(w)]};")
     lines.append("endmodule")
     return "\n".join(lines) + "\n"
 

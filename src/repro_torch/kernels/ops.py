@@ -1,4 +1,4 @@
-"""Operand preparation and call sites of the three tree kernels.
+"""Operand preparation and call sites of the port's kernels.
 
 The counterpart of `repro.kernels.ops`. The TPU wrappers padded every axis
 to (8, 128) tiles and turned integers into float32; the Hopper kernels mask
@@ -15,6 +15,7 @@ import torch
 from repro_torch.core import quant
 from repro_torch.kernels import domination as _dom
 from repro_torch.kernels import fitness as _fit
+from repro_torch.kernels import qmatmul as _qmm
 from repro_torch.kernels import tree_infer as _ti
 
 
@@ -157,3 +158,13 @@ def classify(x8: torch.Tensor, operands: _ti.TreeOperands, design):
     """(B,) predicted classes of ONE fixed design: the P = 1 row."""
     shift, thr, vote_cap = design
     return tree_infer_predict(x8, operands, shift, thr, vote_cap)[0]
+
+
+def qmatmul(x: torch.Tensor, w_q: torch.Tensor,
+            scale: torch.Tensor) -> torch.Tensor:
+    """(M, N) float32 ``(x @ w_q) * scale`` for x (M, K) float32/bfloat16,
+    w_q (K, N) int8 and scale (N,) or (1, N) float32. The TPU wrapper padded
+    every axis to MXU tiles; the Hopper kernel masks its ragged edges, so
+    here the operands are only made contiguous."""
+    return _qmm.qmatmul(x.contiguous(), w_q.contiguous(),
+                        scale.to(torch.float32).contiguous())

@@ -1,8 +1,10 @@
-"""Classifier serving runtime for one searched tree design.
+"""Classifier serving runtime for one searched design.
 
-The counterpart of `repro.runtime.classify` for the tree family.
-`ClassifyServer` loads one design (a `pareto.json` point, or decoded
-`bits`/`t_int` arrays) and serves feature-vector requests:
+The counterpart of `repro.runtime.classify` for single trees and printed
+MLPs. `ClassifyServer` loads one design (a `pareto.json` point of either
+family, decoded tree `bits`/`t_int` arrays, or an MLP's effective integer
+weights through `ClassifyServer.for_mlp`) and serves feature-vector
+requests:
 
   - a request of n rows pads up to the power-of-two bucket
     ``round_up_pow2(n)`` (at least GRANULE, at most ``max_batch``; larger
@@ -14,8 +16,11 @@ The counterpart of `repro.runtime.classify` for the tree family.
     its own;
   - featurize -> batch -> classify: `featurize` quantizes float features to
     the master 8-bit grid, `batch` pads codes to bucket shape, and the
-    classify step runs the `tree_infer_scores` kernel (backend "kernel") or
-    its plain PyTorch version (backend "reference", on any device).
+    classify step runs the design's kernel (backend "kernel":
+    `tree_infer_scores` for a tree, `qmatmul` for an MLP's first layer) or
+    the plain PyTorch dataflow (backend "reference", on any device). The
+    MLP's second layer is a float64 product either way, exact for its
+    integer operands whatever the TF32 setting.
 
 Integer inputs are sanitized with a mask (``codes & 0xFF``), not a clip:
 the netlist reads input bits 0..7, so out-of-grid integers wrap mod 256 in
@@ -69,7 +74,8 @@ class ServeStats:
 
 
 class ClassifyServer:
-    """Serve one fixed approximate tree design.
+    """Serve one fixed approximate design: a tree (this constructor) or a
+    printed MLP (`for_mlp`).
 
     ptrees: `[ParallelTree]` (e.g. `ParetoArtifact.ptrees()`); bits, t_int:
     (N,) decoded precisions and substituted thresholds, pre-truncation;
@@ -85,11 +91,6 @@ class ClassifyServer:
                  vote_adder: str = "exact", backend: str = "kernel",
                  max_batch: int = 1024, granule: int = GRANULE,
                  device="cuda"):
-        if backend not in BACKENDS:
-            raise ValueError(
-                f"unknown serving backend {backend!r}; options: {BACKENDS}")
-        if max_batch < granule:
-            raise ValueError(f"max_batch={max_batch} < granule={granule}")
         if vote_adder not in quant.VOTE_ADDER_MODES:
             raise ValueError(
                 f"unknown vote_adder {vote_adder!r}; "
@@ -98,7 +99,8 @@ class ClassifyServer:
             raise NotImplementedError(
                 "serving forests (K > 1 trees) is not ported yet: "
                 "ROADMAP.md Queue 1 item 8")
-        self.device = resolve_device(device)
+        self._init_serving(backend, max_batch, granule, device)
+        self.family = "tree"
         arrays = concatenate_ptrees(ptrees)
         self.feature = np.asarray(arrays["feature"], np.int32)
         n = self.feature.shape[0]
@@ -126,11 +128,6 @@ class ClassifyServer:
             raise ValueError(
                 f"n_features={self.n_features} but a comparator reads "
                 f"feature {int(self.feature.max())}")
-        self.backend = backend
-        self.max_batch = int(max_batch)
-        self.granule = int(granule)
-        self.stats = ServeStats()
-        self.family = "tree"
 
         # design + operands are built once; every bucket reuses them
         self._design = kops.prepare_design(bits, t_int, trunc=trunc,
@@ -140,14 +137,72 @@ class ClassifyServer:
             arrays["feature"], arrays["path"], arrays["path_len"],
             arrays["n_neg"], arrays["leaf_class"], self.n_classes,
             self.n_features, device=self.device)
+
+    def _init_serving(self, backend: str, max_batch: int, granule: int,
+                      device) -> None:
+        """The settings and buffers every family's server shares."""
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"unknown serving backend {backend!r}; options: {BACKENDS}")
+        if max_batch < granule:
+            raise ValueError(f"max_batch={max_batch} < granule={granule}")
+        self.device = resolve_device(device)
+        self.backend = backend
+        self.max_batch = int(max_batch)
+        self.granule = int(granule)
+        self.stats = ServeStats()
         self._slots: dict[int, list[ServeSlot]] = {}
         self._slot_idx: dict[int, int] = {}
 
     @classmethod
+    def for_mlp(cls, w1, w2, shift: int, n_classes: int,
+                n_features: int | None = None, *, backend: str = "kernel",
+                max_batch: int = 1024, granule: int = GRANULE,
+                device="cuda") -> "ClassifyServer":
+        """Serve a printed-MLP design: effective integer weights w1 (F, H)
+        and w2 (H, C), the static ReLU right shift. The same bucketed
+        two-slot machinery as the tree server; only the classify step
+        differs (`_infer`)."""
+        w1 = np.asarray(w1, np.int32)
+        w2 = np.asarray(w2, np.int32)
+        if w1.ndim != 2 or w2.ndim != 2 or w2.shape[0] != w1.shape[1]:
+            raise ValueError(
+                f"weight shapes w1{w1.shape}/w2{w2.shape} do not chain "
+                f"(expected (F, H) @ (H, C))")
+        if w2.shape[1] != n_classes:
+            raise ValueError(
+                f"w2 has {w2.shape[1]} output columns for "
+                f"n_classes={n_classes}")
+        if w1.size and (w1.min() < -128 or w1.max() > 127):
+            raise ValueError("w1 weights must fit int8 for the qmatmul kernel")
+        self = cls.__new__(cls)
+        self._init_serving(backend, max_batch, granule, device)
+        self.family = "mlp"
+        self.w1 = w1
+        self.w2 = w2
+        self.shift = int(shift)
+        self.n_classes = int(n_classes)
+        self.n_features = (int(n_features) if n_features is not None
+                           else int(w1.shape[0]))
+        if self.n_features != w1.shape[0]:
+            raise ValueError(
+                f"n_features={self.n_features} but w1 reads {w1.shape[0]} "
+                f"features")
+        dev = self.device
+        self._mlp = dict(
+            w1_i8=torch.as_tensor(w1, device=dev).to(torch.int8),
+            w1_f=torch.as_tensor(w1, device=dev).to(torch.float64),
+            w2_f=torch.as_tensor(w2, device=dev).to(torch.float64),
+            ones=torch.ones((w1.shape[1],), dtype=torch.float32, device=dev),
+        )
+        return self
+
+    @classmethod
     def from_artifact(cls, artifact, point: int | str = "best",
                       max_loss: float = 0.01, **opts) -> "ClassifyServer":
-        """Serve a `pareto.json` point: ``artifact`` is a loaded
-        `ParetoArtifact` or a path; ``point`` an index or "best" (the
+        """Serve a `pareto.json` point: ``artifact`` is a loaded artifact of
+        either family (`search.ParetoArtifact`, `families.printed_mlp.
+        MlpParetoArtifact`) or a path; ``point`` an index or "best" (the
         smallest-area point within ``max_loss``)."""
         from repro_torch.search import artifact as _artifact
 
@@ -165,9 +220,14 @@ class ClassifyServer:
                 raise ValueError(
                     f"pareto point {idx} out of range "
                     f"(artifact has {len(artifact.points)} points)")
-        bits, t_int, trunc, vote_adder = artifact.point_design(idx)
-        server = cls(artifact.ptrees(), bits, t_int, artifact.n_classes,
-                     trunc=trunc, vote_adder=vote_adder, **opts)
+        if artifact.family == "mlp":
+            w1, w2 = artifact.point_design(idx)
+            server = cls.for_mlp(w1, w2, artifact.shift, artifact.n_classes,
+                                 artifact.n_features, **opts)
+        else:
+            bits, t_int, trunc, vote_adder = artifact.point_design(idx)
+            server = cls(artifact.ptrees(), bits, t_int, artifact.n_classes,
+                         trunc=trunc, vote_adder=vote_adder, **opts)
         server.artifact = artifact
         server.point_index = idx
         return server
@@ -264,7 +324,16 @@ class ClassifyServer:
 
     def _infer(self, x8: torch.Tensor) -> torch.Tensor:
         """(bucket, F) codes -> (bucket,) predictions, selected backend:
-        the kernel, or its plain version on any device."""
+        the kernel, or the plain dataflow on any device."""
+        if self.family == "mlp":
+            m = self._mlp
+            xf = x8.to(torch.float32)
+            if self.backend == "kernel":
+                h = kops.qmatmul(xf, m["w1_i8"], m["ones"])
+            else:
+                h = (xf.to(torch.float64) @ m["w1_f"]).to(torch.float32)
+            hq = torch.floor(torch.clamp(h, min=0.0) * 2.0 ** -self.shift)
+            return torch.argmax(hq.to(torch.float64) @ m["w2_f"], dim=1)
         if self.backend == "kernel":
             return kops.classify(x8, self._operands, self._design)
         shift, thr, vote_cap = self._design

@@ -2,10 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.search --dataset seeds \
         --backend kernel --pop 64 --gens 40 --out runs/seeds [--device cuda]
+    PYTHONPATH=src python -m repro_torch.search --family mlp --hidden 16 \
+        --dataset seeds --backend kernel --out runs/seeds_mlp
     PYTHONPATH=src python -m repro_torch.search serve \
         --pareto runs/seeds/pareto.json [--verify-netlist] [--device cuda]
 
-The run command trains the exact bespoke tree, runs the NSGA-II search on
+The run command trains the exact design (a bespoke tree, or with
+`--family mlp` a printed integer-weight MLP), runs the NSGA-II search on
 the selected backend, prints the pareto front and the best design under the
 accuracy-loss budget, and with --out writes pareto.json plus the Verilog of
 the selected design (`--emit-rtl`: every point's; `--verify-rtl`: simulate
@@ -30,7 +33,6 @@ from repro_torch.datasets import DATASET_SPECS, load_dataset
 # ROADMAP.md item that will.
 NOT_PORTED = {
     "trees": "--trees > 1 (forests): ROADMAP.md Queue 1 item 8",
-    "mlp": "--family mlp (printed MLPs): ROADMAP.md Queue 1 item 10",
     "islands": "--backend islands: ROADMAP.md Queue 1 item 12",
     "mesh": "--mesh (multi-device search): ROADMAP.md Queue 1 item 12",
     "checkpoint": "--checkpoint-every/--resume: ROADMAP.md Queue 1 item 5",
@@ -88,8 +90,8 @@ def serve_main(argv=None) -> None:
                     help="dataset whose test split to serve (default: the "
                          "artifact's recorded dataset)")
     ap.add_argument("--backend", default="kernel", choices=SERVE_BACKENDS,
-                    help="kernel = tree_infer_scores kernel; reference = "
-                         "the plain tensor dataflow")
+                    help="kernel = tree_infer_scores (tree) or qmatmul (MLP) "
+                         "kernel; reference = the plain tensor dataflow")
     ap.add_argument("--batch", type=int, default=64,
                     help="request size: the test split is served in batches "
                          "of this many feature vectors")
@@ -113,8 +115,13 @@ def serve_main(argv=None) -> None:
         backend=args.backend, max_batch=args.max_batch, device=device)
     idx = server.point_index
     pt = artifact.points[idx]
-    print(f"== serving {args.pareto} point {idx}: {artifact.n_trees} "
-          f"tree(s), {artifact.n_comparators} comparators, "
+    if artifact.family == "mlp":
+        design = (f"printed MLP {artifact.n_features}-"
+                  f"{artifact.n_hidden}-{artifact.n_classes}")
+    else:
+        design = (f"{artifact.n_trees} tree(s), "
+                  f"{artifact.n_comparators} comparators")
+    print(f"== serving {args.pareto} point {idx}: {design}, "
           f"acc_loss={pt['acc_loss']:+.4f} norm_area={pt['norm_area']:.3f} "
           f"backend={args.backend} device={server.device} ==")
 
@@ -127,10 +134,9 @@ def serve_main(argv=None) -> None:
 
     circuit = None
     if args.verify_netlist:
-        bits, t_int, trunc, vote_adder = artifact.point_design(idx)
-        circuit = netlist.build_circuit(artifact.ptrees(), bits, t_int,
-                                        artifact.n_classes, trunc=trunc,
-                                        vote_adder=vote_adder)
+        from repro_torch.families import get_family
+        circuit = get_family(artifact.family).build_point_circuit(artifact,
+                                                                  idx)
 
     n = codes.shape[0]
     preds = np.zeros(n, np.int64)
@@ -183,9 +189,13 @@ def main(argv=None) -> None:
     ap.add_argument("--dataset", default="seeds",
                     choices=sorted(DATASET_SPECS))
     ap.add_argument("--family", default="tree", choices=("tree", "mlp"),
-                    help="classifier family (only tree is ported)")
+                    help="classifier family: bespoke decision trees, or "
+                         "integer-weight printed MLPs")
     ap.add_argument("--trees", type=int, default=1,
-                    help="1 = single bespoke DT (forests are not ported)")
+                    help="tree family: 1 = single bespoke DT (forests are "
+                         "not ported)")
+    ap.add_argument("--hidden", type=int, default=16,
+                    help="mlp family: hidden-layer width")
     ap.add_argument("--backend", default="reference",
                     choices=("reference", "kernel", "islands"))
     ap.add_argument("--mesh", default=None,
@@ -209,10 +219,8 @@ def main(argv=None) -> None:
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
     args = ap.parse_args(argv)
-    if args.trees > 1:
+    if args.family == "tree" and args.trees > 1:
         _not_ported("trees")
-    if args.family == "mlp":
-        _not_ported("mlp")
     if args.backend == "islands":
         _not_ported("islands")
     if args.mesh is not None:
@@ -224,16 +232,19 @@ def main(argv=None) -> None:
     device = _device_or_exit(args.device)
 
     from repro_torch import search
-    from repro_torch.core import rtl
-    from repro_torch.core.train import train_tree
-    from repro_torch.core.tree import to_parallel
+    from repro_torch.core import netlist, rtl
+    from repro_torch.families import get_family
+    from repro_torch.families import printed_mlp as pm
 
-    ds = load_dataset(args.dataset)
-    tree = train_tree(ds.x_train, ds.y_train, ds.n_classes)
-    problem = search.build_problem(to_parallel(tree), ds.x_test, ds.y_test,
-                                   device=device)
-    print(f"== {args.dataset} tree: comparators={problem.n_comparators} "
-          f"leaves={problem.n_leaves} exact_acc={problem.exact_accuracy:.3f} "
+    fam = get_family(args.family)
+    if args.family == "mlp":
+        problem = fam.build_problem(args.dataset, n_hidden=args.hidden,
+                                    device=device)
+        kind = f"mlp[h={args.hidden}]"
+    else:
+        problem = fam.build_problem(args.dataset, device=device)
+        kind = "tree"
+    print(f"== {args.dataset} {fam.describe(problem)} "
           f"exact_area={problem.exact_area_mm2:.1f}mm^2 "
           f"power={area.power_mw(problem.exact_area_mm2):.2f}mW "
           f"device={problem.device} ==")
@@ -270,18 +281,32 @@ def main(argv=None) -> None:
         import torch
 
         if best is not None:
-            # effective (post-truncation) design: lowering it with
-            # trunc=None equals lowering the pre-truncation design with trunc
-            bits, t_int, vote_cap = search.decode_chromosome(
-                problem, torch.as_tensor(genes, device=problem.device))
-            vote_adder = "approx" if int(vote_cap) == 1 else "exact"
-            verilog = rtl.emit_design(search.problem_ptrees(problem),
-                                      bits.cpu().numpy(), t_int.cpu().numpy(),
-                                      problem.n_classes, vote_adder=vote_adder)
+            if args.family == "mlp":
+                bits_a, margin_a = pm.decode_design(genes)
+                h = problem.n_hidden
+                w1 = pm.effective_weights(problem.w1_master, bits_a[:h],
+                                          margin_a[:h])
+                w2 = pm.effective_weights(problem.w2_master, bits_a[h:],
+                                          margin_a[h:])
+                circuit = netlist.build_mlp_circuit(w1, w2, problem.shift,
+                                                    problem.n_classes)
+                verilog = rtl.emit_circuit_verilog(
+                    circuit, module_name=f"printed_mlp_{args.dataset}")
+            else:
+                # effective (post-truncation) design: lowering it with
+                # trunc=None equals lowering the pre-truncation design with
+                # its trunc vector
+                bits, t_int, vote_cap = search.decode_chromosome(
+                    problem, torch.as_tensor(genes, device=problem.device))
+                vote_adder = "approx" if int(vote_cap) == 1 else "exact"
+                verilog = rtl.emit_design(
+                    search.problem_ptrees(problem), bits.cpu().numpy(),
+                    t_int.cpu().numpy(), problem.n_classes,
+                    vote_adder=vote_adder)
             path = os.path.join(args.out, f"bespoke_{args.dataset}.v")
             with open(path, "w") as f:
                 f.write(verilog)
-            print(f"bespoke tree RTL written to {path} "
+            print(f"bespoke {kind} RTL written to {path} "
                   f"({len(verilog.splitlines())} lines)")
 
         with open(os.path.join(args.out, "pareto.json")) as f:
@@ -289,9 +314,11 @@ def main(argv=None) -> None:
         if args.emit_rtl:
             print(f"per-pareto-point RTL: {args.out}/rtl/ ({len(pts)} designs)")
         if args.verify_rtl:
+            oracle = ("predict_master == qmatmul" if args.family == "mlp"
+                      else "predict_votes == tree_infer_scores")
             print(f"RTL verified: {len(pts)}/{len(pts)} pareto points equal "
                   f"over {problem.x8.shape[0]} test samples (netlist sim == "
-                  f"predict_votes == tree_infer_scores kernel)")
+                  f"{oracle} kernel)")
         gaps = search.netlist_area_ratios(pts)
         if gaps:
             print(f"estimated-vs-netlist area: netlist/LUT ratio "

@@ -2,6 +2,8 @@
 
 A copy of `repro.search.artifact` (tree family): the port writes and reads
 the same file, so a design searched by either package serves from either.
+A payload tagged with another family (``"family": "mlp"``) is handed to
+that family's loader (`repro_torch.families`).
 
 `engine.write_pareto_artifact` (the writer) and `load_pareto_artifact`
 (the serving loader, DESIGN.md §14) share the key sets below, so the two
@@ -236,12 +238,13 @@ def from_payload(payload: dict, where: str = "payload"):
     """Validate a payload dict and materialize the family's artifact.
 
     Legacy payloads (no `family` key) and `family: "tree"` ones validate
-    against the tree schema here; other families are not ported yet.
+    against the tree schema here; any other family tag dispatches to that
+    family's own loader, so every consumer of `load_pareto_artifact`
+    handles MLP artifacts too (an unknown tag raises `ValueError`).
     """
     if isinstance(payload, dict) and payload.get("family", "tree") != "tree":
-        raise ValueError(
-            f"pareto artifact {where}: family {payload['family']!r} is not "
-            f"ported yet (printed MLPs: ROADMAP.md Queue 1 item 10)")
+        from repro_torch.families import family_of_payload
+        return family_of_payload(payload).load_artifact(payload)
     validate_payload(payload, where)
     return ParetoArtifact(
         payload=payload,
@@ -263,7 +266,7 @@ def from_payload(payload: dict, where: str = "payload"):
 
 
 def load_pareto_artifact(path: str):
-    """Load + validate a tree-family `pareto.json`."""
+    """Load + validate a `pareto.json` (any family, dispatched by tag)."""
     with open(path) as f:
         payload = json.load(f)
     return from_payload(payload, where=path)

@@ -1,4 +1,6 @@
-"""Fitness backends over a `SearchProblem`: (P, 3N+1) genes -> (P, 2).
+"""Fitness backends: (P, n_genes) genes -> (P, 2) objectives.
+
+For a tree `SearchProblem` (genes (P, 3N+1)):
 
   reference — the plain tensor dataflow (`problem.objectives`);
   kernel    — accuracy through the Hopper fused-fitness kernel, one launch
@@ -7,6 +9,9 @@
 
 The two agree exactly: the kernel's counts equal the plain dataflow's, and
 both turn the same integer into an accuracy with `problem.accuracy`.
+`make_fitness` takes any family's problem and hands it to that family's
+own `make_fitness` (`repro_torch.families`), so `engine.run_search` stays
+generic.
 """
 from __future__ import annotations
 
@@ -50,10 +55,10 @@ def make_kernel_fitness(problem: SearchProblem):
     return fitness
 
 
-def make_fitness(problem: SearchProblem, backend: str = "reference"):
-    """Backend name -> population fitness function."""
-    if backend == "reference":
-        return make_reference_fitness(problem)
-    if backend == "kernel":
-        return make_kernel_fitness(problem)
-    raise ValueError(f"unknown fitness backend {backend!r}; options: {BACKENDS}")
+def make_fitness(problem, backend: str = "reference"):
+    """Backend name -> population fitness function of any family's problem."""
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"unknown fitness backend {backend!r}; options: {BACKENDS}")
+    from repro_torch.families import family_of
+    return family_of(problem).make_fitness(problem, backend)

@@ -1,15 +1,21 @@
-"""`run_search`: the NSGA-II search loop of the single-tree search.
+"""`run_search`: the NSGA-II search loop, for any classifier family.
 
 The counterpart of the single-device path of `repro.search.engine`:
 
     problem = search.build_problem(ptree, x_test, y_test, device="cuda")
     result  = search.run_search(problem, SearchConfig(backend="kernel"))
 
+``problem`` is a family's problem (a tree `SearchProblem` or a printed-MLP
+`families.printed_mlp.MLPProblem`): the loop reads only its ``device``,
+``n_genes`` and ``exact_genes()``, and hands fitness construction and the
+artifact back to the family.
+
 Generations run as a host loop, one `nsga2.make_step` call each, with the
 draws made from a `torch.Generator` seeded with ``cfg.seed`` on the
 problem's device; `SearchResult.n_dispatches` counts those host calls (the
 initial population included). With ``out_dir`` the pareto front is written
-to ``pareto.json`` in the schema `repro.search.load_pareto_artifact` reads.
+to ``pareto.json`` (the family's schema) in the format
+`repro.search.load_pareto_artifact` reads.
 Checkpoint/resume, islands and meshes are later slices of the port.
 """
 from __future__ import annotations
@@ -38,15 +44,15 @@ class SearchConfig:
     out_dir: str | None = None
     emit_rtl: bool = False          # write per-pareto-point Verilog (OUT/rtl/)
     verify_rtl: bool = False        # netlist-simulate every pareto point and
-                                    # assert it equals predict_votes and the
-                                    # tree_infer_scores kernel
+                                    # require it to equal the tensor predict
+                                    # and the family's kernel route
 
 
 @dataclasses.dataclass
 class SearchResult:
     state: nsga2.NSGA2State
     pareto_objs: np.ndarray    # (K, 2) accuracy-loss / normalized-area
-    pareto_genes: np.ndarray   # (K, 3N+1)
+    pareto_genes: np.ndarray   # (K, n_genes)
     backend: str
     wall_s: float
     n_evaluations: int
@@ -62,7 +68,7 @@ class SearchResult:
         return self.pareto_objs[best], self.pareto_genes[best]
 
 
-def run_search(problem: SearchProblem, cfg: SearchConfig | None = None,
+def run_search(problem, cfg: SearchConfig | None = None,
                **overrides) -> SearchResult:
     """Search the problem's design space on its device; `overrides` are
     applied on top of `cfg` (or a default SearchConfig)."""
@@ -103,9 +109,11 @@ def run_search(problem: SearchProblem, cfg: SearchConfig | None = None,
         n_dispatches=1 + cfg.n_generations,
     )
     if cfg.out_dir:
-        write_pareto_artifact(problem, result, cfg.out_dir,
-                              emit_rtl=cfg.emit_rtl,
-                              verify_rtl=cfg.verify_rtl, dataset=cfg.dataset)
+        from repro_torch.families import family_of
+
+        family_of(problem).write_artifact(
+            problem, result, cfg.out_dir, emit_rtl=cfg.emit_rtl,
+            verify_rtl=cfg.verify_rtl, dataset=cfg.dataset)
     return result
 
 

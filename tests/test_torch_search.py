@@ -356,8 +356,8 @@ def test_default_device_entry_points_raise_without_gpu(monkeypatch, seeds):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--trees", "2"], ["--family", "mlp"], ["--backend", "islands"],
-    ["--mesh", "4"], ["--checkpoint-every", "5"], ["--resume"], ["sweep"],
+    ["--trees", "2"], ["--family", "mlp", "--checkpoint-every", "5"],
+    ["--backend", "islands"], ["--mesh", "4"], ["--checkpoint-every", "5"], ["--resume"], ["sweep"],
     ["faults", "--pareto", "x.json"],
 ])
 def test_cli_refuses_unported_surfaces(argv):
