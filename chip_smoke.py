@@ -5,7 +5,7 @@
 
 Phases, each of which stops the script with a non-zero exit on failure:
 
-1. Build the four Hopper kernels from `src/repro_torch/csrc/` (one nvcc per
+1. Build the five Hopper kernels from `src/repro_torch/csrc/` (one nvcc per
    source, all started together, `sm_90a`) and report nvcc's register and
    spill summary.
 2. Hold each kernel to its plain PyTorch version on the card at the main
@@ -32,9 +32,26 @@ Phases, each of which stops the script with a non-zero exit on failure:
    served request checked against the netlist and the integer predict.
    Before each path the kernels' launch counters are set to 0 and just
    after they are read; every kernel of the path must have launched.
-5. Print where one generation's time goes on each path, the kernel list,
-   the card's name and power limit, one JSON line of per-kernel results,
-   and last `{"ok": true, "device": {...}}`.
+5. `[flash]`: hold `flash_attention` to its plain version (float32 within
+   2e-5; bfloat16 by `row_error`, a row's largest difference over its root
+   mean square, within 2^-4) at the LM prefill's shape (llama3.2-3b at
+   B=4, S=4096: H=96, Hkv=32, hd=128, bf16), in float32, with grok's
+   softcap 30, at gemma's MQA with head dim 256 and at a ragged S=1000;
+   time it at the main shape beside its plain version, its bound (the bf16
+   tensor-core rate) and `scaled_dot_product_attention` (causal, GQA), and
+   time the model's layout copies around it.
+6. `[lm]`: the LM serving path at llama3.2-3b's full width (28 layers,
+   random bf16 weights from the seed): `generate` of 32 greedy tokens after
+   a B=4 x 4096-token prompt (the repo's `train_4k` length; `prefill_32k`
+   would need 120 GB of cache on one card), counted: `flash_attention`
+   must launch once per layer of the prefill. Decode at position 4096 is
+   held to a fresh prefill over the same 4097 tokens, a second `generate`
+   must give the same tokens, and prefill and decode times, peak memory and
+   the device time of one prefill split into the attention kernel,
+   matmuls and the rest are printed.
+7. Print where one generation's time goes on each search path, the kernel
+   list, the card's name and power limit, one JSON line of per-kernel
+   results, and last `{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or without the repository's `src/` beside it, the
 script exits non-zero and prints no result.
@@ -76,7 +93,24 @@ TPU_KERNELS = {  # kernel -> (port source, the TPU kernel it replaces)
                           "src/repro/kernels/tree_infer.py:81"),
     "qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
                 "src/repro/kernels/qmatmul.py:40"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn.py:70"),
 }
+LM_ARCH = "llama3.2-3b"            # full width; the repo's train_4k length
+LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 4096, 32
+FLASH_F32_TOL = 2e-5               # tests/test_kernels.py:208-209
+# bfloat16: `row_error` (a query row's largest difference over the row's
+# root mean square) at most two bf16 ulps of a row's largest element at four
+# times its rms; the rows' magnitudes fall to ~0.03 at S=4096, so no one
+# absolute tolerance fits them (tests/test_torch_flash.py's module doc)
+FLASH_BF16_ROW_TOL = 2.0 ** -4
+# decode against a fresh prefill in bfloat16: the two paths round their
+# activations at other places (the kernel rounds p to bf16, decode takes a
+# float32 softmax; cuBLAS sums a 4-row and a 16k-row product in other
+# orders), so logits agree to a few bf16 ulps of their scale, not exactly:
+# 0.109 measured on an H100 on logits up to 5.2, against five ulps
+# (0.03125 each in [4, 8)) here
+LM_LOGIT_ATOL = 0.15
 
 
 def log(msg: str) -> None:
@@ -127,6 +161,15 @@ def stream_ms(fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_or_stream_ms(fn, reps: int) -> tuple[float, str]:
+    """(ms, source): `device_ms` of every device activity of ``fn``, or
+    `stream_ms` where the trace holds no device activity."""
+    ms = device_ms(fn, reps)
+    if ms is not None:
+        return ms, "device time"
+    return stream_ms(fn, reps), "stream time"
 
 
 def timed(kernel_fn, plain_fn, kernel: str, reps: int, plain_reps: int):
@@ -461,9 +504,7 @@ def phase_qmatmul(problem, rng) -> dict:
                                  "with float32 weights)"
         if xc.dtype == torch.float32:
             wf = wc.to(torch.float32) * sc
-            lib_ms = device_ms(lambda: torch.mm(xc, wf), 10)
-            if lib_ms is None:      # the trace held no device activity
-                lib_ms = stream_ms(lambda: torch.mm(xc, wf), 10)
+            lib_ms, _ = device_or_stream_ms(lambda: torch.mm(xc, wf), 10)
             lib_text = (f"torch.mm {lib_ms:.4f} ms (TF32 off, weight cast "
                         f"outside the window)")
         n_ops = 2 * m * k * nn
@@ -627,6 +668,296 @@ def phase_breakdown(what: str, fitness, state, n_genes: int, device,
         f"{busy_text}")
 
 
+def attention_pairs(sq: int, skv: int) -> int:
+    """(query, key) pairs a causal mask keeps: query i sees keys 0..i."""
+    i = np.arange(sq)
+    return int(np.minimum(i + 1, skv).sum())
+
+
+def phase_flash(rng) -> dict:
+    """`flash_attention` against its plain version on the card: the LM
+    prefill's shape (llama3.2-3b at B=4, S=4096), float32, grok's softcap,
+    gemma's MQA with head dim 256 and a ragged S; timed at the main shape
+    beside its bound and `scaled_dot_product_attention` (causal, GQA, the
+    one PyTorch call that computes the same function without a softcap);
+    and the cost of the model's layout copies around it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as fa
+
+    cfg = get_config(LM_ARCH)
+    h_main = LM_BATCH * cfg.n_heads
+    hkv_main = LM_BATCH * cfg.n_kv_heads
+    cases = [  # (name, H, Hkv, S, hd, dtype, softcap)
+        ("main", h_main, hkv_main, LM_PROMPT, cfg.head_dim, torch.bfloat16,
+         0.0),
+        ("float32", 8, 4, 512, 64, torch.float32, 0.0),
+        ("softcap 30", 48, 8, 1024, 128, torch.bfloat16, 30.0),
+        ("MQA hd 256", 8, 1, 2048, 256, torch.bfloat16, 0.0),
+        ("ragged", 24, 8, 1000, 128, torch.bfloat16, 0.0),
+    ]
+    err, result = 0.0, None
+    for name, h, hkv, s, hd, dtype, cap in cases:
+        q, k, v = (torch.as_tensor(
+            rng.standard_normal((n, s, hd), dtype=np.float32), device="cuda")
+            .to(dtype) for n in (h, hkv, hkv))
+        g = h // hkv
+        got = fa.flash_attention(q, k, v, group=g, softcap=cap)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, group=g, softcap=cap)
+        e = float((got.float() - want.float()).abs().max())
+        where = (f"flash_attention {name} H={h} Hkv={hkv} S={s} hd={hd} "
+                 f"{str(dtype)[6:]} softcap={cap}")
+        check(bool(torch.isfinite(got).all()), f"{where}: non-finite output")
+        if dtype == torch.float32:
+            check(torch.allclose(got, want, rtol=FLASH_F32_TOL,
+                                 atol=FLASH_F32_TOL), f"{where} differs "
+                  f"from its plain version by {e} (tol {FLASH_F32_TOL})")
+            how = f"within {FLASH_F32_TOL} of the plain version"
+        else:
+            row_err = fa.row_error(got, want)
+            check(row_err <= FLASH_BF16_ROW_TOL, f"{where}: row error "
+                  f"{row_err} against its plain version (limit "
+                  f"{FLASH_BF16_ROW_TOL})")
+            late = float(want[:, s // 2:].float().abs().median())
+            how = (f"row error {row_err:.4f} against the plain version "
+                   f"(limit {FLASH_BF16_ROW_TOL}; median |out| in the second "
+                   f"half of the rows {late:.4f})")
+        err = max(err, e)
+        log(f"[flash] {where}: {how}; largest difference {e:.3g}")
+        if name != "main":
+            continue
+        del want
+        ms, plain_ms, text = timed(
+            lambda: fa.flash_attention(q, k, v, group=g),
+            lambda: fa.flash_attention_plain(q, k, v, group=g),
+            "flash_attn_kernel", reps=5, plain_reps=2)
+        b = LM_BATCH
+        q4, k4, v4 = (t.view(b, t.shape[0] // b, s, hd) for t in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, enable_gqa=True)
+
+        lib_ms, lib_how = device_or_stream_ms(sdpa, 5)
+        lib_err = float((sdpa().reshape(h, s, hd).float() - got.float())
+                        .abs().max())
+        n_ops = 4 * attention_pairs(s, s) * hd * h
+        n_bytes = (2 * h + 2 * hkv) * s * hd * q.element_size()
+        bms, by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        log(f"[flash] main shape: {text}; scaled_dot_product_attention "
+            f"{lib_ms:.4f} ms {lib_how} (differs from the kernel by "
+            f"{lib_err:.3g}); "
+            f"bound {bms:.4f} ms ({by}; {n_ops:.4g} FLOPs at 989 TFLOP/s "
+            f"bf16, {n_bytes} bytes); kernel at {n_ops / ms / 1e9:.1f} "
+            f"TFLOP/s")
+        # the model's layout copies around the kernel at this shape:
+        # q, k, v (B, S, heads, hd) into (B·heads, S, hd) and the output back
+        kv, hq = cfg.n_kv_heads, cfg.n_heads
+        qm = torch.empty((b, s, hq, hd), dtype=dtype, device="cuda")
+        km = torch.empty((b, s, kv, hd), dtype=dtype, device="cuda")
+
+        def layout():
+            qm.permute(0, 2, 1, 3).contiguous()
+            km.permute(0, 2, 1, 3).contiguous()
+            km.permute(0, 2, 1, 3).contiguous()
+            q4.permute(0, 2, 1, 3).reshape(b, s, hq * hd)
+
+        copy_ms, copy_how = device_or_stream_ms(layout, 5)
+        log(f"[flash] the model's layout copies around one call (q, k, v in, "
+            f"the output back): {copy_ms:.4f} ms {copy_how}")
+        result = dict(
+            name="flash_attention", route="cuda",
+            source=TPU_KERNELS["flash_attention"][0],
+            replaces=TPU_KERNELS["flash_attention"][1], launches=0,
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=lib_ms)
+        del q, k, v, got, q4, k4, v4, qm, km
+    result["max_abs_err"] = err
+    log(f"[flash] the largest difference from the plain version over all "
+        f"cases is {err:.3g}")
+    return result
+
+
+def phase_lm() -> dict:
+    """The LM serving path at llama3.2-3b width: random bf16 parameters and a
+    B=4 x 4096-token prompt from the seed, greedy `generate` of 32 tokens,
+    counted (one `flash_attention` launch per layer of the prefill); decode
+    against a fresh prefill over the same tokens; a second `generate`
+    giving the same tokens; prefill and decode times, peak memory and
+    where one prefill's device time goes."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, lm, transformer
+    from repro_torch.runtime import lm_serve
+
+    cfg = get_config(LM_ARCH)
+    s_max = LM_PROMPT + LM_TOKENS
+    t0 = time.perf_counter()
+    params = transformer.init_params(SEED, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {n_params:,} parameters "
+        f"in {cfg.dtype} ({time.perf_counter() - t0:.1f} s to draw); prompt "
+        f"B={LM_BATCH} x {LM_PROMPT} tokens, {LM_TOKENS} new, s_max {s_max}")
+
+    batch = {"tokens": prompt}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = lm_serve.generate(params, cfg, batch, n_tokens=LM_TOKENS,
+                            s_max=s_max)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"flash_attention launched {counts['flash_attention']} times in "
+          f"one generate, not once per layer of the prefill ({cfg.n_layers})")
+    check(tuple(out.shape) == (LM_BATCH, LM_TOKENS)
+          and out.dtype == torch.int32, f"generate gave {tuple(out.shape)} "
+          f"{out.dtype}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "generated tokens outside the vocabulary")
+    log(f"[lm] generate: {t_gen * 1e3:.1f} ms for {LM_BATCH} x {LM_TOKENS} "
+        f"tokens after the prompt; launches {counts}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+
+    # decode at position 4096 against a fresh prefill of the 4097 tokens
+    logits_p, caches = lm.prefill(params, cfg, batch, s_max=s_max)
+    check(torch.equal(logits_p[:, -1, :cfg.vocab_size].argmax(-1).int(),
+                      out[:, 0]), "prefill's argmax is not generate's first "
+          "token")
+    logits_d, _ = lm.decode_step(params, cfg, out[:, :1], caches, LM_PROMPT)
+    check(torch.equal(logits_d[:, -1, :cfg.vocab_size].argmax(-1).int(),
+                      out[:, 1]), "decode's argmax is not generate's second "
+          "token")
+    longer = {"tokens": torch.cat([prompt, out[:, :1]], dim=1)}
+    logits_f, _ = lm.prefill(params, cfg, longer)
+    ld = logits_d[:, -1, :cfg.vocab_size].float()
+    lf = logits_f[:, -1, :cfg.vocab_size].float()
+    check(bool(torch.isfinite(ld).all() and torch.isfinite(lf).all()),
+          "non-finite logits")
+    row_diff = (ld - lf).abs().amax(-1)
+    diff = float(row_diff.max())
+    scale = float(lf.abs().max())
+    top2 = lf.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    same = ld.argmax(-1) == lf.argmax(-1)
+    check(diff <= LM_LOGIT_ATOL, f"decode logits differ from a fresh "
+          f"prefill's by {diff} (atol {LM_LOGIT_ATOL}, logits up to {scale})")
+    check(bool(same.all()), f"decode and prefill pick other tokens: same "
+          f"argmax {same.tolist()}, top-2 gaps {gap.tolist()}, row "
+          f"differences {row_diff.tolist()}")
+    log(f"[lm] decode at position {LM_PROMPT} vs a fresh prefill of "
+        f"{LM_PROMPT + 1} tokens (ragged: the kernel masks the edge): "
+        f"largest logit difference {diff:.4f} (atol {LM_LOGIT_ATOL}; logits "
+        f"up to {scale:.3f}; by row {[round(x, 4) for x in row_diff.tolist()]}"
+        f"); same argmax in rows {same.tolist()}; top-2 gaps "
+        f"{[round(x, 4) for x in gap.tolist()]}")
+    del caches, logits_p, logits_d, logits_f, longer
+
+    again = lm_serve.generate(params, cfg, batch, n_tokens=LM_TOKENS,
+                              s_max=s_max)
+    check(torch.equal(out, again), "a second generate gave other tokens")
+    log("[lm] a second generate gave identical tokens")
+
+    def host_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    t_prefill = host_ms(lambda: lm.prefill(params, cfg, batch, s_max=s_max))
+    _, caches = lm.prefill(params, cfg, batch, s_max=s_max)
+    tok = out[:, :1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(LM_TOKENS - 1):
+        lm.decode_step(params, cfg, tok, caches, LM_PROMPT + i)
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t) * 1e3 / (LM_TOKENS - 1)
+    decode_dev, decode_how = device_or_stream_ms(
+        lambda: lm.decode_step(params, cfg, tok, caches, LM_PROMPT), 3)
+    # one layer's decode attention over the whole s_max cache, and the
+    # float32 cast of its k and v caches inside it
+    k_l, v_l = caches["kv"][0][0], caches["kv"][1][0]
+    qg = torch.zeros((LM_BATCH, 1, cfg.n_kv_heads,
+                      cfg.n_heads // cfg.n_kv_heads, cfg.head_dim),
+                     dtype=k_l.dtype, device="cuda")
+    attn_dev, attn_how = device_or_stream_ms(
+        lambda: attention.decode_attention(qg, k_l, v_l, LM_PROMPT + 1), 5)
+    cast_dev, cast_how = device_or_stream_ms(
+        lambda: (k_l.float(), v_l.float()), 5)
+    prompt_rate = LM_BATCH * LM_PROMPT / t_prefill * 1e3
+    log(f"[lm] prefill {t_prefill:.1f} ms ({prompt_rate:.0f} prompt "
+        f"tokens/s); decode {t_dec:.2f} ms per step of "
+        f"{LM_BATCH} tokens ({LM_BATCH / t_dec * 1e3:.1f} tokens/s), "
+        f"{decode_dev:.2f} ms of it {decode_how}; per layer, decode "
+        f"attention over the {s_max}-slot cache {attn_dev:.4f} ms "
+        f"{attn_how}, of which the float32 cast of its k and v "
+        f"{cast_dev:.4f} ms {cast_how} (x "
+        f"{cfg.n_layers} layers: {attn_dev * cfg.n_layers:.2f} / "
+        f"{cast_dev * cfg.n_layers:.2f} ms); generate "
+        f"{LM_BATCH * LM_TOKENS / t_gen:.1f} new tokens/s end to end "
+        f"(host clock)")
+    del caches
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    lm.prefill(params, cfg, batch, s_max=s_max)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        lm.prefill(params, cfg, batch, s_max=s_max)
+        torch.cuda.synchronize()
+    split = {"attention kernel": 0.0, "matmuls": 0.0, "rest": 0.0}
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        if "flash_attn_kernel" in e.name:
+            split["attention kernel"] += us
+        elif any(w in e.name.lower() for w in MATMUL_NAMES):
+            split["matmuls"] += us
+        else:
+            split["rest"] += us
+    busy = sum(split.values()) / 1e3
+    if busy == 0:
+        log("[lm] the profiler saw no device activity in one prefill: no "
+            "split")
+        return dict(counts=counts)
+    log(f"[lm] one prefill's device time {busy:.1f} ms (host clock "
+        f"{t_prefill:.1f} ms, idle share {1 - busy / t_prefill:.3f}): "
+        + ", ".join(f"{k} {v / 1e3:.1f} ms ({v / 1e3 / busy:.1%})"
+                    for k, v in split.items()))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log("[lm] largest device activities of one prefill: " + "; ".join(
+        f"{n[:70]} {us / 1e3:.2f} ms" for n, us in top))
+    return dict(counts=counts)
+
+
+# substrings of the cuBLAS / CUTLASS GEMM kernels' names in a trace
+MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA "
@@ -670,6 +1001,7 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     results = phase_kernels(problem, rng)
     results["qmatmul"] = phase_qmatmul(mlp_problems[MLP_RUNS[0][0]], rng)
+    results["flash_attention"] = phase_flash(rng)
     launches = dict.fromkeys(results, 0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         tree_path = phase_main_path(problem, out_dir)
@@ -678,7 +1010,8 @@ def main() -> None:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_mlp_") as out_dir:
             mlp_paths[name] = phase_mlp_path(mlp_problems[name], name, pop,
                                              out_dir)
-    for path in (tree_path, *mlp_paths.values()):
+    lm_path = phase_lm()
+    for path in (tree_path, *mlp_paths.values(), lm_path):
         for name, count in path["counts"].items():
             launches[name] += count
     check(all(v > 0 for v in launches.values()),

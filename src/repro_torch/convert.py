@@ -1,9 +1,10 @@
 """Carry state from numpy arrays into the port's objects.
 
 The tests run the JAX package and the port on identical inputs: they read
-a JAX `SearchProblem`, `MLPProblem` or `NSGA2State` out as numpy arrays
-and rebuild the port's counterpart here. (`pareto.json` carries a design
-in both directions.) Nothing here imports the JAX package.
+a JAX `SearchProblem`, `MLPProblem`, `NSGA2State` or LM parameter tree out
+as numpy arrays and rebuild the port's counterpart here. (`pareto.json`
+carries a design in both directions.) Nothing here imports the JAX
+package.
 """
 from __future__ import annotations
 
@@ -97,3 +98,31 @@ def mlp_problem_from_arrays(w1_master, w2_master, shift: int, n_classes: int,
 
     return printed_mlp.problem_from_masters(w1_master, w2_master, shift,
                                             n_classes, x8, y, device=device)
+
+
+def lm_params_from_arrays(params_np: dict, cfg, device="cuda") -> dict:
+    """The port's LM parameters from a JAX `transformer.init_params` tree
+    read out as numpy arrays: ``embed``, ``final_norm``, the stacked
+    ``layers`` (ln1, attn {wq, wk, wv, wo}, ln2, ffn {wi, [wg,] wo}) and
+    ``lm_head`` when the embeddings are not tied. The port keeps the same
+    tree, so the mapping is one to one; each array becomes a tensor of the
+    config's dtype on ``device`` (bfloat16 arrays pass through float32,
+    which holds them exactly)."""
+    from repro_torch.models import transformer
+
+    transformer.require_attn_mlp(cfg)
+    dev = resolve_device(device)
+    dtype = transformer.torch_dtype(cfg)
+    want = {"embed", "final_norm", "layers"} | (
+        set() if cfg.tie_embeddings else {"lm_head"})
+    if set(params_np) != want:
+        raise ValueError(f"lm_params_from_arrays: keys {sorted(params_np)}, "
+                         f"expected {sorted(want)} for {cfg.name}")
+
+    def convert(tree):
+        if isinstance(tree, dict):
+            return {k: convert(v) for k, v in tree.items()}
+        return torch.as_tensor(np.array(tree, np.float32)).to(
+            device=dev, dtype=dtype)
+
+    return convert(params_np)

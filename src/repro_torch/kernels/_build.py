@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("fitness", "domination", "tree_infer", "qmatmul")
+SOURCES = ("fitness", "domination", "tree_infer", "qmatmul", "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -101,11 +101,11 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def function(name: str, fn: str, n_ptrs: int, n_ints: int):
+def function(name: str, fn: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
     """The C entry point ``fn`` of library ``name`` with its arguments
-    declared: ``n_ptrs`` pointers, ``n_ints`` ints and the stream, pointers
-    and stream as ``c_void_p`` so that ctypes never cuts them to 32 bits; it
-    returns the launch's CUDA error. The library is built and loaded, and
+    declared: ``n_ptrs`` pointers, ``n_ints`` ints, ``n_floats`` floats and
+    the stream, pointers and stream as ``c_void_p`` so that ctypes never cuts
+    them to 32 bits; it returns the launch's CUDA error. The library is built and loaded, and
     the function bound, on the first call only."""
     func = _FUNCS.get(fn)
     if func is not None:
@@ -116,7 +116,7 @@ def function(name: str, fn: str, n_ptrs: int, n_ints: int):
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     func = getattr(lib, fn)
     func.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                     + [ctypes.c_void_p])
+                     + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     func.restype = ctypes.c_int
     _FUNCS[fn] = func
     return func

@@ -1,1 +1,2 @@
-"""Serving runtime of the port (`classify.ClassifyServer`)."""
+"""Serving runtimes of the port: the classifier server
+(`classify.ClassifyServer`) and the LM prefill/decode loop (`lm_serve`)."""
