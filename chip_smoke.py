@@ -7,7 +7,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
 
 1. Build the five Hopper kernels from `src/repro_torch/csrc/` (one nvcc per
    source, all started together, `sm_90a`) and report nvcc's register and
-   spill summary.
+   spill summary, for `flash_attn` by kernel and head dim.
 2. Hold each kernel to its plain PyTorch version on the card at the main
    paths' shapes (the `har` dataset: a tree of N=588 comparators and L=589
    leaves, and a printed MLP of F=561 features, H=16 hidden and C=6 output
@@ -35,11 +35,13 @@ Phases, each of which stops the script with a non-zero exit on failure:
 5. `[flash]`: hold `flash_attention` to its plain version (float32 within
    2e-5; bfloat16 by `row_error`, a row's largest difference over its root
    mean square, within 2^-4) at the LM prefill's shape (llama3.2-3b at
-   B=4, S=4096: H=96, Hkv=32, hd=128, bf16), in float32, with grok's
-   softcap 30, at gemma's MQA with head dim 256 and at a ragged S=1000;
-   time it at the main shape beside its plain version, its bound (the bf16
-   tensor-core rate) and `scaled_dot_product_attention` (causal, GQA), and
-   time the model's layout copies around it.
+   B=4, S=4096: H=96, Hkv=32, hd=128, bf16) in the model's (B, S, H, hd)
+   layout through `flash_attention_bshd`, and in the (H, S, hd) layout in
+   float32, with grok's softcap 30, at gemma's MQA with head dim 256 and at
+   a ragged S=1000; time it at the main shape beside its plain version, its
+   bound (the bf16 tensor-core rate) and `scaled_dot_product_attention`
+   (causal, GQA); and check that the model's prefill attention runs nothing
+   on the card but the kernel (no layout copies).
 6. `[lm]`: the LM serving path at llama3.2-3b's full width (28 layers,
    random bf16 weights from the seed): `generate` of 32 greedy tokens after
    a B=4 x 4096-token prompt (the repo's `train_4k` length; `prefill_32k`
@@ -214,6 +216,30 @@ def ptxas_summary(name: str) -> str:
             f"spill stores max {max(spills, default=0)} bytes")
 
 
+def ptxas_kernels(name: str) -> list[str]:
+    """'kernel<HD>: N registers, M bytes spilled' for every instantiation
+    nvcc compiled into library ``name``."""
+    from repro_torch.kernels import _build
+
+    rows, fn, spilled = [], None, "?"
+    for line in _build.build_log(name).splitlines():
+        hit = re.search(r"Compiling entry function '(\w+)'", line)
+        if hit:
+            fn, spilled = hit.group(1), "?"
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill and fn:
+            spilled = spill.group(1)
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and fn:
+            short = re.search(r"([A-Za-z_]+_kernel)ILi(\d+)E", fn)
+            label = (f"{short.group(1)}<{short.group(2)}>" if short
+                     else fn)
+            rows.append(f"{label}: {regs.group(1)} registers, {spilled} "
+                        f"bytes spilled")
+            fn = None
+    return rows
+
+
 def phase_build() -> float:
     from repro_torch.kernels import _build
 
@@ -222,6 +248,8 @@ def phase_build() -> float:
         f"for {', '.join(_build.SOURCES)}")
     for name in _build.SOURCES:
         log(f"[build] {name}: {ptxas_summary(name)}")
+    log("[build] flash_attn by kernel: " + "; ".join(
+        ptxas_kernels("flash_attn")))
     return seconds
 
 
@@ -676,20 +704,22 @@ def attention_pairs(sq: int, skv: int) -> int:
 
 def phase_flash(rng) -> dict:
     """`flash_attention` against its plain version on the card: the LM
-    prefill's shape (llama3.2-3b at B=4, S=4096), float32, grok's softcap,
-    gemma's MQA with head dim 256 and a ragged S; timed at the main shape
-    beside its bound and `scaled_dot_product_attention` (causal, GQA, the
-    one PyTorch call that computes the same function without a softcap);
-    and the cost of the model's layout copies around it."""
+    prefill's shape (llama3.2-3b at B=4, S=4096) in the model's (B, S, H,
+    hd) layout through `flash_attention_bshd`, then float32, grok's softcap,
+    gemma's MQA with head dim 256 and a ragged S in the (H, S, hd) layout;
+    timed at the main shape beside its bound and
+    `scaled_dot_product_attention` (causal, GQA, the one PyTorch call that
+    computes the same function without a softcap); and the device
+    activities other than the kernel in the model's prefill attention."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attn as fa
+    from repro_torch.models import attention
 
     cfg = get_config(LM_ARCH)
-    h_main = LM_BATCH * cfg.n_heads
-    hkv_main = LM_BATCH * cfg.n_kv_heads
+    b, kv, g = LM_BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     cases = [  # (name, H, Hkv, S, hd, dtype, softcap)
-        ("main", h_main, hkv_main, LM_PROMPT, cfg.head_dim, torch.bfloat16,
-         0.0),
+        ("main", b * cfg.n_heads, b * kv, LM_PROMPT, cfg.head_dim,
+         torch.bfloat16, 0.0),
         ("float32", 8, 4, 512, 64, torch.float32, 0.0),
         ("softcap 30", 48, 8, 1024, 128, torch.bfloat16, 30.0),
         ("MQA hd 256", 8, 1, 2048, 256, torch.bfloat16, 0.0),
@@ -697,13 +727,21 @@ def phase_flash(rng) -> dict:
     ]
     err, result = 0.0, None
     for name, h, hkv, s, hd, dtype, cap in cases:
-        q, k, v = (torch.as_tensor(
-            rng.standard_normal((n, s, hd), dtype=np.float32), device="cuda")
-            .to(dtype) for n in (h, hkv, hkv))
-        g = h // hkv
-        got = fa.flash_attention(q, k, v, group=g, softcap=cap)
-        torch.cuda.synchronize()
-        want = fa.flash_attention_plain(q, k, v, group=g, softcap=cap)
+        if name == "main":   # (B, S, heads, hd), as the model holds them
+            q, k, v = (torch.as_tensor(rng.standard_normal(
+                (b, s, n // b, hd), dtype=np.float32), device="cuda")
+                .to(dtype) for n in (h, hkv, hkv))
+            got = fa.flash_attention_bshd(q, k, v, softcap=cap)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bshd_plain(q, k, v, softcap=cap)
+        else:
+            q, k, v = (torch.as_tensor(rng.standard_normal(
+                (n, s, hd), dtype=np.float32), device="cuda")
+                .to(dtype) for n in (h, hkv, hkv))
+            got = fa.flash_attention(q, k, v, group=h // hkv, softcap=cap)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_plain(q, k, v, group=h // hkv,
+                                            softcap=cap)
         e = float((got.float() - want.float()).abs().max())
         where = (f"flash_attention {name} H={h} Hkv={hkv} S={s} hd={hd} "
                  f"{str(dtype)[6:]} softcap={cap}")
@@ -728,50 +766,54 @@ def phase_flash(rng) -> dict:
             continue
         del want
         ms, plain_ms, text = timed(
-            lambda: fa.flash_attention(q, k, v, group=g),
-            lambda: fa.flash_attention_plain(q, k, v, group=g),
-            "flash_attn_kernel", reps=5, plain_reps=2)
-        b = LM_BATCH
-        q4, k4, v4 = (t.view(b, t.shape[0] // b, s, hd) for t in (q, k, v))
+            lambda: fa.flash_attention_bshd(q, k, v),
+            lambda: fa.flash_attention_bshd_plain(q, k, v),
+            "flash_attn", reps=20, plain_reps=2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True, enable_gqa=True)
+                qt, kt, vt, is_causal=True, enable_gqa=True)
 
-        lib_ms, lib_how = device_or_stream_ms(sdpa, 5)
-        lib_err = float((sdpa().reshape(h, s, hd).float() - got.float())
+        lib_ms, lib_how = device_or_stream_ms(sdpa, 20)
+        lib_err = float((sdpa().transpose(1, 2).float() - got.float())
                         .abs().max())
         n_ops = 4 * attention_pairs(s, s) * hd * h
         n_bytes = (2 * h + 2 * hkv) * s * hd * q.element_size()
         bms, by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
-        log(f"[flash] main shape: {text}; scaled_dot_product_attention "
-            f"{lib_ms:.4f} ms {lib_how} (differs from the kernel by "
-            f"{lib_err:.3g}); "
-            f"bound {bms:.4f} ms ({by}; {n_ops:.4g} FLOPs at 989 TFLOP/s "
-            f"bf16, {n_bytes} bytes); kernel at {n_ops / ms / 1e9:.1f} "
-            f"TFLOP/s")
-        # the model's layout copies around the kernel at this shape:
-        # q, k, v (B, S, heads, hd) into (B·heads, S, hd) and the output back
-        kv, hq = cfg.n_kv_heads, cfg.n_heads
-        qm = torch.empty((b, s, hq, hd), dtype=dtype, device="cuda")
-        km = torch.empty((b, s, kv, hd), dtype=dtype, device="cuda")
-
-        def layout():
-            qm.permute(0, 2, 1, 3).contiguous()
-            km.permute(0, 2, 1, 3).contiguous()
-            km.permute(0, 2, 1, 3).contiguous()
-            q4.permute(0, 2, 1, 3).reshape(b, s, hq * hd)
-
-        copy_ms, copy_how = device_or_stream_ms(layout, 5)
-        log(f"[flash] the model's layout copies around one call (q, k, v in, "
-            f"the output back): {copy_ms:.4f} ms {copy_how}")
+        log(f"[flash] main shape, model layout: {text}; "
+            f"scaled_dot_product_attention {lib_ms:.4f} ms {lib_how} "
+            f"(differs from the kernel by {lib_err:.3g}); bound {bms:.4f} "
+            f"ms ({by}; {n_ops:.4g} FLOPs at 989 TFLOP/s bf16, {n_bytes} "
+            f"bytes); kernel at {n_ops / ms / 1e9:.1f} TFLOP/s, "
+            f"{ms / lib_ms:.2f}x SDPA, {ms / bms:.2f}x its bound")
+        # what else the model's prefill attention runs on the card: the
+        # kernel reads q, k, v and writes its output in the model's layout
+        qg = q.view(b, s, kv, g, hd)
+        attention.chunked_prefill_attention(qg, k, v)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            attention.chunked_prefill_attention(qg, k, v)
+            torch.cuda.synchronize()
+        others = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "flash_attn" not in e.name]
+        other_ms = sum(e.time_range.elapsed_us() for e in others) / 1e3
+        log(f"[flash] device activities beside the kernel in one "
+            f"chunked_prefill_attention at the main shape: {len(others)} "
+            f"({other_ms:.4f} ms){': ' if others else ''}"
+            f"{', '.join(sorted({e.name[:60] for e in others}))}")
+        check(not others, "the model's prefill attention copies around "
+              "the kernel")
         result = dict(
             name="flash_attention", route="cuda",
             source=TPU_KERNELS["flash_attention"][0],
             replaces=TPU_KERNELS["flash_attention"][1], launches=0,
             max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
             bound_by=by, library_ms=lib_ms)
-        del q, k, v, got, q4, k4, v4, qm, km
+        del q, k, v, got, qt, kt, vt, qg
     result["max_abs_err"] = err
     log(f"[flash] the largest difference from the plain version over all "
         f"cases is {err:.3g}")
@@ -925,7 +967,7 @@ def phase_lm() -> dict:
             continue
         us = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-        if "flash_attn_kernel" in e.name:
+        if "flash_attn" in e.name:
             split["attention kernel"] += us
         elif any(w in e.name.lower() for w in MATMUL_NAMES):
             split["matmuls"] += us

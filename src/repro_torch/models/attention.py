@@ -3,8 +3,9 @@
 Counterpart of `repro.models.attention` on one device (no sharding: the
 JAX package's `head_sharding` gives `("replicated", 1)` there, so kv heads
 are never repeated). Prefill attention goes through the hand-written
-`flash_attention` kernel (`kernels/flash_attn.py`), which computes what the
-JAX package's `chunked_prefill_attention` computes; decode attends over the
+`flash_attention` kernel (`kernels/flash_attn.py`, its model-layout wrapper
+`flash_attention_bshd`), which computes what the JAX package's
+`chunked_prefill_attention` computes; decode attends over the
 whole preallocated cache with a position mask in plain PyTorch, as the JAX
 package does outside any Pallas kernel.
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attn import flash_attention
+from repro_torch.kernels.flash_attn import flash_attention_bshd
 from repro_torch.models.common import apply_rope, normal_init
 
 NEG_INF = -1e30
@@ -46,21 +47,19 @@ def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
 def chunked_prefill_attention(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *,
                               softcap: float = 0.0) -> torch.Tensor:
-    """Causal attention through the `flash_attention` kernel.
+    """Causal attention through the `flash_attention` kernel, in the model's
+    own layout.
 
     q (B, S, KV, G, hd); k, v (B, S, KV, hd). Returns (B, S, KV, G, hd).
-    The kernel takes heads first with the batch folded in, (B·H, S, hd) and
-    (B·KV, S, hd), so q, k and v are permuted into that layout (one copy
-    each per layer) and the output back; query head b·H + kv·G + g then
-    reads kv head b·KV + kv, its index // G. Any S works: the kernel masks
-    the ragged edge.
+    q's (KV, G) axes are read as H = KV·G heads, so query head kv·G + g
+    reads kv head kv, its index // G; the kernel takes the (B, S, heads, hd)
+    strides, so nothing is permuted or copied around it. Any S works: the
+    kernel masks the ragged edge.
     """
     b, s, kv, g, hd = q.shape
-    qf = q.permute(0, 2, 3, 1, 4).reshape(b * kv * g, s, hd).contiguous()
-    kf = k.permute(0, 2, 1, 3).reshape(b * kv, s, hd).contiguous()
-    vf = v.permute(0, 2, 1, 3).reshape(b * kv, s, hd).contiguous()
-    out = flash_attention(qf, kf, vf, group=g, softcap=softcap)
-    return out.reshape(b, kv, g, s, hd).permute(0, 3, 1, 2, 4)
+    out = flash_attention_bshd(q.reshape(b, s, kv * g, hd), k, v,
+                               softcap=softcap)
+    return out.reshape(b, s, kv, g, hd)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -87,10 +87,16 @@ def test_plain_bf16_and_softcap_match_ref(jref):
         np.asarray(want, np.float32))) <= BF16_ROW_TOL
 
 
-def _tiled(q, k, v, group, fault="none", late=0):
-    """A float32 emulation of the kernel's order (32-key tiles, running
-    (m, l, acc), p rounded to v's dtype before the PV product), with one
-    fault planted in the query rows at or past ``late``."""
+# (query tile, key tile) of the kernels: the float32 kernel's, and the
+# bfloat16 tensor-core kernel's at hd 64/128 and at hd 256
+KERNEL_TILES = [(64, 32), (128, 128), (128, 64)]
+
+
+def _tiled(q, k, v, group, fault="none", late=0, bq=64, bk=32):
+    """A float32 emulation of a kernel's order (``bq``-query blocks walking
+    ``bk``-key tiles, running (m, l, acc), p rounded to v's dtype before the
+    PV product), with one fault planted in the query rows at or past
+    ``late``."""
     h, sq, hd = q.shape
     kr = k.repeat_interleave(group, 0).float()
     vr = v.repeat_interleave(group, 0).float()
@@ -99,13 +105,13 @@ def _tiled(q, k, v, group, fault="none", late=0):
     acc = torch.zeros((h, sq, hd))
     qpos = torch.arange(sq)[:, None]
     hit = qpos >= late
-    for k0 in range(0, k.shape[1], 32):
-        s = torch.einsum("hqd,hkd->hqk", q.float(), kr[:, k0:k0 + 32])
+    for k0 in range(0, k.shape[1], bk):
+        s = torch.einsum("hqd,hkd->hqk", q.float(), kr[:, k0:k0 + bk])
         s = s * hd ** -0.5
-        kpos = torch.arange(k0, min(k0 + 32, k.shape[1]))[None, :]
+        kpos = torch.arange(k0, min(k0 + bk, k.shape[1]))[None, :]
         keep = qpos >= kpos
         if fault == "drop_diagonal_tile":   # the loop ends one tile early
-            keep &= ~(hit & (kpos // 32 == (qpos // 64 * 64 + 63) // 32))
+            keep &= ~(hit & (kpos // bk == (qpos // bq * bq + bq - 1) // bk))
         elif fault == "drop_diagonal_key":  # q_pos > k_pos
             keep &= ~(hit & (qpos == kpos))
         s = torch.where(keep, s, t_fa.NEG_INF)
@@ -121,7 +127,7 @@ def _tiled(q, k, v, group, fault="none", late=0):
         a = alpha if keep_acc is None else torch.where(keep_acc[:, 0], 1.0,
                                                         alpha)
         acc = acc * a[..., None] + torch.einsum("hqk,hkd->hqd", pr,
-                                                vr[:, k0:k0 + 32])
+                                                vr[:, k0:k0 + bk])
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
@@ -134,14 +140,16 @@ def main_length_rows():
     return q, k, v, t_fa.flash_attention_plain(q, k, v, group=3)
 
 
+@pytest.mark.parametrize("bq,bk", KERNEL_TILES)
 @pytest.mark.parametrize("fault", ["none", "no_rescale", "drop_diagonal_tile",
                                    "drop_diagonal_key", "p_float8"])
-def test_row_error_limit_separates_planted_faults(main_length_rows, fault):
-    """The bf16 limit passes the kernel's order and fails a kernel whose
+def test_row_error_limit_separates_planted_faults(main_length_rows, fault,
+                                                  bq, bk):
+    """The bf16 limit passes each kernel's order and fails a kernel whose
     fault shows only in the second half of the rows, where most outputs are
     smaller than 0.05."""
     q, k, v, want = main_length_rows
-    got = _tiled(q, k, v, 3, fault, late=q.shape[1] // 2)
+    got = _tiled(q, k, v, 3, fault, late=q.shape[1] // 2, bq=bq, bk=bk)
     assert float(want[:, q.shape[1] // 2:].float().abs().median()) < 0.05
     err = t_fa.row_error(got, want)
     if fault == "none":
@@ -156,8 +164,8 @@ def test_row_error_limit_separates_planted_faults(main_length_rows, fault):
     (2, 1024, 2, 1, 16, 0.0),    # two JAX chunks of 512
 ])
 def test_prefill_attention_matches_jax(jref, b, s, kv, g, hd, softcap):
-    """The model layout (B, S, KV, G, hd) through the kernel's (B·H, S, hd)
-    layout and back equals the JAX package's chunked online softmax."""
+    """The model layout (B, S, KV, G, hd), read where it lies, equals the
+    JAX package's chunked online softmax."""
     rng = np.random.default_rng(b * s + g)
     q = rng.normal(size=(b, s, kv, g, hd)).astype(np.float32)
     k = rng.normal(size=(b, s, kv, hd)).astype(np.float32)
@@ -185,8 +193,11 @@ def test_ragged_lengths_mask_as_absolute_positions():
 
 
 @pytest.mark.parametrize("bad", ["rank", "group", "head_dim", "dtype",
-                                 "mixed", "no_keys"])
+                                 "mixed", "no_keys", "last_axis", "stride16"])
 def test_wrapper_refuses_bad_operands(bad):
+    """Shapes and dtypes the function does not take, and layouts the kernels
+    do not read: a strided last axis, a stride that is not a multiple of 16
+    bytes (the TMA copies' rule), refused on every device."""
     q, k, v = (torch.zeros((4, 8, 16)), torch.zeros((2, 8, 16)),
                torch.zeros((2, 8, 16)))
     group = 2
@@ -200,10 +211,69 @@ def test_wrapper_refuses_bad_operands(bad):
         q, k, v = (t.to(torch.float64) for t in (q, k, v))
     elif bad == "mixed":
         v = v.to(torch.bfloat16)
-    else:
+    elif bad == "no_keys":
         k = v = torch.zeros((2, 0, 16))
+    elif bad == "last_axis":
+        k = torch.zeros((2, 16, 8)).transpose(1, 2)
+    else:   # rows 17 floats = 68 bytes apart
+        v = torch.zeros((2, 8, 17))[..., :16]
     with pytest.raises(ValueError):
         t_fa.flash_attention(q, k, v, group=group)
+
+
+@pytest.mark.parametrize("bad", ["rank", "batch", "heads", "head_dim",
+                                 "last_axis", "stride16"])
+def test_bshd_wrapper_refuses_bad_operands(bad):
+    q, k, v = (torch.zeros((2, 8, 4, 16)), torch.zeros((2, 8, 2, 16)),
+               torch.zeros((2, 8, 2, 16)))
+    if bad == "rank":
+        q = q[0]
+    elif bad == "batch":
+        k = v = torch.zeros((1, 8, 2, 16))
+    elif bad == "heads":     # 4 query heads on 3 kv heads
+        k = v = torch.zeros((2, 8, 3, 16))
+    elif bad == "head_dim":
+        q = torch.zeros((2, 8, 4, 32))
+    elif bad == "last_axis":
+        q = torch.zeros((2, 8, 16, 4)).transpose(2, 3)
+    else:   # heads 18 floats = 72 bytes apart
+        q = torch.zeros((2, 8, 4, 18))[..., :16]
+    with pytest.raises(ValueError):
+        t_fa.flash_attention_bshd(q, k, v)
+
+
+def test_bshd_plain_is_plain_on_permuted_copies():
+    """The model-layout plain version is the (H, S, hd) plain version on the
+    heads folded into the batch, exactly: query head b·H + h on kv head
+    b·Hkv + h // G."""
+    rng = np.random.default_rng(11)
+    b, sq, skv, h, hkv, hd = 3, 50, 70, 6, 2, 16
+    q = torch.as_tensor(rng.normal(size=(b, sq, h, hd)), dtype=torch.float32)
+    k = torch.as_tensor(rng.normal(size=(b, skv, hkv, hd)),
+                        dtype=torch.float32)
+    v = torch.as_tensor(rng.normal(size=(b, skv, hkv, hd)),
+                        dtype=torch.float32)
+    got = t_fa.flash_attention_bshd(q, k, v, softcap=20.0)
+    assert got.shape == q.shape
+    want = t_fa.flash_attention_plain(
+        *(t.permute(0, 2, 1, 3).contiguous().reshape(-1, t.shape[1], hd)
+          for t in (q, k, v)), group=h // hkv, softcap=20.0)
+    assert torch.equal(got, want.reshape(b, h, sq, hd).permute(0, 2, 1, 3))
+
+
+def test_kernel_operand_strides():
+    """The (batch, seq, head) element strides each launch passes: the
+    (H, S, hd) contract as batch 1 (head stride S·hd), the model's layout
+    as it lies (a view into a fused qkv tensor too); an axis of length 1
+    gets a stride it never steps."""
+    h, s, hd = 6, 10, 64
+    assert t_fa._strides(t_fa._bshd(torch.zeros((h, s, hd)))) == [
+        h * s * hd, hd, s * hd]
+    qkv = torch.zeros((2, s, h + 4, hd))
+    q, k, _ = qkv.split([h, 2, 2], dim=2)
+    assert t_fa._strides(q) == t_fa._strides(k) == [
+        s * (h + 4) * hd, (h + 4) * hd, hd]
+    assert t_fa._strides(torch.zeros((1, 1, 1, hd))) == [hd] * 3
 
 
 def test_registered_with_build_and_counters():
@@ -236,7 +306,24 @@ CUDA_CASES = [  # (h, hkv, sq, skv, hd, dtype, softcap)
     (8, 8, 256, 256, 64, torch.bfloat16, 30.0),    # grok's softcap
     (8, 1, 1000, 1000, 256, torch.bfloat16, 0.0),  # gemma: MQA, hd 256
     (4, 2, 1, 1, 128, torch.bfloat16, 0.0),        # one query, one key
+    (6, 2, 777, 777, 64, torch.bfloat16, 0.0),     # ragged at every tile
+    (8, 2, 300, 900, 128, torch.bfloat16, 0.0),    # Sq < Skv
+    (4, 4, 130, 333, 256, torch.bfloat16, 0.0),    # Sq < Skv at hd 256
 ]
+
+
+def _model_layout(device, h, hkv, sq, skv, hd, dtype, fused):
+    """q (2, Sq, H, hd) and k, v (2, Skv, Hkv, hd) in the model's layout:
+    each its own tensor, or (``fused``, Sq = Skv) views into one
+    (2, S, H + 2 Hkv, hd) tensor, whose rows are H + 2 Hkv heads apart."""
+    rng = np.random.default_rng(h + sq + skv + hd)
+    if fused:
+        qkv = torch.as_tensor(rng.normal(size=(2, sq, h + 2 * hkv, hd)),
+                              device=device).to(dtype)
+        return qkv.split([h, hkv, hkv], dim=2)
+    return tuple(torch.as_tensor(rng.normal(size=(2, n, heads, hd)),
+                                 device=device).to(dtype)
+                 for n, heads in ((sq, h), (skv, hkv), (skv, hkv)))
 
 
 @pytest.mark.torch_cuda
@@ -260,11 +347,66 @@ class TestFlashAttentionOnCuda:
             assert got.dtype == dtype
             assert t_fa.row_error(got, want) <= BF16_ROW_TOL
 
+    @pytest.mark.parametrize("fused", [False, True])
+    @pytest.mark.parametrize("h,hkv,sq,skv,hd,dtype,softcap", CUDA_CASES)
+    def test_model_layout_kernel_matches_plain(self, cuda_device, h, hkv, sq,
+                                               skv, hd, dtype, softcap,
+                                               fused):
+        """`flash_attention_bshd` reads the model's (B, S, H, hd) operands
+        where they lie, views into a fused qkv tensor too."""
+        if fused and sq != skv:
+            pytest.skip("a fused qkv tensor has one length")
+        q, k, v = _model_layout(cuda_device, h, hkv, sq, skv, hd, dtype,
+                                fused)
+        launches = t_fa.flash_attention.launches
+        got = t_fa.flash_attention_bshd(q, k, v, softcap=softcap)
+        torch.cuda.synchronize()
+        assert t_fa.flash_attention.launches == launches + 1
+        assert got.shape == q.shape and got.is_contiguous()
+        want = t_fa.flash_attention_bshd_plain(q, k, v, softcap=softcap)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+        else:
+            assert got.dtype == dtype
+            assert t_fa.row_error(got, want) <= BF16_ROW_TOL
+
     def test_kernel_is_deterministic(self, cuda_device):
         q, k, v = (torch.as_tensor(a, device=cuda_device).to(torch.bfloat16)
                    for a in _qkv(3, 24, 8, 700, 700, 128))
         one = t_fa.flash_attention(q, k, v, group=3)
         assert torch.equal(one, t_fa.flash_attention(q, k, v, group=3))
+
+    @pytest.mark.parametrize("hd", t_fa.HEAD_DIMS)
+    def test_tensor_core_kernel_is_deterministic(self, cuda_device, hd):
+        q, k, v = _model_layout(cuda_device, 8, 2, 1000, 1000, hd,
+                                torch.bfloat16, fused=True)
+        one = t_fa.flash_attention_bshd(q, k, v)
+        for _ in range(3):
+            assert torch.equal(one, t_fa.flash_attention_bshd(q, k, v))
+
+    def test_prefill_attention_launches_no_copies(self, cuda_device):
+        """The model's prefill attention at llama3.2-3b's layout runs the
+        attention kernel and nothing else on the card: no permute or copy
+        of q, k, v or the output around it."""
+        b, s, kv, g, hd = 2, 512, 8, 3, 128
+        qkv = torch.randn((b, s, kv * (g + 2), hd), device=cuda_device,
+                          dtype=torch.bfloat16)
+        q, k, v = qkv.split([kv * g, kv, kv], dim=2)
+        k, v = k.contiguous(), v.contiguous()
+        qg = q.contiguous().reshape(b, s, kv, g, hd)
+        t_attn.chunked_prefill_attention(qg, k, v)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            out = t_attn.chunked_prefill_attention(qg, k, v)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert names and all("flash_attn" in n for n in names), names
+        assert out.shape == qg.shape
+        # the attention block's reshape of the output is a view
+        assert out.reshape(b, s, kv * g * hd).data_ptr() == out.data_ptr()
 
     def test_unsupported_head_dim_raises(self, cuda_device):
         q = torch.zeros((2, 8, 96), device=cuda_device)
