@@ -7,21 +7,24 @@ Phases, each of which stops the script with a non-zero exit on failure:
 
 1. Build the five Hopper kernels from `src/repro_torch/csrc/` (one nvcc per
    source, all started together, `sm_90a`) and report nvcc's register and
-   spill summary, for `flash_attn` by kernel and head dim.
+   spill summary, for `fitness`, `qmatmul` and `flash_attn` by kernel.
 2. Hold each kernel to its plain PyTorch version on the card at the main
    paths' shapes (the `har` dataset: a tree of N=588 comparators and L=589
    leaves, and a printed MLP of F=561 features, H=16 hidden and C=6 output
    neurons, over B=3090 test rows): exact equality for the tree kernels
-   and for `qmatmul` on integer codes, a stated tolerance for `qmatmul` on
-   float inputs; check that each kernel backend scores the exact design
+   and for `qmatmul` on the MLP's uint8 codes (the integer tensor-core
+   kernel), a stated tolerance for `qmatmul` at a random scale and on
+   float inputs (the CUDA-core kernel); report the fitness kernel's rows
+   per block and the L2 bytes its path feed reads; check that each kernel
+   backend scores the exact design
    (0, 1); and time both on the device (a `torch.profiler` trace of
    back-to-back calls) beside the kernel's bound: the larger of its bytes
    over 3.35 TB/s and its operations over the peak rate of their type
-   (1979 TOP/s int8 for the tree dataflow and for `qmatmul` on integer
+   (1979 TOP/s int8 for the tree dataflow and for `qmatmul` on uint8
    codes, 67 TFLOP/s float32 outside the tensor cores for the domination
    compares and `qmatmul` on float32 x, 989 TFLOP/s bf16), and,
    for `qmatmul`, beside the one PyTorch call that computes the same
-   function (`torch.mm`, TF32 off).
+   function (`torch.mm` on the same values as float32, TF32 off).
 3. The tree main path through the user's entry points: train the `har`
    tree, `run_search(backend="kernel", pop_size=512, verify_rtl=True)` into
    a temporary `pareto.json`, then `ClassifyServer.from_artifact` serving
@@ -29,7 +32,8 @@ Phases, each of which stops the script with a non-zero exit on failure:
    gate-level netlist simulation.
 4. The printed-MLP main path the same way: `har` at hidden 16, pop 512,
    then `pendigits` at pop 128 (its exact design is far from chance), each
-   served request checked against the netlist and the integer predict.
+   served request checked against the netlist and the integer predict;
+   `qmatmul`'s float kernel must not run on this path.
    Before each path the kernels' launch counters are set to 0 and just
    after they are read; every kernel of the path must have launched.
 5. `[flash]`: hold `flash_attention` to its plain version (float32 within
@@ -216,8 +220,26 @@ def ptxas_summary(name: str) -> str:
             f"spill stores max {max(spills, default=0)} bytes")
 
 
+def kernel_label(mangled: str) -> str:
+    """'name<template ints>' of a mangled kernel name (bf16 marked), or the
+    name as given where no `*_kernel` identifier is found in it."""
+    i = 0
+    while True:
+        m = re.compile(r"\d+").search(mangled, i)
+        if m is None:
+            return mangled
+        ident = mangled[m.end():m.end() + int(m.group())]
+        if ident.endswith("_kernel"):
+            tail = mangled[m.end() + len(ident):].split("Ev", 1)[0]
+            args = re.findall(r"Li(\d+)E", tail)
+            args = (["bf16"] if "bfloat16" in tail else ["f32"]
+                    if tail.startswith("If") else []) + args
+            return f"{ident}<{','.join(args)}>" if args else ident
+        i = m.end() + len(ident)
+
+
 def ptxas_kernels(name: str) -> list[str]:
-    """'kernel<HD>: N registers, M bytes spilled' for every instantiation
+    """'kernel<args>: N registers, M bytes spilled' for every instantiation
     nvcc compiled into library ``name``."""
     from repro_torch.kernels import _build
 
@@ -231,11 +253,8 @@ def ptxas_kernels(name: str) -> list[str]:
             spilled = spill.group(1)
         regs = re.search(r"Used (\d+) registers", line)
         if regs and fn:
-            short = re.search(r"([A-Za-z_]+_kernel)ILi(\d+)E", fn)
-            label = (f"{short.group(1)}<{short.group(2)}>" if short
-                     else fn)
-            rows.append(f"{label}: {regs.group(1)} registers, {spilled} "
-                        f"bytes spilled")
+            rows.append(f"{kernel_label(fn)}: {regs.group(1)} registers, "
+                        f"{spilled} bytes spilled")
             fn = None
     return rows
 
@@ -248,8 +267,8 @@ def phase_build() -> float:
         f"for {', '.join(_build.SOURCES)}")
     for name in _build.SOURCES:
         log(f"[build] {name}: {ptxas_summary(name)}")
-    log("[build] flash_attn by kernel: " + "; ".join(
-        ptxas_kernels("flash_attn")))
+    for name in ("fitness", "qmatmul", "flash_attn"):
+        log(f"[build] {name} by kernel: " + "; ".join(ptxas_kernels(name)))
     return seconds
 
 
@@ -298,15 +317,22 @@ def phase_kernels(problem, rng) -> dict:
     ms, plain_ms, text = timed(
         lambda: fitness.fitness_correct_counts(fit_ops, shift, thr, cap),
         lambda: fitness.fitness_correct_counts_plain(fit_ops, shift, thr, cap),
-        "fitness_kernel", reps=10, plain_reps=3)
-    words = fit_ops.pos.shape[1]
+        "fitness_mma_kernel", reps=10, plain_reps=3)
+    k_pad, l_pad = fit_ops.x_sel.shape[1], fit_ops.path.shape[0]
     n_ops = tree_ops(POP, b, n, l, c)
-    n_bytes = (b * n + 2 * POP * n * 4 + 2 * l * words * 4 + 2 * l * 4
-               + b * 4 + POP * 4 + POP * 4)
+    path_bytes = fit_ops.path.numel() + 2 * l_pad * 4
+    n_bytes = (b * k_pad + 2 * POP * n * 4 + path_bytes + b * 4 + POP * 4
+               + POP * 4)
     bms, by = bound(n_bytes, n_ops, INT8_OPS_PER_S)
+    rows = fitness.BLOCK_ROWS
+    blocks = POP * -(-b // rows)
+    l2_bytes = blocks * path_bytes
     log(f"[kernel] fitness_errors P={POP} B={b} N={n} L={l} C={c}: equal; "
         f"{text}; bound {bms:.4f} ms ({by}; {n_ops:.4g} int ops, "
-        f"{n_bytes} bytes)")
+        f"{n_bytes} bytes); {n_ops / ms / 1e9:.1f} TOP/s, {ms / bms:.2f}x "
+        f"its bound; {rows} rows a block, {blocks} blocks, each reading the "
+        f"{tuple(fit_ops.path.shape)} path, targets and classes from L2: "
+        f"{l2_bytes} bytes ({l2_bytes / ms / 1e6:.0f} GB/s)")
     record("fitness_errors", float(err), ms, plain_ms, bms, by)
 
     # domination_block: the GA pool (2P rows) against itself, and a slab
@@ -465,39 +491,44 @@ def phase_main_path(problem, out_dir: str) -> dict:
 
 
 def phase_qmatmul(problem, rng) -> dict:
-    """`qmatmul` against its plain version: exact on integer codes at the
-    MLP fitness shape (3090 x 561 @ 561 x 8192, the problem's own codes) and
-    at the serving and verify shapes (N=16); within (QMM_RTOL, QMM_ATOL) on
-    random float32 and bfloat16 x with int8 weights over [-128, 127] and a
-    random scale, at ragged M, K and N. The kernel backend scores the exact
-    design (0, 1). Each case is timed beside its bound (operations at the
-    int8 rate for integer codes, at the float32 or bf16 rate for float x)
-    and, for float32 x,
-    beside `torch.mm` on the same inputs (TF32 off; the weight cast to
-    float32, times the scale, is made before the timed window)."""
+    """`qmatmul` against its plain version. On uint8 codes (the integer
+    tensor-core kernel): exact at the MLP fitness shape (3090 x 561 @ 561 x
+    8192, the problem's own codes buffer) and at the serving and verify
+    shapes (N=16, M = 1, 37, 1024, 3090), and within (QMM_RTOL, QMM_ATOL)
+    at a ragged shape with int8 weights over [-128, 127] and a random
+    scale. On random float32 and bfloat16 x (the CUDA-core kernel) within
+    the same tolerance at the ragged shape. The kernel backend scores the
+    exact design (0, 1). Each case is timed beside its bound (operations at
+    the int8 rate for uint8 x, at the float32 or bf16 rate for float x)
+    and, for uint8 and float32 x, beside `torch.mm` on the same values as
+    float32 (TF32 off; the casts, and the weight times the scale, are made
+    before the timed window)."""
     from repro_torch.families import printed_mlp as pm
     from repro_torch.kernels import qmatmul as qmm
 
     dev = problem.device
-    x = problem.x8f
+    x = problem.x8u
     b, f = x.shape
     h = problem.n_hidden
     n = POP * h
     w = torch.as_tensor(rng.integers(-8, 8, (f, n)).astype(np.int8),
                         device=dev)
     ones = torch.ones(n, dtype=torch.float32, device=dev)
-    cases = [("fitness", x, w, ones, True)]
+    cases = [("fitness uint8", x, w, ones, True)]
     for rows in (1, 37, 1024, b):
-        cases.append((f"serve/verify M={rows}", x[:rows].contiguous(),
+        cases.append((f"serve/verify uint8 M={rows}", x[:rows],
                       w[:, :h].contiguous(), ones[:h].contiguous(), True))
     m_g, k_g, n_g = 300, 777, 515
     xg = torch.as_tensor(rng.standard_normal((m_g, k_g)).astype(np.float32),
+                         device=dev)
+    xu = torch.as_tensor(rng.integers(0, 256, (m_g, k_g)).astype(np.uint8),
                          device=dev)
     wg = torch.as_tensor(rng.integers(-128, 128, (k_g, n_g)).astype(np.int8),
                          device=dev)
     sg = torch.as_tensor(rng.uniform(0.001, 0.1, n_g).astype(np.float32),
                          device=dev)
-    cases += [("general float32", xg, wg, sg, False),
+    cases += [("general uint8", xu, wg, sg, False),
+              ("general float32", xg, wg, sg, False),
               ("general bfloat16", xg.to(torch.bfloat16), wg, sg, False)]
 
     err = 0.0
@@ -527,25 +558,27 @@ def phase_qmatmul(problem, rng) -> dict:
         nn = wc.shape[1]
         ms, plain_ms, text = timed(lambda: qmm.qmatmul(xc, wc, sc),
                                    lambda: qmm.qmatmul_plain(xc, wc, sc),
-                                   "qmatmul_kernel", reps=10, plain_reps=5)
+                                   "qmatmul", reps=20, plain_reps=5)
         lib_ms, lib_text = None, "torch.mm n/a (no one call takes bf16 x " \
                                  "with float32 weights)"
-        if xc.dtype == torch.float32:
+        if xc.dtype != torch.bfloat16:
+            xf = xc.to(torch.float32)
             wf = wc.to(torch.float32) * sc
-            lib_ms, _ = device_or_stream_ms(lambda: torch.mm(xc, wf), 10)
-            lib_text = (f"torch.mm {lib_ms:.4f} ms (TF32 off, weight cast "
-                        f"outside the window)")
+            lib_ms, _ = device_or_stream_ms(lambda: torch.mm(xf, wf), 20)
+            lib_text = (f"torch.mm {lib_ms:.4f} ms (TF32 off, float32 "
+                        f"operands made outside the window)")
         n_ops = 2 * m * k * nn
         n_bytes = m * k * xc.element_size() + k * nn + nn * 4 + m * nn * 4
-        # integer codes fit the int8 (u8 x s8) tensor cores exactly; float x
-        # needs float32 FMAs, bfloat16 x the bf16 tensor cores
-        rate = (INT8_OPS_PER_S if exact else FP32_OPS_PER_S
+        # codes fit the int8 (u8 x s8) tensor cores exactly; float32 x needs
+        # float32 FMAs, bfloat16 x the bf16 tensor cores
+        rate = (INT8_OPS_PER_S if xc.dtype == torch.uint8 else FP32_OPS_PER_S
                 if xc.dtype == torch.float32 else BF16_OPS_PER_S)
         bms, by = bound(n_bytes, n_ops, rate)
+        lib_vs = f", {ms / lib_ms:.2f}x torch.mm" if lib_ms else ""
         log(f"[kernel] qmatmul {name} {m}x{k} @ {k}x{nn}: "
             f"{'equal' if exact else 'within tolerance'}; {text}; "
             f"{lib_text}; bound {bms:.5f} ms ({by}; {n_ops:.4g} ops, "
-            f"{n_bytes} bytes)")
+            f"{n_bytes} bytes); {ms / bms:.2f}x its bound{lib_vs}")
         if results is None:
             results = dict(
                 name="qmatmul", route="cuda", source=TPU_KERNELS["qmatmul"][0],
@@ -553,7 +586,8 @@ def phase_qmatmul(problem, rng) -> dict:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
     log(f"[kernel] qmatmul: the largest difference from the plain version "
-        f"over all cases is {err:.3g} (integer cases exact)")
+        f"over all cases is {err:.3g} (fitness, serve and verify cases "
+        f"exact)")
     return results
 
 
@@ -568,7 +602,10 @@ def phase_mlp_path(problem, dataset: str, pop: int, out_dir: str) -> dict:
     from repro_torch.families import printed_mlp as pm
     from repro_torch.runtime.classify import ClassifyServer
 
+    from repro_torch.kernels import qmatmul as qmm
+
     tag = f"[mlp {dataset}]"
+    float_launches = qmm.qmatmul.float_launches
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     result = search.run_search(problem, backend="kernel", pop_size=pop,
@@ -625,6 +662,8 @@ def phase_mlp_path(problem, dataset: str, pop: int, out_dir: str) -> dict:
     counts = kernels.launch_counts()
     check(counts["qmatmul"] > searched["qmatmul"],
           "serving the MLP point never launched qmatmul")
+    check(qmm.qmatmul.float_launches == float_launches,
+          "the MLP path ran qmatmul's float kernel, not the integer one")
     log(f"{tag} served point {idx} (acc_loss "
         f"{art.points[idx]['acc_loss']:+.4f}, norm_area "
         f"{art.points[idx]['norm_area']:.4f}) over requests of "
@@ -1064,11 +1103,11 @@ def main() -> None:
     from repro_torch.search import make_kernel_fitness
     phase_breakdown(f"tree {DATASET}", make_kernel_fitness(problem),
                     tree_path["state"], problem.n_genes, problem.device,
-                    "fitness_kernel")
+                    "fitness_mma_kernel")
     mp = mlp_problems[MLP_RUNS[0][0]]
     phase_breakdown(f"mlp {MLP_RUNS[0][0]}", pm.make_kernel_fitness(mp),
                     mlp_paths[MLP_RUNS[0][0]]["state"], mp.n_genes,
-                    mp.device, "qmatmul_kernel")
+                    mp.device, "qmatmul_u8")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

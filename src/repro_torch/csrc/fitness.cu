@@ -1,69 +1,260 @@
-// Fused population fitness on Hopper.
+// Fused population fitness on Hopper's int8 tensor cores.
 //
 // Replaces the TPU kernel repro/kernels/fitness.py::fitness_errors. For
-// every chromosome p and test sample b it runs the approximate tree
-// (comparator array -> path product -> leaf decode -> class votes), clips
+// every chromosome p and test sample b it runs the approximate tree, clips
 // the votes to the chromosome's cap, takes the first-max argmax, compares
-// it with the label and counts the correct samples per chromosome. Only the
-// (P,) counts reach device memory.
+// it with the label and counts the correct samples per chromosome; only
+// the (P,) counts reach device memory:
 //
-// What bounds it on the H100: operations. The path product alone is
-// 2*P*B*N*L integer operations (about 1.1e12 for the har dataset at P=512),
-// against a few MB of operands. Design: the TPU grid carried votes across a
-// sequential leaf axis and counts across a sequential batch axis; Hopper
-// blocks run in no order, so each block owns one chromosome x 128 samples,
-// keeps each sample's comparator decisions as a bit set in registers, walks
-// the leaf axis in shared-memory tiles (tree_common.cuh) with the votes in
-// shared memory, and adds its per-chromosome count with one int32 atomicAdd
-// per warp. Integer atomics commute, so the counts are deterministic. The
-// bit-set form turns 32 multiply-adds of the path product into one AND and
-// one population count.
-#include "tree_common.cuh"
+//   D[(p,b), n] = (x_sel[b, n] >> shift[p, n]) > thr[p, n]     in {0, 1}
+//   S[(p,b), l] = sum_n D[(p,b), n] * PATH[l, n]               exact in s32
+//   votes[(p,b), class[l]] += (S == target[l])
+//   count[p]    = sum_b (first-max argmax_c min(votes, cap[p]) == y[b])
+//
+// What bounds it on the H100: operations. The path product is an
+// s8 x s8 -> s32 matrix product of (P * B) rows by L leaves over N
+// comparators, 2 * P * B * N * L = 1.1e12 operations for the har dataset at
+// P=512 (0.56 ms at 1979 TOP/s), against a few MB of operands. The TPU
+// kernel ran it on the MXU; here it is mma.sync m16n8k32 s8 x s8 -> s32.
+//
+// Design. Rows are (chromosome, sample) pairs: a block owns one chromosome
+// and 256 samples, each of its 8 warps two row tiles of 16. The decisions
+// are built once per block: each comparator becomes one byte compare on
+// the code (code >= a threshold derived from shift and thr), so four
+// decisions cost one __vcmpgeu4 on the codes (held (B, K_pad), K
+// contiguous), and a lane keeps the 0/1 bytes of its A registers as bit
+// planes in shared memory (two k-steps per word: 1/8 of the bytes), which
+// two instructions per register expand again. The path matrix (int8, K
+// contiguous: the col B operand as stored, zero past N; leaves past L carry
+// a target no score reaches) is held with rows of K_pad + 16 bytes, an odd
+// number of 16-byte units, so the 8 leaves of one ldmatrix fall on distinct
+// banks and a 32-leaf tile is one contiguous copy. The tiles stream through
+// a two-stage cp.async ring that all warps of the block share; at 74
+// registers and 88 KB of shared memory (har) three blocks share an SM,
+// which hides the ring's barrier better than a deeper ring or 16 warps a
+// block (measured: tools/int8_check.py). Per tile and k-step a
+// warp reads the B fragments of the tile's 4 n-tiles (two ldmatrix.x4) and
+// runs them against both of its row tiles: 128 bytes of shared memory per
+// mma, half of what one row tile per warp reads, since those reads and not
+// the mma bound a warp that holds one row tile. Each accumulator is
+// compared with its leaf's target and a satisfied leaf adds one vote to
+// its row's class in a shared-memory table (shared atomics: a row may
+// satisfy several leaves). After the last tile each row caps its votes,
+// takes the first-max argmax and compares it with its label, and each warp
+// adds its count with one integer atomicAdd, so the result is
+// deterministic. Every block re-reads the path from L2 (13 x 512 blocks x
+// 384 KB = 2.56 GB per har call).
+#include "mma_common.cuh"
 
 namespace {
 
-using repro::kThreads;
+constexpr int kLeafTile = 32;     // leaves per ring stage (4 n-tiles)
+constexpr int kWarps = 8;
+constexpr int kRowTiles = 2;      // row tiles of 16 per warp
+constexpr int kRows = kWarps * kRowTiles * 16;   // 256 rows a block
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxKPad = 2048;
+constexpr int kStages = 2;        // ring depth
 
-template <int NWP>
-__global__ void __launch_bounds__(kThreads) fitness_kernel(
-    const uint8_t* __restrict__ xsel_t,      // (N, B) codes, sample-minor
+__host__ __device__ constexpr int row_bytes(int k_pad) { return k_pad + 16; }
+
+__host__ __device__ constexpr size_t stage_bytes(int k_pad) {
+  return static_cast<size_t>(kLeafTile) * row_bytes(k_pad) +
+         2 * kLeafTile * sizeof(int32_t);
+}
+
+// 32-bit plane words of one lane and row tile: two k-steps per word
+__host__ __device__ constexpr int plane_words(int k_pad) {
+  return (k_pad / 32 + 1) / 2;
+}
+
+size_t smem_bytes(int k_pad, int n_classes) {
+  return kStages * stage_bytes(k_pad) +
+         sizeof(int32_t) * kRows * static_cast<size_t>(n_classes) +
+         2 * static_cast<size_t>(k_pad) +
+         sizeof(uint32_t) * kRowTiles * plane_words(k_pad) * kThreads;
+}
+
+// (code >> shift) > thr  <=>  code >= (thr + 1) << shift for codes in
+// [0, 255] and shift >= 0, so each comparator becomes one byte compare:
+// `at` holds the least code that fires and `on` is 1 unless none does.
+__device__ __forceinline__ void code_threshold(int shift, int thr,
+                                               uint8_t& at, uint8_t& on) {
+  if (thr < 0) {
+    at = 0;
+    on = 1;
+  } else if (shift >= 8 || thr >= 255 || ((thr + 1) << shift) > 255) {
+    at = 0;
+    on = 0;
+  } else {
+    at = static_cast<uint8_t>((thr + 1) << shift);
+    on = 1;
+  }
+}
+
+// Four decision bytes (0 or 1) of a sample row at comparators n0..n0+3.
+__device__ __forceinline__ uint32_t decide4(const uint8_t* __restrict__ xrow,
+                                            const uint8_t* at,
+                                            const uint8_t* on, int n0) {
+  const uint32_t x = *reinterpret_cast<const uint32_t*>(xrow + n0);
+  return __vcmpgeu4(x, *reinterpret_cast<const uint32_t*>(at + n0)) &
+         *reinterpret_cast<const uint32_t*>(on + n0);
+}
+
+// The epilogue of a leaf tile for one row tile (local rows `row`, row + 8):
+// accumulator j against the targets tt[0..32) of its leaves; a satisfied
+// leaf adds a vote to its row's class (tt[32 + l]).
+__device__ __forceinline__ void vote(const int32_t (&acc)[kLeafTile / 8][4],
+                                     const int32_t* tt, int32_t* votes,
+                                     int row, int t, int row0, int batch) {
+  const bool ok[2] = {row0 + row < batch, row0 + row + 8 < batch};
+#pragma unroll
+  for (int j = 0; j < kLeafTile / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int l = j * 8 + 2 * t + (e & 1);
+      if (ok[e >> 1] && acc[j][e] == tt[l])
+        atomicAdd(votes + tt[kLeafTile + l] * kRows + row + (e >> 1) * 8, 1);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 3) fitness_mma_kernel(
+    const uint8_t* __restrict__ x_sel,       // (B, K_pad) codes
     const int32_t* __restrict__ shift,       // (P, N) 8 - effective bits
     const int32_t* __restrict__ thr,         // (P, N) effective thresholds
-    const uint32_t* __restrict__ pos,        // (L, NWP) +1 path entry bits
-    const uint32_t* __restrict__ neg,        // (L, NWP) -1 path entry bits
-    const int32_t* __restrict__ target,      // (L,) satisfied-leaf score
-    const int32_t* __restrict__ leaf_class,  // (L,) in [0, n_classes)
+    const int8_t* __restrict__ path,         // (L_pad, K_pad + 16), {-1, 0, 1}
+    const int32_t* __restrict__ target,      // (L_pad,) satisfied-leaf score
+    const int32_t* __restrict__ leaf_class,  // (L_pad,) in [0, n_classes)
     const int32_t* __restrict__ y,           // (B,) labels, -1 never matches
     const int32_t* __restrict__ vote_cap,    // (P,) vote saturation
     int32_t* __restrict__ correct,           // (P,) zeroed by the caller
-    int batch, int n_comp, int n_leaves, int n_classes) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const repro::Smem s = repro::carve<NWP>(smem, n_comp);
+    int batch, int n_comp, int k_pad, int l_pad, int n_classes) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int rs = row_bytes(k_pad);
+  const size_t sb = stage_bytes(k_pad);
+  int32_t* votes = reinterpret_cast<int32_t*>(smem + kStages * sb);
+  uint8_t* at = reinterpret_cast<uint8_t*>(votes + kRows * n_classes);
+  uint8_t* on = at + k_pad;
+  uint32_t* planes = reinterpret_cast<uint32_t*>(on + k_pad);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int p = blockIdx.y;
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = b < batch;
+  const int row0 = blockIdx.x * kRows;
+  const int ksteps = k_pad / 32;
+  const int tiles = l_pad / kLeafTile;
+  const int words = plane_words(k_pad);
+  const int32_t* sh = shift + static_cast<size_t>(p) * n_comp;
+  const int32_t* th = thr + static_cast<size_t>(p) * n_comp;
 
-  repro::load_chromosome(s, shift + static_cast<size_t>(p) * n_comp,
-                         thr + static_cast<size_t>(p) * n_comp, n_comp,
-                         n_classes);
+  // a tile is kLeafTile rows of the path, contiguous in memory as in the
+  // ring: one flat copy, then its targets and classes
+  auto issue = [&](int tile) {
+    uint8_t* st = smem + (tile % kStages) * sb;
+    const int8_t* src = path + static_cast<size_t>(tile) * kLeafTile * rs;
+    for (int c = threadIdx.x; c < kLeafTile * rs / 16; c += kThreads)
+      repro::cp_async16(st + 16 * c, src + 16 * c, 16);
+    int32_t* tt = reinterpret_cast<int32_t*>(st + kLeafTile * rs);
+    if (threadIdx.x < 2 * kLeafTile / 4) {
+      const int half = threadIdx.x / (kLeafTile / 4);   // 0 target, 1 class
+      const int q = (threadIdx.x % (kLeafTile / 4)) * 4;
+      const int32_t* from = (half ? leaf_class : target) + tile * kLeafTile;
+      repro::cp_async16(tt + half * kLeafTile + q, from + q, 16);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < tiles) issue(s);
+    repro::cp_async_commit();
+  }
+
+  for (int i = threadIdx.x; i < kRows * n_classes; i += kThreads) votes[i] = 0;
+  for (int n = threadIdx.x; n < k_pad; n += kThreads) {
+    uint8_t a = 0, o = 0;
+    if (n < n_comp) code_threshold(sh[n], th[n], a, o);
+    at[n] = a;
+    on[n] = o;
+  }
   __syncthreads();
-  uint32_t d[NWP];
-  repro::decisions<NWP>(
-      d, active,
-      [&](int n) {
-        return static_cast<int>(xsel_t[static_cast<size_t>(n) * batch + b]);
-      },
-      s, n_comp);
-  repro::accumulate_votes<NWP>(d, active, pos, neg, target, leaf_class,
-                               n_leaves, s);
 
+  // Bit 8i + 4 (ks % 2) + q of this lane's plane word (rt, ks / 2) is byte
+  // i of its A register a_q at k-step ks of row tile rt: q % 2 picks the
+  // row (g or g + 8), q / 2 the half of the 32 k. Only this lane reads its
+  // words (column threadIdx.x: conflict-free).
+  uint32_t* my_planes = planes + threadIdx.x;
+  for (int rt = 0; rt < kRowTiles; ++rt) {
+    const int r0 = row0 + (warp * kRowTiles + rt) * 16 + g;
+    for (int w = 0; w < words; ++w) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = r0 + 8 * (q & 1);
+          const int ks = 2 * w + h;
+          if (r < batch && ks < ksteps)
+            word |= decide4(x_sel + static_cast<size_t>(r) * k_pad, at, on,
+                            ks * 32 + (q >> 1) * 16 + 4 * t)
+                    << (4 * h + q);
+        }
+      }
+      my_planes[(rt * words + w) * kThreads] = word;
+    }
+  }
+
+  // ldmatrix lane addressing: matrix q = lane / 8, its row lane % 8;
+  // B matrices (n-tile 2 h, k 0-15), (2 h, 16-31), (2 h + 1, 0-15), ...
+  const int mq = lane >> 3;
+  const int mr = lane & 7;
+  const int b_off = ((mq >> 1) * 8 + mr) * rs + (mq & 1) * 16;
+  for (int tile = 0; tile < tiles; ++tile) {
+    repro::cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile is in the ring (and votes ready)
+    if (tile + kStages - 1 < tiles) issue(tile + kStages - 1);
+    repro::cp_async_commit();
+    const uint8_t* st = smem + (tile % kStages) * sb;
+    int32_t acc[kRowTiles][kLeafTile / 8][4] = {};
+#pragma unroll 2
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t b[kLeafTile / 16][4];
+#pragma unroll
+      for (int h = 0; h < kLeafTile / 16; ++h)
+        repro::ldmatrix_x4(b[h], st + b_off + h * 16 * rs + ks * 32);
+#pragma unroll
+      for (int rt = 0; rt < kRowTiles; ++rt) {
+        const uint32_t plane =
+            my_planes[(rt * words + ks / 2) * kThreads] >> (4 * (ks & 1));
+        const uint32_t a[4] = {plane & 0x01010101u, (plane >> 1) & 0x01010101u,
+                               (plane >> 2) & 0x01010101u,
+                               (plane >> 3) & 0x01010101u};
+#pragma unroll
+        for (int j = 0; j < kLeafTile / 8; ++j)
+          repro::mma_s8s8(acc[rt][j], a, b[j / 2][2 * (j % 2)],
+                          b[j / 2][2 * (j % 2) + 1]);
+      }
+    }
+    const int32_t* tt = reinterpret_cast<const int32_t*>(st + kLeafTile * rs);
+#pragma unroll
+    for (int rt = 0; rt < kRowTiles; ++rt)
+      vote(acc[rt], tt, votes, (warp * kRowTiles + rt) * 16 + g, t, row0,
+           batch);
+  }
+  __syncthreads();  // every vote is in
+
+  // one row per thread (kThreads == kRows): cap, first-max argmax, label
+  static_assert(kThreads == kRows, "one row per thread");
+  const int b = row0 + threadIdx.x;
   int ok = 0;
-  if (active) {
+  if (b < batch) {
     const int cap = vote_cap[p];
     int best = -1;
     int pred = 0;
     for (int c = 0; c < n_classes; ++c) {  // first max wins ties
-      const int v = min(s.votes[c * kThreads + threadIdx.x], cap);
+      const int v = min(votes[c * kRows + threadIdx.x], cap);
       if (v > best) {
         best = v;
         pred = c;
@@ -72,46 +263,44 @@ __global__ void __launch_bounds__(kThreads) fitness_kernel(
     ok = pred == y[b];
   }
   ok = __reduce_add_sync(0xffffffffu, ok);
-  if ((threadIdx.x & 31) == 0 && ok) atomicAdd(correct + p, ok);
+  if (lane == 0 && ok) atomicAdd(correct + p, ok);
 }
 
-template <int NWP>
-cudaError_t launch(const void* xsel_t, const void* shift, const void* thr,
-                   const void* pos, const void* neg, const void* target,
+cudaError_t launch(const void* x_sel, const void* shift, const void* thr,
+                   const void* path, const void* target,
                    const void* leaf_class, const void* y, const void* vote_cap,
-                   void* correct, int n_pop, int batch, int n_comp,
-                   int n_leaves, int n_classes, cudaStream_t stream) {
-  const size_t smem = repro::smem_bytes(NWP, n_comp, n_classes);
-  cudaError_t err = repro::allow_smem(fitness_kernel<NWP>, smem);
+                   void* correct, int n_pop, int batch, int n_comp, int k_pad,
+                   int l_pad, int n_classes, cudaStream_t stream) {
+  const size_t smem = smem_bytes(k_pad, n_classes);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  cudaError_t err =
+      repro::allow_dynamic_smem(fitness_mma_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((batch + kThreads - 1) / kThreads, n_pop);
-  fitness_kernel<NWP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(xsel_t), static_cast<const int32_t*>(shift),
-      static_cast<const int32_t*>(thr), static_cast<const uint32_t*>(pos),
-      static_cast<const uint32_t*>(neg), static_cast<const int32_t*>(target),
+  const dim3 grid((batch + kRows - 1) / kRows, n_pop);
+  fitness_mma_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(x_sel), static_cast<const int32_t*>(shift),
+      static_cast<const int32_t*>(thr), static_cast<const int8_t*>(path),
+      static_cast<const int32_t*>(target),
       static_cast<const int32_t*>(leaf_class), static_cast<const int32_t*>(y),
       static_cast<const int32_t*>(vote_cap), static_cast<int32_t*>(correct),
-      batch, n_comp, n_leaves, n_classes);
+      batch, n_comp, k_pad, l_pad, n_classes);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// x_sel (B, K_pad) uint8, path (L_pad, K_pad + 16) int8, K_pad a multiple
+// of 32 in [N, 2048], L_pad a multiple of 32; every buffer 16-byte aligned.
 extern "C" int repro_fitness_correct_counts(
-    const void* xsel_t, const void* shift, const void* thr, const void* pos,
-    const void* neg, const void* target, const void* leaf_class,
-    const void* y, const void* vote_cap, void* correct, int n_pop, int batch,
-    int n_comp, int n_leaves, int n_classes, int nwp, void* stream) {
-  if (n_pop <= 0 || batch <= 0 || n_pop > 65535) return cudaErrorInvalidValue;
-  switch (nwp) {
-#define REPRO_CASE(W)                                                       \
-  case W:                                                                   \
-    return launch<W>(xsel_t, shift, thr, pos, neg, target, leaf_class, y,   \
-                     vote_cap, correct, n_pop, batch, n_comp, n_leaves,     \
-                     n_classes, static_cast<cudaStream_t>(stream));
-    REPRO_NWP_CASES(REPRO_CASE)
-#undef REPRO_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
+    const void* x_sel, const void* shift, const void* thr, const void* path,
+    const void* target, const void* leaf_class, const void* y,
+    const void* vote_cap, void* correct, int n_pop, int batch, int n_comp,
+    int k_pad, int l_pad, int n_classes, void* stream) {
+  if (n_pop <= 0 || batch <= 0 || n_pop > 65535 || n_classes <= 0 ||
+      k_pad % 32 != 0 || k_pad < n_comp || k_pad > kMaxKPad ||
+      l_pad % kLeafTile != 0)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return launch(x_sel, shift, thr, path, target, leaf_class, y, vote_cap,
+                correct, n_pop, batch, n_comp, k_pad, l_pad, n_classes, s);
 }

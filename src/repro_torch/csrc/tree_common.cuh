@@ -1,8 +1,7 @@
 // Shared device code of the comparator -> path -> leaf -> vote dataflow.
 //
-// Used by fitness.cu (fused population fitness) and tree_infer.cu
-// (materialised per-class votes). One thread owns one (chromosome, sample)
-// pair for the whole leaf axis:
+// Used by tree_infer.cu (materialised per-class votes). One thread owns
+// one (chromosome, sample) pair for the whole leaf axis:
 //
 //   d      = (x >> shift) > thr           one bit per comparator, kept in
 //                                         NWP 32-bit registers

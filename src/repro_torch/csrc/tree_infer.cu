@@ -10,10 +10,9 @@
 // What bounds it on the H100: at the serving shapes (P = 1, B <= 1024) the
 // launch itself and the bytes of the static operands (path masks, about
 // 2*L*N/8 bytes); at the verification shape (P = 1, B = 3090 for har) the
-// 2*P*B*N*L operations of the path product. Design: the same block layout
-// as fitness.cu (one chromosome x 128 samples per block, decisions as a bit
-// set in registers, leaf tiles in shared memory), with the votes written
-// out instead of reduced, so both kernels share tree_common.cuh.
+// 2*P*B*N*L operations of the path product. Design (tree_common.cuh): one
+// chromosome x 128 samples per block, decisions as a bit set in registers,
+// leaf tiles in shared memory, the votes written out.
 #include "tree_common.cuh"
 
 namespace {

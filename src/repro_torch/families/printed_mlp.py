@@ -22,8 +22,9 @@ padding, which comes with the sweep's slice of the port):
     2^24, the ReLU output is floor-shifted by a static per-problem `shift`
     so that the second layer's sums stay below 2^24 too. The kernel backend
     runs the whole population's first layer as ONE `kernels.ops.qmatmul`
-    launch (weights concatenated on the output axis), float32 FMAs exact in
-    any order; the reference backend runs it as a float64 matmul. The
+    launch (weights concatenated on the output axis) over the uint8 codes,
+    int32 sums on the integer tensor cores, exact; the reference backend
+    runs it as a float64 matmul. The
     second layer is a float64 product, exact and independent of
     `torch.backends.cuda.matmul.allow_tf32`. Argmax keeps the first
     maximum on ties.
@@ -49,6 +50,7 @@ from repro_torch.core import area as area_mod
 from repro_torch.core import netlist
 from repro_torch.device import resolve_device
 from repro_torch.families.base import ClassifierFamily
+from repro_torch.kernels.qmatmul import code_buffer
 from repro_torch.quantize import bespoke
 
 MASTER_WBITS = 4            # master weight codes are 4-bit signed: [-8, 7]
@@ -197,7 +199,8 @@ class MLPProblem:
     cost1: torch.Tensor        # (18, H) int64 area quanta
     cost2: torch.Tensor        # (18, C) int64
     x8: torch.Tensor           # (B, F) int32 master input codes
-    x8f: torch.Tensor          # (B, F) float32, the same codes
+    x8u: torch.Tensor          # (B, F) uint8, the same codes, rows
+                               # 16-byte aligned (`qmatmul.code_buffer`)
     y: torch.Tensor            # (B,) int64 labels
     exact_units: int           # exact design's area in quanta
     exact_accuracy: float
@@ -267,6 +270,8 @@ def problem_from_masters(w1_master, w2_master, shift: int, n_classes: int,
     if w2m.shape != (n_hidden, n_classes) or x8.shape[1:] != (n_features,):
         raise ValueError(f"masters w1{w1m.shape} / w2{w2m.shape} do not fit "
                          f"{n_classes} classes and codes x8{x8.shape}")
+    if x8.size and (x8.min() < 0 or x8.max() > 255):
+        raise ValueError("input codes must lie in [0, 255]")
     lo, hi = -(1 << (MASTER_WBITS - 1)), (1 << (MASTER_WBITS - 1)) - 1
     if min(w1m.min(), w2m.min()) < lo or max(w1m.max(), w2m.max()) > hi:
         raise ValueError(f"master codes must lie in [{lo}, {hi}]")
@@ -287,7 +292,8 @@ def problem_from_masters(w1_master, w2_master, shift: int, n_classes: int,
         n_classes=int(n_classes),
         tw1=t(tw1, torch.int8), tw2=t(tw2, torch.float64),
         cost1=t(cost1, torch.int64), cost2=t(cost2, torch.int64),
-        x8=t(x8, torch.int32), x8f=t(x8, torch.float32), y=t(y, torch.int64),
+        x8=t(x8, torch.int32), x8u=code_buffer(t(x8, torch.uint8)),
+        y=t(y, torch.int64),
         exact_units=exact_units, exact_accuracy=exact_acc)
 
 
@@ -379,7 +385,7 @@ def population_objectives(problem: MLPProblem,
     combos = decode_combos(pop)
     w1, w2, units = _gather_layers(problem, combos)
     p = pop.shape[0]
-    h = problem.x8f.to(torch.float64) @ w1.reshape(
+    h = problem.x8u.to(torch.float64) @ w1.reshape(
         problem.n_features, p * problem.n_hidden).to(torch.float64)
     h = h.to(torch.float32).reshape(-1, p, problem.n_hidden)
     return _objectives(problem, _predict(problem, h, w2), units)
@@ -394,8 +400,9 @@ def make_reference_fitness(problem: MLPProblem):
 
 def make_kernel_fitness(problem: MLPProblem):
     """Kernel fitness: the population's first layer as ONE `qmatmul`
-    launch, ``x8f (B, F) @ w (F, P*H) int8``, so the test split streams
-    through the kernel once per generation. Equal to the reference."""
+    launch, ``x8u (B, F) uint8 @ w (F, P*H) int8`` on the integer tensor
+    cores, so the test split streams through the kernel once per
+    generation. Equal to the reference."""
     from repro_torch.kernels import ops as kops
 
     def fitness(pop):
@@ -404,7 +411,7 @@ def make_kernel_fitness(problem: MLPProblem):
         p = pop.shape[0]
         n = p * problem.n_hidden
         ones = torch.ones((n,), dtype=torch.float32, device=problem.device)
-        h = kops.qmatmul(problem.x8f, w1.reshape(problem.n_features, n), ones)
+        h = kops.qmatmul(problem.x8u, w1.reshape(problem.n_features, n), ones)
         h = h.reshape(-1, p, problem.n_hidden)
         return _objectives(problem, _predict(problem, h, w2), units)
 
@@ -421,7 +428,7 @@ def make_kernel_predict(problem: MLPProblem):
 
     def predict(genes: torch.Tensor) -> torch.Tensor:
         w1, w2, _ = _gather_layers(problem, decode_combos(genes[None, :]))
-        h = kops.qmatmul(problem.x8f, w1[:, 0, :], ones)
+        h = kops.qmatmul(problem.x8u, w1[:, 0, :], ones)
         return _predict(problem, h[:, None, :], w2)[0]
 
     return predict

@@ -9,14 +9,15 @@ classifies correctly:
     votes = (d @ PATH^T == target) @ CLS1H,  clipped to vote_cap[p]
     count = sum_b (first-max argmax(votes) == y[b])
 
-Only the (P,) counts leave the kernel (`csrc/fitness.cu`; what bounds it on
-the H100 and how the design answers is stated there). The TPU kernel's
-(P, 128) lane-replicated output was a layout artifact; this returns (P,).
-Everything is integer: `floor(x * 2^-(8-p))` of the TPU kernel is
-``x >> (8 - p)`` on integer codes, and ``vote_cap`` is an int32 (1 for the
-approximate vote adder, `repro_torch.core.quant.NO_VOTE_CAP` for the exact
-one). On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA
-tensor it launches the kernel or raises.
+Only the (P,) counts leave the kernel (`csrc/fitness.cu`: the path product
+``d @ PATH^T`` as an s8 x s8 -> s32 product on the int8 tensor cores; what
+bounds it on the H100 and how the design answers is stated there). The
+TPU kernel's (P, 128) lane-replicated output was a layout artifact; this
+returns (P,). Everything is integer: `floor(x * 2^-(8-p))` of the TPU
+kernel is ``x >> (8 - p)`` on integer codes, and ``vote_cap`` is an int32
+(1 for the approximate vote adder, `repro_torch.core.quant.NO_VOTE_CAP` for
+the exact one). On a CPU tensor the wrapper runs the plain PyTorch
+version; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -25,21 +26,43 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.tree_infer import (PLAIN_CHUNK, leaf_votes_plain,
-                                           mask_words)
+from repro_torch.kernels.tree_infer import PLAIN_CHUNK, leaf_votes_plain
+
+# The operand layout of csrc/fitness.cu (a test holds the two files equal):
+# K (comparators) padded to a multiple of K_ALIGN bytes, at most MAX_K_PAD,
+# and each path row by ROW_PAD more (the row stride of the kernel's shared
+# path tiles, so a tile is one contiguous copy); leaves padded to a
+# multiple of LEAF_TILE. A block of the kernel holds BLOCK_ROWS
+# (chromosome, sample) rows.
+K_ALIGN = 32
+ROW_PAD = 16
+MAX_K_PAD = 2048
+LEAF_TILE = 32
+BLOCK_ROWS = 256
+
+
+def k_padded(n_comparators: int) -> int:
+    """Comparator axis of the kernel's operands for N comparators."""
+    k_pad = max(K_ALIGN, -(-n_comparators // K_ALIGN) * K_ALIGN)
+    if k_pad > MAX_K_PAD:
+        raise ValueError(f"{n_comparators} comparators exceed the fitness "
+                         f"kernel's {MAX_K_PAD}")
+    return k_pad
 
 
 @dataclasses.dataclass
 class FitnessOperands:
-    """Chromosome-invariant operands of `fitness_correct_counts`."""
+    """Chromosome-invariant operands of `fitness_correct_counts`, in the
+    kernel's layout: K contiguous, padded with zeros (comparators past N
+    never fire and have zero path entries); leaves past L have a zero path
+    row and a target no score reaches (|score| <= N)."""
 
-    x_sel_t: torch.Tensor     # (N, B) uint8 gathered codes, sample-minor
+    x_sel: torch.Tensor       # (B, K_pad) uint8 gathered codes
     y: torch.Tensor           # (B,) int32 labels; -1 rows never count
-    path: torch.Tensor        # (L, N) int8 in {-1, 0, 1} (plain version)
-    pos: torch.Tensor         # (L, W) int32 bit masks of the +1 entries
-    neg: torch.Tensor         # (L, W) int32 bit masks of the -1 entries
-    target: torch.Tensor      # (L,) int32 score of a satisfied leaf
-    leaf_class: torch.Tensor  # (L,) int32 in [0, n_classes)
+    path: torch.Tensor        # (L_pad, K_pad + ROW_PAD) int8 in {-1, 0, 1}
+    target: torch.Tensor      # (L_pad,) int32 score of a satisfied leaf
+    leaf_class: torch.Tensor  # (L_pad,) int32 in [0, n_classes)
+    n_comparators: int        # N
     n_classes: int
     n_valid: int              # rows with a label >= 0
 
@@ -52,11 +75,12 @@ def fitness_correct_counts_plain(ops: FitnessOperands, shift: torch.Tensor,
                                  thr: torch.Tensor,
                                  vote_cap: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of `fitness_correct_counts`."""
-    x_sel = ops.x_sel_t.T
+    n = ops.n_comparators
+    x_sel, path = ops.x_sel[:, :n], ops.path[:, :n]
     counts = []
     for p0 in range(0, shift.shape[0], PLAIN_CHUNK):
         votes = leaf_votes_plain(x_sel, shift[p0:p0 + PLAIN_CHUNK],
-                                 thr[p0:p0 + PLAIN_CHUNK], ops.path,
+                                 thr[p0:p0 + PLAIN_CHUNK], path,
                                  ops.target, ops.leaf_class, ops.n_classes)
         votes = torch.minimum(votes, vote_cap[p0:p0 + PLAIN_CHUNK, None, None])
         pred = torch.argmax(votes, dim=-1)                  # first max
@@ -76,30 +100,29 @@ def fitness_correct_counts(ops: FitnessOperands, shift: torch.Tensor,
         return fitness_correct_counts_plain(ops, shift, thr, vote_cap)
     dev = shift.device
     n_pop, n = shift.shape
-    batch = ops.x_sel_t.shape[1]
-    n_leaves, words = ops.pos.shape
-    _build.require(ops.x_sel_t, "x_sel_t", torch.uint8, dev, (n, batch))
+    batch, k_pad = ops.x_sel.shape
+    l_pad = ops.path.shape[0]
+    if n != ops.n_comparators or k_pad != k_padded(n) or l_pad % LEAF_TILE:
+        raise ValueError(f"operands for {ops.n_comparators} comparators "
+                         f"(K_pad {k_pad}, L_pad {l_pad}) do not fit {n}")
+    _build.require(ops.x_sel, "x_sel", torch.uint8, dev, (batch, k_pad))
+    _build.require(ops.path, "path", torch.int8, dev,
+                   (l_pad, k_pad + ROW_PAD))
+    for name in ("target", "leaf_class"):
+        _build.require(getattr(ops, name), name, torch.int32, dev, (l_pad,))
     _build.require(shift, "shift", torch.int32, dev)
     _build.require(thr, "thr", torch.int32, dev, (n_pop, n))
     _build.require(vote_cap, "vote_cap", torch.int32, dev, (n_pop,))
     _build.require(ops.y, "y", torch.int32, dev, (batch,))
-    if words != mask_words(n):
-        raise ValueError(f"path masks have {words} words per leaf, "
-                         f"expected {mask_words(n)} for {n} comparators")
-    for name in ("pos", "neg"):
-        _build.require(getattr(ops, name), name, torch.int32, dev,
-                       (n_leaves, words))
-    for name in ("target", "leaf_class"):
-        _build.require(getattr(ops, name), name, torch.int32, dev, (n_leaves,))
     correct = torch.zeros((n_pop,), dtype=torch.int32, device=dev)
     if n_pop == 0 or batch == 0:
         return correct
-    fn = _build.function("fitness", "repro_fitness_correct_counts", 10, 6)
-    rc = fn(_build.ptr(ops.x_sel_t), _build.ptr(shift), _build.ptr(thr),
-            _build.ptr(ops.pos), _build.ptr(ops.neg), _build.ptr(ops.target),
+    fn = _build.function("fitness", "repro_fitness_correct_counts", 9, 6)
+    rc = fn(_build.ptr(ops.x_sel), _build.ptr(shift), _build.ptr(thr),
+            _build.ptr(ops.path), _build.ptr(ops.target),
             _build.ptr(ops.leaf_class), _build.ptr(ops.y),
             _build.ptr(vote_cap), _build.ptr(correct), n_pop, batch, n,
-            n_leaves, ops.n_classes, words, _build.stream(dev))
+            k_pad, l_pad, ops.n_classes, _build.stream(dev))
     _build.check_launch(rc, "fitness_correct_counts")
     fitness_correct_counts.launches += 1
     return correct

@@ -1,11 +1,13 @@
 """Operand preparation and call sites of the port's kernels.
 
 The counterpart of `repro.kernels.ops`. The TPU wrappers padded every axis
-to (8, 128) tiles and turned integers into float32; the Hopper kernels mask
-their ragged edges and work on integers, so here the static operands are
-the path matrix packed into bit masks and the per-chromosome operands are
-int32 shifts (``8 - bits``, in place of the float scale ``2^-(8-bits)``)
-and thresholds. Each function runs where its tensors lie: the kernels on a
+to (8, 128) tiles and turned integers into float32; the Hopper kernels work
+on integers, so here the static operands are the path matrix packed into
+bit masks (`tree_infer_scores`, which masks its ragged edges) or padded
+with zeros to the int8 tensor cores' K-contiguous layout
+(`fitness_correct_counts`), and the per-chromosome operands are int32
+shifts (``8 - bits``, in place of the float scale ``2^-(8-bits)``) and
+thresholds. Each function runs where its tensors lie: the kernels on a
 CUDA tensor, their plain versions on a CPU tensor.
 """
 from __future__ import annotations
@@ -29,9 +31,8 @@ def _leaf_operands(path, path_len, n_neg, leaf_class, n_classes: int, device):
     if leaf_class.numel() and not (0 <= int(leaf_class.min())
                                    and int(leaf_class.max()) < n_classes):
         raise ValueError(f"leaf classes must lie in [0, {n_classes})")
-    pos, neg = _ti.pack_path(path)
     target = _as_int32(path_len, device) - _as_int32(n_neg, device)
-    return path, pos, neg, target, leaf_class
+    return path, target, leaf_class
 
 
 def prepare_operands(feature, path, path_len, n_neg, leaf_class,
@@ -40,8 +41,9 @@ def prepare_operands(feature, path, path_len, n_neg, leaf_class,
     """Static `tree_infer_scores` operands from comparator/leaf arrays
     (``device`` defaults to where ``path`` lies)."""
     device = device if device is not None else torch.as_tensor(path).device
-    path, pos, neg, target, leaf_class = _leaf_operands(
+    path, target, leaf_class = _leaf_operands(
         path, path_len, n_neg, leaf_class, n_classes, device)
+    pos, neg = _ti.pack_path(path)
     feature = _as_int32(feature, device)
     if feature.numel() and not (0 <= int(feature.min())
                                 and int(feature.max()) < n_features):
@@ -55,18 +57,36 @@ def prepare_operands(feature, path, path_len, n_neg, leaf_class,
 def prepare_fitness_operands(x_sel, y, path, path_len, n_neg, leaf_class,
                              n_classes: int,
                              device=None) -> _fit.FitnessOperands:
-    """Chromosome-invariant `fitness_correct_counts` operands. ``x_sel`` is
-    the hoisted gather ``x8[:, feature]`` (B, N) of codes in [0, 255]."""
+    """Chromosome-invariant `fitness_correct_counts` operands in the
+    kernel's layout. ``x_sel`` is the hoisted gather ``x8[:, feature]``
+    (B, N) of codes in [0, 255]. The comparator axis is padded with zeros
+    to `fitness.k_padded(N)` (the path's rows by `fitness.ROW_PAD` more, the
+    kernel's shared-memory row) and the leaf axis to a multiple of
+    `fitness.LEAF_TILE`, padded leaves getting the target N + 1, which no
+    score (|d . PATH[l]| <= N) reaches."""
     device = device if device is not None else torch.as_tensor(x_sel).device
     x_sel = torch.as_tensor(x_sel, device=device)
     if x_sel.numel() and not (0 <= int(x_sel.min()) and int(x_sel.max()) <= 255):
         raise ValueError("x_sel codes must lie in [0, 255]")
     y = _as_int32(y, device)
-    path, pos, neg, target, leaf_class = _leaf_operands(
+    path, target, leaf_class = _leaf_operands(
         path, path_len, n_neg, leaf_class, n_classes, device)
+    n_leaves, n = path.shape
+    k_pad = _fit.k_padded(n)
+    l_pad = -(-n_leaves // _fit.LEAF_TILE) * _fit.LEAF_TILE
+    codes = torch.zeros((x_sel.shape[0], k_pad), dtype=torch.uint8,
+                        device=device)
+    codes[:, :n] = x_sel
+    path_pad = torch.zeros((l_pad, k_pad + _fit.ROW_PAD), dtype=torch.int8,
+                           device=device)
+    path_pad[:n_leaves, :n] = path
+    target_pad = torch.full((l_pad,), n + 1, dtype=torch.int32, device=device)
+    target_pad[:n_leaves] = target
+    class_pad = torch.zeros((l_pad,), dtype=torch.int32, device=device)
+    class_pad[:n_leaves] = leaf_class
     return _fit.FitnessOperands(
-        x_sel_t=x_sel.to(torch.uint8).T.contiguous(), y=y, path=path,
-        pos=pos, neg=neg, target=target, leaf_class=leaf_class,
+        x_sel=codes, y=y, path=path_pad, target=target_pad,
+        leaf_class=class_pad, n_comparators=int(n),
         n_classes=int(n_classes), n_valid=int((y >= 0).sum()))
 
 
@@ -162,9 +182,13 @@ def classify(x8: torch.Tensor, operands: _ti.TreeOperands, design):
 
 def qmatmul(x: torch.Tensor, w_q: torch.Tensor,
             scale: torch.Tensor) -> torch.Tensor:
-    """(M, N) float32 ``(x @ w_q) * scale`` for x (M, K) float32/bfloat16,
-    w_q (K, N) int8 and scale (N,) or (1, N) float32. The TPU wrapper padded
-    every axis to MXU tiles; the Hopper kernel masks its ragged edges, so
-    here the operands are only made contiguous."""
-    return _qmm.qmatmul(x.contiguous(), w_q.contiguous(),
+    """(M, N) float32 ``(x @ w_q) * scale`` for x (M, K) uint8 codes or
+    float32/bfloat16, w_q (K, N) int8 and scale (N,) or (1, N) float32. The
+    TPU wrapper padded every axis to MXU tiles; the Hopper kernels mask
+    their ragged edges, so here the operands are only made contiguous
+    (uint8 x keeps its row stride: a `qmatmul.code_buffer` is read as it
+    lies)."""
+    if x.dtype != torch.uint8 or x.stride(-1) != 1:
+        x = x.contiguous()
+    return _qmm.qmatmul(x, w_q.contiguous(),
                         scale.to(torch.float32).contiguous())

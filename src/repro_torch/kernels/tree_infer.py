@@ -8,12 +8,13 @@ samples b it returns the (P, B, C) vote counts of the dataflow
     d     = x_p > thr[p, n]
     score = d @ PATH^T ;  sat = score == target ;  votes = sat @ CLS1H
 
-(`csrc/tree_infer.cu`, sharing `csrc/tree_common.cuh` with the fitness
-kernel). What bounds it on the H100, and what the design does about it, is
-stated in the CUDA source. On a CPU tensor the wrapper runs the plain
-PyTorch version below; on a CUDA tensor it launches the kernel or raises.
-This module also holds the operand layout both tree kernels share: the
-path matrix packed into +1 / -1 bit masks of ``mask_words(N)`` words.
+(`csrc/tree_infer.cu` with `csrc/tree_common.cuh`). What bounds it on the
+H100, and what the design does about it, is stated in the CUDA source. On
+a CPU tensor the wrapper runs the plain PyTorch version below; on a CUDA
+tensor it launches the kernel or raises. Its operands hold the path
+matrix packed into +1 / -1 bit masks of ``mask_words(N)`` words; the
+plain dataflow `leaf_votes_plain` is shared with the fitness kernel's
+plain version.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-# 32-bit words per leaf mask the CUDA kernels are instantiated for; must
+# 32-bit words per leaf mask the CUDA kernel is instantiated for; must
 # equal REPRO_NWP_CASES in csrc/tree_common.cuh (a test holds them equal).
 # 64 words = 2048 comparators.
 NWP_CHOICES = (4, 8, 12, 16, 20, 24, 28, 32, 48, 64)

@@ -39,6 +39,7 @@ from repro_torch.core.tree import concatenate_ptrees
 from repro_torch.datasets.synthetic import quantize_u8
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.qmatmul import code_buffer
 from repro_torch.kernels import tree_infer
 
 BACKENDS = ("kernel", "reference")
@@ -327,11 +328,10 @@ class ClassifyServer:
         the kernel, or the plain dataflow on any device."""
         if self.family == "mlp":
             m = self._mlp
-            xf = x8.to(torch.float32)
-            if self.backend == "kernel":
-                h = kops.qmatmul(xf, m["w1_i8"], m["ones"])
+            if self.backend == "kernel":   # the codes are already & 0xFF
+                h = kops.qmatmul(code_buffer(x8), m["w1_i8"], m["ones"])
             else:
-                h = (xf.to(torch.float64) @ m["w1_f"]).to(torch.float32)
+                h = (x8.to(torch.float64) @ m["w1_f"]).to(torch.float32)
             hq = torch.floor(torch.clamp(h, min=0.0) * 2.0 ** -self.shift)
             return torch.argmax(hq.to(torch.float64) @ m["w2_f"], dim=1)
         if self.backend == "kernel":

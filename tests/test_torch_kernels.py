@@ -111,6 +111,95 @@ def test_fitness_plain_matches_ref(jref, seed, p, b, n, l, c):
                                   int((case["y"] >= 0).sum()) - expect)
 
 
+# (seed, P, B, N, L, C): the comparator widths of a small tree, of har
+# (N=588) and of the widest tree the kernel takes in shared memory (N=2000)
+SCORE_CASES = FITNESS_CASES + [(5, 2, 9, 20, 21, 3), (6, 2, 7, 588, 589, 6),
+                               (7, 2, 5, 2000, 2001, 4)]
+
+
+def _port_fitness_operands(case, device=None):
+    x_sel = case["x8"][:, case["feature"]]
+    return t_ops.prepare_fitness_operands(
+        torch.as_tensor(x_sel, device=device), case["y"], case["path"],
+        case["target"], np.zeros(case["path"].shape[0], np.int32),
+        case["leaf_class"], case["n_classes"])
+
+
+@pytest.mark.parametrize("seed,p,b,n,l,c", SCORE_CASES)
+def test_fitness_operands_padding(seed, p, b, n, l, c):
+    """The kernel's layout: K and L padded to its tiles, zero path columns
+    and codes past N, padded leaves with a zero path row and a target above
+    any score, so they never satisfy."""
+    case = _random_case(seed, p, b, n, l, c)
+    ops = _port_fitness_operands(case)
+    k_pad, l_pad = ops.x_sel.shape[1], ops.path.shape[0]
+    assert k_pad == t_fit.k_padded(n) and k_pad % 32 == 0 and k_pad >= n
+    assert l_pad % t_fit.LEAF_TILE == 0 and l_pad - l < t_fit.LEAF_TILE
+    assert ops.path.dtype == torch.int8 and ops.path.is_contiguous()
+    assert ops.x_sel.dtype == torch.uint8 and ops.x_sel.shape[0] == b
+    np.testing.assert_array_equal(ops.path[:l, :n].numpy(), case["path"])
+    assert not ops.path[:, n:].any() and not ops.path[l:].any()
+    assert not ops.x_sel[:, n:].any()
+    np.testing.assert_array_equal(ops.x_sel[:, :n].numpy(),
+                                  case["x8"][:, case["feature"]])
+    np.testing.assert_array_equal(ops.target[:l].numpy(), case["target"])
+    np.testing.assert_array_equal(ops.leaf_class[:l].numpy(),
+                                  case["leaf_class"])
+    assert (ops.target[l:] > n).all() and not ops.leaf_class[l:].any()
+    # a padded leaf's score is 0 for any decisions; even all-ones decisions
+    # leave every score within [-N, N]
+    assert ops.path.shape[1] == k_pad + t_fit.ROW_PAD
+    ones = torch.ones((1, ops.path.shape[1]), dtype=torch.int32)
+    scores = ones @ ops.path.to(torch.int32).T
+    assert not (scores[0, l:] == ops.target[l:]).any()
+    assert scores.abs().max() <= n
+
+
+@pytest.mark.parametrize("seed,p,b,n,l,c", SCORE_CASES)
+def test_padded_path_product_matches_ref_score(jref, seed, p, b, n, l, c):
+    """The kernel's product ``D @ PATH_pad^T`` on the padded operands
+    (decisions over K_pad, zero past N) equals the reference's `score`
+    (`ref.fitness_correct_counts`: floor(x * 2^-(8-bits)) > thr, then the
+    path product in float32), exactly."""
+    jnp = jref.jnp
+    case = _random_case(seed, p, b, n, l, c)
+    ops = _port_fitness_operands(case)
+    shift, thr, _ = _port_chromosome_operands(case)
+    k_pad = ops.x_sel.shape[1]
+    shift_pad = torch.zeros((p, k_pad), dtype=torch.int32)
+    thr_pad = torch.full((p, k_pad), 256, dtype=torch.int32)
+    shift_pad[:, :n], thr_pad[:, :n] = shift, thr
+    d = (ops.x_sel.to(torch.int32)[None] >> shift_pad[:, None]) > thr_pad[:, None]
+    got = d.to(torch.int32) @ ops.path[:, :k_pad].to(torch.int32).T
+    x_sel = jnp.asarray(case["x8"][:, case["feature"]].astype(np.float32))
+    scale = jnp.asarray(np.exp2(-(8 - case["bits"]).astype(np.float32)))
+    dj = (jnp.floor(x_sel[None] * scale[:, None, :])
+          > jnp.asarray(case["thr"].astype(np.float32))[:, None, :])
+    want = np.asarray(jnp.einsum("pbn,nl->pbl", dj.astype(jnp.float32),
+                                 jnp.asarray(case["path"].T.astype(np.float32))))
+    np.testing.assert_array_equal(got[:, :, :l].numpy(), want.astype(np.int32))
+    assert not got[:, :, l:].any()
+
+
+def test_fitness_layout_matches_the_cuda_source():
+    """`fitness.py`'s layout and block constants are the ones
+    `csrc/fitness.cu` is compiled with."""
+    src = (_build.CSRC / "fitness.cu").read_text()
+
+    def const(name):
+        hit = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert hit is not None, name
+        return int(hit.group(1))
+
+    assert const("kLeafTile") == t_fit.LEAF_TILE
+    assert const("kMaxKPad") == t_fit.MAX_K_PAD
+    assert "return k_pad + 16;" in src and t_fit.ROW_PAD == 16
+    assert (16 * const("kWarps") * const("kRowTiles")
+            == t_fit.BLOCK_ROWS)
+    with pytest.raises(ValueError, match="exceed"):
+        t_fit.k_padded(2049)
+
+
 @pytest.mark.parametrize("seed,pi,pj,m", [(0, 40, 40, 2), (1, 17, 53, 2),
                                           (2, 64, 9, 3), (3, 1, 1, 1)])
 def test_domination_plain_matches_ref(jref, seed, pi, pj, m):
@@ -212,14 +301,17 @@ def _to(device, *tensors):
 class TestKernelsOnCuda:
     """Each Hopper kernel equals its plain version on the card."""
 
-    @pytest.mark.parametrize("seed,p,b,n,l,c", FITNESS_CASES
-                             + [(4, 40, 700, 588, 589, 6)])
-    def test_fitness_kernel(self, cuda_device, seed, p, b, n, l, c):
+    @pytest.mark.parametrize("seed,p,b,n,l,c", FITNESS_CASES + [
+        (4, 40, 700, 588, 589, 6),        # har width, decisions in registers
+        (5, 1, 1, 588, 589, 6),           # one chromosome, one sample
+        (6, 3, 300, 2000, 2001, 4),       # decisions in shared memory
+        (7, 5, 80, 20, 21, 3)])
+    @pytest.mark.parametrize("caps", ["mixed", "all 1"])
+    def test_fitness_kernel(self, cuda_device, seed, p, b, n, l, c, caps):
         case = _random_case(seed, p, b, n, l, c)
-        ops = t_ops.prepare_fitness_operands(
-            torch.as_tensor(case["x8"][:, case["feature"]], device=cuda_device),
-            case["y"], case["path"], case["target"], np.zeros(l, np.int32),
-            case["leaf_class"], c)
+        if caps == "all 1":
+            case["approx"][:] = True
+        ops = _port_fitness_operands(case, device=cuda_device)
         shift, thr, cap = _to(cuda_device, *_port_chromosome_operands(case))
         launches = t_fit.fitness_correct_counts.launches
         got = t_fit.fitness_correct_counts(ops, shift, thr, cap)
@@ -227,6 +319,18 @@ class TestKernelsOnCuda:
         assert t_fit.fitness_correct_counts.launches == launches + 1
         expect = t_fit.fitness_correct_counts_plain(ops, shift, thr, cap)
         assert torch.equal(got, expect)
+
+    def test_fitness_kernel_refuses_other_operands(self, cuda_device):
+        """A CUDA tensor the kernel cannot take raises; nothing falls
+        back to the plain version."""
+        case = _random_case(8, 2, 40, 20, 21, 3)
+        ops = _port_fitness_operands(case, device=cuda_device)
+        shift, thr, cap = _to(cuda_device, *_port_chromosome_operands(case))
+        with pytest.raises(ValueError):
+            t_fit.fitness_correct_counts(ops, shift[:, :19].contiguous(),
+                                         thr[:, :19].contiguous(), cap)
+        with pytest.raises(ValueError):
+            t_fit.fitness_correct_counts(ops, shift, thr, cap.to(torch.int64))
 
     @pytest.mark.parametrize("pi,pj", [(1024, 1024), (256, 1024), (33, 7)])
     def test_domination_kernel(self, cuda_device, pi, pj):

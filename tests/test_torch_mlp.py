@@ -181,18 +181,39 @@ def test_train_mlp_from_jax_draws(name):
 # fitness
 # ---------------------------------------------------------------------------
 
+def _spy_qmatmul(monkeypatch):
+    """Record the dtype and row stride of every x the kernel route hands
+    `kernels.ops.qmatmul`."""
+    from repro_torch.kernels import ops as t_kops
+    seen = []
+    real = t_kops.qmatmul
+
+    def spy(x, w_q, scale):
+        seen.append((x.dtype, x.stride()))
+        return real(x, w_q, scale)
+
+    monkeypatch.setattr(t_kops, "qmatmul", spy)
+    return seen
+
+
 @pytest.mark.parametrize("hidden", [4, 16])
-def test_objectives_match_jax(problems, hidden):
+def test_objectives_match_jax(problems, hidden, monkeypatch):
     jp, tp = problems[hidden]
     pop = _random_pop(hidden, 16, jp.n_genes, jp.exact_genes())
     ref = t_pm.make_reference_fitness(tp)(torch.as_tensor(pop)).numpy()
+    seen = _spy_qmatmul(monkeypatch)
     ker = t_pm.make_kernel_fitness(tp)(torch.as_tensor(pop)).numpy()
+    # the kernel route feeds qmatmul the uint8 codes, rows 16-byte aligned
+    assert [d for d, _ in seen] == [torch.uint8]
+    assert seen[0][1][1] == 1 and seen[0][1][0] % 16 == 0
+    np.testing.assert_array_equal(tp.x8u.numpy(), jp.x8)
     np.testing.assert_array_equal(ker, ref)   # plain qmatmul on the CPU
     np.testing.assert_array_equal(ref[0], [0.0, 1.0])
     unjitted = np.asarray(j_pm.population_objectives(jp.operands,
                                                      jnp.asarray(pop)))
     jitted = np.asarray(j_pm.make_reference_fitness(jp)(jnp.asarray(pop)))
     np.testing.assert_array_equal(ref[:, 0], unjitted[:, 0])
+    np.testing.assert_array_equal(ker[:, 0], unjitted[:, 0])
     assert np.abs(ref[:, 0] - jitted[:, 0]).max() <= 2.0 ** -23
     for want in (unjitted, jitted):
         assert (np.abs(ref[:, 1] - want[:, 1])
@@ -207,8 +228,9 @@ def test_objectives_match_jax(problems, hidden):
         ref[:, 1], units.astype(np.float32) / np.float32(tp.exact_units))
 
 
-def test_kernel_predict_equals_predict_master(problems):
+def test_kernel_predict_equals_predict_master(problems, monkeypatch):
     jp, tp = problems[16]
+    seen = _spy_qmatmul(monkeypatch)
     predict = t_pm.make_kernel_predict(tp)
     for g in _random_pop(3, 4, jp.n_genes, jp.exact_genes()):
         bits, margin = t_pm.decode_design(g)
@@ -217,6 +239,7 @@ def test_kernel_predict_equals_predict_master(problems):
         np.testing.assert_array_equal(
             predict(torch.as_tensor(g)).numpy(),
             j_pm.predict_master(w1, w2, jp.shift, jp.x8))
+    assert seen and all(d == torch.uint8 for d, _ in seen)
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +368,8 @@ def test_port_artifact_loads_in_jax(problems, searched):
     assert t_art.best_under_loss(0.01) == j_art.best_under_loss(0.01)
 
 
-def test_jax_artifact_served_by_port_equals_jax_server(searched):
+def test_jax_artifact_served_by_port_equals_jax_server(searched, monkeypatch):
+    seen = _spy_qmatmul(monkeypatch)
     j_art = j_search.load_pareto_artifact(searched["jax"])
     t_art = t_artifact.load_pareto_artifact(searched["jax"])
     assert t_art.family == "mlp"
@@ -366,6 +390,9 @@ def test_jax_artifact_served_by_port_equals_jax_server(searched):
         np.testing.assert_array_equal(
             t_netlist.simulate(circuit, server.featurize(x)).numpy(),
             j_served)
+    # the kernel backend serves from uint8 codes in 16-byte aligned rows
+    assert seen and all(d == torch.uint8 and st[0] % 16 == 0
+                        for d, st in seen)
     # odd request sizes through the buckets, and out-of-grid codes wrap
     codes = server.featurize(x).astype(np.int32)
     for rows in (1, 5, 37):

@@ -3,8 +3,8 @@ on the CPU, and (on a CUDA machine) the Hopper kernel held to the plain
 version.
 
 Tolerances:
-- integer codes (x in 0..255, the printed-MLP inputs; any int8 w): exact
-  equality. Every partial sum is an integer below 2^24, exact in float32
+- integer codes (x in 0..255, the printed-MLP inputs, as float32 or as
+  uint8; any int8 w): exact equality. Every partial sum is an integer below 2^24, exact in float32
   in any order and in the plain version's float64.
 - float x (float32, or bfloat16, which widens to float32 exactly): rtol
   1e-5, atol 1e-3. The reference and the kernel accumulate in float32 in
@@ -81,6 +81,31 @@ def test_plain_matches_ref(jref, m, k, n, kind):
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_plain_uint8_matches_ref(jref, m, k, n):
+    """uint8 codes (the dtype the port's callers pass) through the plain
+    version equal the reference on the same codes as float32, exactly."""
+    x, w, scale = _case(m + k + n, m, k, n, "codes")
+    want = np.asarray(jref.ref.qmatmul(jref.jnp.asarray(x),
+                                       jref.jnp.asarray(w),
+                                       jref.jnp.asarray(scale[None, :])))
+    xu = torch.as_tensor(x.astype(np.uint8))
+    for xin in (xu, t_qmm.code_buffer(xu)):
+        got = t_ops.qmatmul(xin, torch.as_tensor(w), torch.as_tensor(scale))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m,k", [(1, 561), (37, 7), (5, 16), (3, 0)])
+def test_code_buffer_rows_are_aligned(m, k):
+    codes = torch.as_tensor(np.random.default_rng(k).integers(
+        0, 256, (m, k)).astype(np.int32))
+    buf = t_qmm.code_buffer(codes)
+    assert buf.dtype == torch.uint8 and buf.shape == (m, k)
+    assert buf.stride(1) == 1 and buf.stride(0) % t_qmm.ROW_ALIGN == 0
+    assert buf.stride(0) >= k
+    assert torch.equal(buf.to(torch.int32), codes)
+
+
 @pytest.mark.parametrize("m,k,n", [(37, 7, 16), (300, 777, 515)])
 def test_plain_bfloat16_matches_ref(jref, m, k, n):
     """bfloat16 x widens to float32 exactly on both sides, so the float32
@@ -119,7 +144,8 @@ def test_scale_shapes_and_empty_operands():
                        torch.zeros((9, 4)))
 
 
-@pytest.mark.parametrize("bad", ["chain", "x_dtype", "w_dtype", "scale"])
+@pytest.mark.parametrize("bad", ["chain", "x_dtype", "w_dtype", "scale",
+                                 "x_int8", "x_int32"])
 def test_wrapper_refuses_bad_operands(bad):
     x = torch.zeros((4, 3))
     w = torch.zeros((3, 2), dtype=torch.int8)
@@ -128,9 +154,13 @@ def test_wrapper_refuses_bad_operands(bad):
         w = torch.zeros((5, 2), dtype=torch.int8)
     elif bad == "x_dtype":
         x = x.to(torch.float64)
+    elif bad == "x_int8":
+        x = x.to(torch.int8)
+    elif bad == "x_int32":
+        x = x.to(torch.int32)
     elif bad == "w_dtype":
         w = w.to(torch.int32)
-    else:
+    elif bad == "scale":
         scale = torch.ones(3)
     with pytest.raises(ValueError):
         t_qmm.qmatmul(x, w, scale)
@@ -173,6 +203,47 @@ class TestQmatmulOnCuda:
         torch.cuda.synchronize()
         assert t_qmm.qmatmul.launches == launches + 1
         assert torch.equal(got, t_qmm.qmatmul_plain(x, w, scale))
+
+    @pytest.mark.parametrize("m,k,n", SHAPES + [
+        (3090, 561, 8192),                 # the MLP fitness
+        (1, 561, 16), (37, 561, 16), (1024, 561, 16), (3090, 561, 16)])
+    @pytest.mark.parametrize("layout", ["contiguous", "code_buffer"])
+    def test_uint8_codes_exact(self, cuda_device, m, k, n, layout):
+        """The integer tensor-core kernel equals the plain version bit for
+        bit at scale 1, on contiguous rows (byte loads) and on 16-byte
+        aligned rows (16-byte copies)."""
+        x, w, scale = _case(m + n, m, k, n, "codes")
+        xu = torch.as_tensor(x.astype(np.uint8), device=cuda_device)
+        if layout == "code_buffer":
+            xu = t_qmm.code_buffer(xu)
+        w, scale = (torch.as_tensor(a, device=cuda_device) for a in (w, scale))
+        launches = t_qmm.qmatmul.launches
+        got = t_qmm.qmatmul(xu, w, scale)
+        torch.cuda.synchronize()
+        assert t_qmm.qmatmul.launches == launches + 1
+        assert torch.equal(got, t_qmm.qmatmul_plain(xu, w, scale))
+
+    def test_uint8_refuses_strided_columns(self, cuda_device):
+        x = torch.zeros((4, 6), dtype=torch.uint8, device=cuda_device)[:, ::2]
+        w = torch.zeros((3, 2), dtype=torch.int8, device=cuda_device)
+        with pytest.raises(ValueError, match="unit column stride"):
+            t_qmm.qmatmul(x, w, torch.ones(2, device=cuda_device))
+
+    @pytest.mark.parametrize("n", [515, 16])
+    def test_uint8_random_scale(self, cuda_device, n):
+        """Full int8 weights and a random scale: the kernel rounds once
+        (float(int32 sum) * scale), within the module's tolerance."""
+        rng = np.random.default_rng(n)
+        xu = torch.as_tensor(rng.integers(0, 256, (300, 777)).astype(np.uint8),
+                             device=cuda_device)
+        w = torch.as_tensor(rng.integers(-128, 128, (777, n)).astype(np.int8),
+                            device=cuda_device)
+        scale = torch.as_tensor(rng.uniform(0.001, 0.1, n).astype(np.float32),
+                                device=cuda_device)
+        got = t_qmm.qmatmul(xu, w, scale)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, t_qmm.qmatmul_plain(xu, w, scale),
+                                   rtol=RTOL, atol=ATOL)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("n", [515, 16])
