@@ -15,8 +15,12 @@ Phases, each of which stops the script with a non-zero exit on failure:
    and for `qmatmul` on the MLP's uint8 codes (the integer tensor-core
    kernel), a stated tolerance for `qmatmul` at a random scale and on
    float inputs (the CUDA-core kernel); report the fitness kernel's rows
-   per block and the L2 bytes its path feed reads; check that each kernel
-   backend scores the exact design
+   per block and the L2 bytes its path feed reads; hold the non-dominated
+   sort (`domination_bits` and the front peel: two launches, checked to
+   make no host sync under `torch.cuda.set_sync_debug_mode("error")`) to
+   its plain version, the host loop, at pools 256, 1024 and 4096, and
+   `tree_infer_scores` at every serving bucket and at N=2048; check that
+   each kernel backend scores the exact design
    (0, 1); and time both on the device (a `torch.profiler` trace of
    back-to-back calls) beside the kernel's bound: the larger of its bytes
    over 3.35 TB/s and its operations over the peak rate of their type
@@ -35,7 +39,9 @@ Phases, each of which stops the script with a non-zero exit on failure:
    served request checked against the netlist and the integer predict;
    `qmatmul`'s float kernel must not run on this path.
    Before each path the kernels' launch counters are set to 0 and just
-   after they are read; every kernel of the path must have launched.
+   after they are read; every kernel of the path must have launched, and
+   the sort's two kernels (counted under `domination_block`) twice per
+   generation.
 5. `[flash]`: hold `flash_attention` to its plain version (float32 within
    2e-5; bfloat16 by `row_error`, a row's largest difference over its root
    mean square, within 2^-4) at the LM prefill's shape (llama3.2-3b at
@@ -55,9 +61,12 @@ Phases, each of which stops the script with a non-zero exit on failure:
    must give the same tokens, and prefill and decode times, peak memory and
    the device time of one prefill split into the attention kernel,
    matmuls and the rest are printed.
-7. Print where one generation's time goes on each search path, the kernel
-   list, the card's name and power limit, one JSON line of per-kernel
-   results, and last `{"ok": true, "device": {...}}`.
+7. Print where one generation's time goes on each search path (its
+   survivor selection run once under sync debug mode "error", its ranks
+   held to the host loop's on the same pool), the kernel list, the card's
+   name and power limit, one JSON line of per-kernel results (each row
+   names what it times in `what`), and last
+   `{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or without the repository's `src/` beside it, the
 script exits non-zero and prints no result.
@@ -90,17 +99,28 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12       # H100 SXM tensor cores, int8 dense
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, bf16 dense
-TPU_KERNELS = {  # kernel -> (port source, the TPU kernel it replaces)
+TPU_KERNELS = {  # kernel -> (port source, the TPU kernel it replaces,
+    #                what its row of the kernels line times)
     "fitness_errors": ("src/repro_torch/csrc/fitness.cu",
-                       "src/repro/kernels/fitness.py:109"),
+                       "src/repro/kernels/fitness.py:109",
+                       "fitness_correct_counts, tree har: P=512, B=3090, "
+                       "N=588, L=589"),
     "domination_block": ("src/repro_torch/csrc/domination.cu",
-                         "src/repro/kernels/domination.py:57"),
+                         "src/repro/kernels/domination.py:57",
+                         "the non-dominated sort of a random pool of 1024, "
+                         "M=2: domination_bits + the front peel; launches "
+                         "count both, two per sort; the bool slab's own "
+                         "times are in the [kernel] domination_block lines"),
     "tree_infer_scores": ("src/repro_torch/csrc/tree_infer.cu",
-                          "src/repro/kernels/tree_infer.py:81"),
+                          "src/repro/kernels/tree_infer.py:81",
+                          "P=1, B=3090 (the tree har verify leg)"),
     "qmatmul": ("src/repro_torch/csrc/qmatmul.cu",
-                "src/repro/kernels/qmatmul.py:40"),
+                "src/repro/kernels/qmatmul.py:40",
+                "uint8 (3090x561) @ int8 (561x8192), the MLP har fitness"),
     "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
-                        "src/repro/kernels/flash_attn.py:70"),
+                        "src/repro/kernels/flash_attn.py:70",
+                        "bf16 LM prefill, q (4, 4096, 24, 128), k and v "
+                        "(4, 4096, 8, 128), the model's layout"),
 }
 LM_ARCH = "llama3.2-3b"            # full width; the repo's train_4k length
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 4096, 32
@@ -178,9 +198,11 @@ def device_or_stream_ms(fn, reps: int) -> tuple[float, str]:
     return stream_ms(fn, reps), "stream time"
 
 
-def timed(kernel_fn, plain_fn, kernel: str, reps: int, plain_reps: int):
+def timed(kernel_fn, plain_fn, kernel: str | None, reps: int,
+          plain_reps: int):
     """(ms, plain_ms, text): the device time of the CUDA kernel named
-    ``kernel`` per call of ``kernel_fn`` and the device time of every
+    ``kernel`` (of every kernel when None) per call of ``kernel_fn`` and the
+    device time of every
     activity of ``plain_fn`` per call, each from a profiler trace, or from
     CUDA events where the trace holds no device activity; the text also
     gives both functions' time per call on the stream."""
@@ -208,6 +230,31 @@ def tree_ops(p: int, b: int, n: int, l: int, c: int) -> int:
     shift and compare per comparator, the path product (2NL) and the vote
     product (2LC) per (chromosome, row)."""
     return p * b * (2 * n + 2 * n * l + 2 * l * c)
+
+
+def peel_ops(rank: torch.Tensor) -> int:
+    """Word operations the front peel needs for these ranks: for each front
+    but the last, an AND and a popcount per unranked column and non-zero
+    word of the front's bit set."""
+    r = rank.cpu().numpy()
+    ops = 0
+    for front in range(int(r.max())):
+        members = np.flatnonzero(r == front)
+        ops += 2 * int((r > front).sum()) * len(np.unique(members // 32))
+    return ops
+
+
+def sync_free(fn, what: str):
+    """``fn()`` under `torch.cuda.set_sync_debug_mode("error")`: fails if it
+    makes the host wait for the card."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        fail(f"{what} synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def ptxas_summary(name: str) -> str:
@@ -274,6 +321,7 @@ def phase_build() -> float:
 
 def phase_kernels(problem, rng) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
+    from repro_torch import kernels
     from repro_torch.core import quant
     from repro_torch.kernels import domination, fitness, ops, tree_infer
     from repro_torch.search import make_kernel_fitness
@@ -336,7 +384,7 @@ def phase_kernels(problem, rng) -> dict:
     record("fitness_errors", float(err), ms, plain_ms, bms, by)
 
     # domination_block: the GA pool (2P rows) against itself, and a slab
-    errs, first = [], None
+    errs = []
     for pi, pj in ((2 * POP, 2 * POP), (POP // 2, 2 * POP)):
         oi = torch.as_tensor((rng.integers(0, 64, (pi, 2)) / 63)
                              .astype(np.float32), device=dev)
@@ -359,8 +407,45 @@ def phase_kernels(problem, rng) -> dict:
         bms, by = bound(n_bytes, n_ops, FP32_OPS_PER_S)
         log(f"[kernel] domination_block {pi}x{pj} M=2: equal; {text}; "
             f"bound {bms:.5f} ms ({by}; {n_ops} compares, {n_bytes} bytes)")
-        first = first or (ms, plain_ms, bms, by)
-    record("domination_block", float(max(errs)), *first)
+
+    # the sort on the card (relation bits + front peel, two launches, no host
+    # sync) against its plain version, the host loop, at the MLP pendigits
+    # pool, the GA pool and a pool whose relation lives in L2
+    main = None
+    for p in (256, 2 * POP, 4096):
+        objs = torch.as_tensor((rng.integers(0, 64, (p, 2)) / 63)
+                               .astype(np.float32), device=dev)
+        rel, counts = domination.domination_bits(objs)
+        torch.cuda.synchronize()
+        want_rel, want_counts = domination.domination_bits_plain(objs)
+        check(torch.equal(rel, want_rel) and torch.equal(counts, want_counts),
+              f"domination_bits at pool {p} differs from its plain version")
+        launches = kernels.launch_counts()["domination_block"]
+        got = sync_free(lambda: domination.non_dominated_rank(objs),
+                        f"the sort at pool {p}")
+        torch.cuda.synchronize()
+        check(kernels.launch_counts()["domination_block"] == launches + 2,
+              f"the sort at pool {p} did not make exactly two launches")
+        want = domination.non_dominated_rank_plain(objs)
+        err = int((got - want).abs().max())
+        check(err == 0, f"the sort at pool {p} differs from the host loop by "
+              f"{err} ranks")
+        errs.append(err)
+        ms, plain_ms, text = timed(
+            lambda: domination.non_dominated_rank(objs),
+            lambda: domination.non_dominated_rank_plain(objs),
+            None, reps=20, plain_reps=3)
+        n_ops = 3 * 2 * p * p + peel_ops(got)
+        n_bytes = p * 2 * 4 + p * 4
+        bms, by = bound(n_bytes, n_ops, FP32_OPS_PER_S)
+        fronts = int(got.max()) + 1
+        log(f"[kernel] sort (domination_bits + peel) pool {p} M=2, {fronts} "
+            f"fronts: ranks equal the host loop, 2 launches, no host sync; "
+            f"{text}; bound {bms:.5f} ms ({by}; {n_ops} compares and "
+            f"popcounts, {n_bytes} bytes)")
+        if p == 2 * POP:
+            main = (ms, plain_ms, bms, by)
+    record("domination_block", float(max(errs)), *main)
 
     # tree_infer_scores: serving buckets (P=1), the --verify-rtl leg
     # (P=1, B=3090) and a population slab (P=8, B=3090)
@@ -394,11 +479,57 @@ def phase_kernels(problem, rng) -> dict:
             f"bound {bms:.5f} ms ({by}; {n_ops:.4g} int ops, {n_bytes} bytes)")
         if (p, rows) == (1, b):
             main = (ms, plain_ms, bms, by)
+    # the other design for the P = 1 legs: the fitness kernel's int8
+    # mma.sync path product, timed at P = 1 on the verify leg's rows
+    one = genes_t[1:2]
+    shift_1, thr_1, _, cap_1 = ops.decode_population_full(problem.threshold,
+                                                          one)
+    mma_ms = device_ms(lambda: fitness.fitness_correct_counts(
+        fit_ops, shift_1, thr_1, cap_1), 20, "fitness_mma_kernel")
+    log(f"[kernel] the int8 path product at P=1 (fitness_mma_kernel on the "
+        f"same {b} rows, correct counts only): "
+        + ("not in the trace" if mma_ms is None else
+           f"{mma_ms:.4f} ms device time, against tree_infer_scores' "
+           f"{main[0]:.4f} ms for the votes"))
+    # the widest masks the kernel takes: N = 2048 comparators, 2049 leaves
+    # of eight comparators each, on the har rows
+    n_w, l_w = 2048, 2049
+    path = np.zeros((l_w, n_w), np.int8)
+    for i in range(l_w):
+        path[i, rng.choice(n_w, 8, replace=False)] = rng.choice([-1, 1], 8)
+    ops_w = ops.prepare_operands(
+        rng.integers(0, n_feat, n_w), path, (path != 0).sum(1),
+        (path == -1).sum(1), rng.integers(0, c, l_w), c, n_feat, device=dev)
+    bits = rng.integers(1, 9, (2, n_w))
+    shift_w = torch.as_tensor(8 - bits, dtype=torch.int32, device=dev)
+    thr_w = torch.as_tensor(rng.integers(0, 256, (2, n_w)) % (1 << bits),
+                            dtype=torch.int32, device=dev)
+    got = tree_infer.tree_infer_scores(problem.x8, ops_w, shift_w, thr_w)
+    torch.cuda.synchronize()
+    want = tree_infer.tree_infer_scores_plain(problem.x8, ops_w, shift_w,
+                                              thr_w)
+    err = int((got - want).abs().max())
+    check(err == 0 and int(want.sum()) > 0, f"tree_infer_scores at N={n_w} "
+          f"differs from its plain version by {err}")
+    errs.append(err)
+    log(f"[kernel] tree_infer_scores P=2 B={b} N={n_w} L={l_w}: equal "
+        f"({int(want.sum())} votes)")
     record("tree_infer_scores", float(max(errs)), *main)
     return results
 
 
 TREE_KERNELS = ("fitness_errors", "domination_block", "tree_infer_scores")
+
+
+def check_sort_launches(counts: dict, gens: int) -> None:
+    """In ``counts`` (`kernels.launch_counts()` over one search), every
+    generation and the initial population sorted their pool on the card:
+    `domination_block` counts the sort's two launches (the relation and the
+    peel), so at least 2 (1 + ``gens``), two per sort."""
+    n = counts["domination_block"]
+    check(n % 2 == 0 and n >= 2 * (1 + gens),
+          f"the sort launched {n} times over {gens} generations, not twice "
+          f"per sort")
 
 
 def serve_latency(server, codes, oracle, what: str) -> dict:
@@ -441,8 +572,7 @@ def phase_main_path(problem, out_dir: str) -> dict:
         f"{result.n_dispatches} generation-loop calls; launches {searched}")
     check(searched["fitness_errors"] >= 1 + GENS,
           "fitness_errors launched fewer than once per generation")
-    check(searched["domination_block"] >= 1 + GENS,
-          "domination_block launched fewer than once per generation")
+    check_sort_launches(searched, GENS)
     check(searched["tree_infer_scores"] >= len(objs),
           "tree_infer_scores launched fewer than once per pareto point")
     exact_on_front = bool(((objs[:, 0] == 0) & (objs[:, 1] == 1)).any())
@@ -597,7 +727,6 @@ def phase_mlp_path(problem, dataset: str, pop: int, out_dir: str) -> dict:
     final population."""
     from repro_torch import kernels, search
     from repro_torch.core import netlist
-    from repro_torch.core.nsga2 import DOMINATION_KERNEL_MIN_POP
     from repro_torch.datasets import load_dataset
     from repro_torch.families import printed_mlp as pm
     from repro_torch.runtime.classify import ClassifyServer
@@ -621,9 +750,7 @@ def phase_mlp_path(problem, dataset: str, pop: int, out_dir: str) -> dict:
         f"points; launches {searched}")
     check(searched["qmatmul"] >= 1 + GENS + len(objs),
           "qmatmul launched fewer than once per generation and pareto point")
-    if 2 * pop >= DOMINATION_KERNEL_MIN_POP:
-        check(searched["domination_block"] >= 1 + GENS,
-              "domination_block launched fewer than once per generation")
+    check_sort_launches(searched, GENS)
     check(bool(((objs[:, 0] <= 0) & (objs[:, 1] <= 1)).any()),
           "no front point matches or dominates the exact design (0, 1)")
     check(np.isfinite(objs).all() and objs.shape[1] == 2,
@@ -688,10 +815,14 @@ def phase_breakdown(what: str, fitness, state, n_genes: int, device,
     fitness call (and, from a profiler trace, the device time of the
     fitness kernel ``kernel`` in it) and its survivor selection (sort +
     crowding) on the step's own pool of parents and children, host clock
-    around synchronised calls, median of 3; the sort's fronts are its host
-    round trips. The device's busy time in a step (every device activity in
-    a profiler trace of it) gives the step's device idle share."""
+    around synchronised calls, median of 3, with the device time of the
+    sort's two kernels (relation and front peel) on that pool; survivors
+    must run without a host sync, and its ranks must equal the host loop's
+    on that pool. The device's busy time in a step (every
+    device activity in a profiler trace of it) gives the step's device idle
+    share."""
     from repro_torch.core import nsga2
+    from repro_torch.kernels import domination
 
     pop = state.genes.shape[0]
     cfg = nsga2.NSGA2Config(pop_size=pop)
@@ -720,9 +851,16 @@ def phase_breakdown(what: str, fitness, state, n_genes: int, device,
     t_fit = host_ms(lambda: fitness(state.genes))
     t_kernel = device_ms(lambda: fitness(state.genes), 3, kernel)
     pool = torch.cat([state.objs, children["objs"]])
+    rank, _, _ = sync_free(lambda: nsga2.survivors(pool, pop),
+                           f"{what}: survivors")
+    check(torch.equal(rank, domination.non_dominated_rank_plain(pool)),
+          f"{what}: the card's ranks of the search pool differ from the "
+          f"host loop's")
     t_surv = host_ms(lambda: nsga2.survivors(pool, pop))
-    rank, _, _ = nsga2.survivors(pool, pop)
+    t_sort = device_ms(lambda: nsga2.non_dominated_sort(pool), 10)
     fronts = int(rank.max()) + 1
+    sort_text = ("not in the trace" if t_sort is None
+                 else f"{t_sort:.4f} ms")
     kernel_text = ("not in the trace" if t_kernel is None
                    else f"{t_kernel:.3f} ms")
     busy_text = ("not in the trace" if busy is None else
@@ -730,7 +868,8 @@ def phase_breakdown(what: str, fitness, state, n_genes: int, device,
     log(f"[breakdown] {what}: one generation (pop {pop}, pool {2 * pop}): "
         f"step {t_step:.2f} ms = fitness {t_fit:.2f} ms (device time of "
         f"{kernel} in it: {kernel_text}) + survivors {t_surv:.2f} ms "
-        f"({fronts} fronts, one host sync each) + operators and draws "
+        f"({fronts} fronts peeled on the card, no host sync; device time "
+        f"of the sort's two kernels {sort_text}) + operators and draws "
         f"{t_step - t_fit - t_surv:.2f} ms; device busy in a step: "
         f"{busy_text}")
 
@@ -1099,6 +1238,7 @@ def main() -> None:
           f"a kernel of the main paths never launched: {launches}")
     for name, count in launches.items():
         results[name]["launches"] = count
+        results[name]["what"] = TPU_KERNELS[name][2]
 
     from repro_torch.search import make_kernel_fitness
     phase_breakdown(f"tree {DATASET}", make_kernel_fitness(problem),

@@ -9,11 +9,12 @@ differences from the JAX package:
   `torch.Generator` by `draw_init` / `draw_step`. torch cannot replay
   `jax.random` streams, so the operators take their draws as arguments and
   the tests feed them the reference's draws.
-- `non_dominated_sort` peels fronts in a Python loop that asks the device
-  once per front whether any individual is still unranked (one host sync
-  per front). The domination matrix goes through the Hopper kernel for a
-  CUDA pool of at least DOMINATION_KERNEL_MIN_POP rows, and through the
-  plain broadcast below that or on the CPU.
+- `non_dominated_sort` on a CUDA pool, of any size, is the card's sort
+  (`kernels.domination.non_dominated_rank`): the domination relation as
+  bits and one launch that peels every front, with no host sync, as the
+  reference peels in a `jax.lax.while_loop` whatever the pool. On the CPU it
+  is that sort's plain version, a Python loop over the bool matrix that
+  asks once per front whether any individual is still unranked.
 
 Sorts are stable (`jnp.argsort` is), and crowding adds its per-objective
 terms in axis order, so ranks, crowding and survivors equal the reference.
@@ -25,42 +26,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops as kops
+
 _BIG = 1e9
-DOMINATION_KERNEL_MIN_POP = 512
-
-
-def domination_matrix(objs: torch.Tensor) -> torch.Tensor:
-    """objs (P, M), minimised. out[i, j] = True iff objs[i] dominates
-    objs[j]."""
-    a = objs[:, None, :]
-    b = objs[None, :, :]
-    return (a <= b).all(-1) & (a < b).any(-1)
-
-
-def _dispatch_domination(objs: torch.Tensor) -> torch.Tensor:
-    """The Hopper kernel for a CUDA pool of >= DOMINATION_KERNEL_MIN_POP
-    rows, the plain broadcast below that or on the CPU."""
-    if objs.device.type == "cuda" and objs.shape[0] >= DOMINATION_KERNEL_MIN_POP:
-        from repro_torch.kernels import ops as kops
-        return kops.domination_matrix_bool(objs)
-    return domination_matrix(objs)
 
 
 def non_dominated_sort(objs: torch.Tensor) -> torch.Tensor:
     """int32 rank per individual (0 = first/pareto front)."""
-    dom = _dispatch_domination(objs)
-    p = objs.shape[0]
-    counts = dom.sum(0, dtype=torch.int32)        # how many dominate j
-    rank = torch.full((p,), -1, dtype=torch.int32, device=objs.device)
-    r = 0
-    while p and bool((rank < 0).any()):           # one host sync per front
-        current = (counts == 0) & (rank < 0)
-        rank = torch.where(current, r, rank)
-        # removing `current` decrements the dominator count of their dominatees
-        dec = (dom & current[:, None]).sum(0, dtype=torch.int32)
-        counts = torch.where(rank < 0, counts - dec, -1)
-        r += 1
-    return rank
+    return kops.non_dominated_rank(objs)
 
 
 def crowding_distance(objs: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:

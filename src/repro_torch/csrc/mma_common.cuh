@@ -18,6 +18,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch_common.cuh"
+
 namespace repro {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -92,14 +94,6 @@ __device__ __forceinline__ uint32_t load_bytes4(const uint8_t* p, int valid,
   for (int i = 0; i < 4; ++i)
     if (i < valid) v |= static_cast<uint32_t>(p[i * stride]) << (8 * i);
   return v;
-}
-
-template <typename Kernel>
-inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
 }
 
 }  // namespace repro

@@ -5,6 +5,10 @@ Each kernel module (`fitness`, `domination`, `tree_infer`, `qmatmul`,
 launch counter on the wrapper; `ops` holds the operand preparation and the call sites the
 search and the server use. `launch_counts` / `reset_launch_counts` read and
 clear the counters, so a run can show that it went through the kernels.
+The non-dominated sort's two wrappers (`domination.domination_bits` and the
+peel, `domination.non_dominated_rank`) count under `domination_block`, the
+TPU kernel they replace together with the slab: that count is two per sort
+plus one per slab.
 """
 from repro_torch.kernels import (domination, fitness, flash_attn, qmatmul,
                                  tree_infer)
@@ -18,11 +22,16 @@ KERNEL_WRAPPERS = {
 }
 
 
+SORT_WRAPPERS = (domination.domination_bits, domination.non_dominated_rank)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last reset, by TPU kernel name."""
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    counts = {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    counts["domination_block"] += sum(fn.launches for fn in SORT_WRAPPERS)
+    return counts
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS.values():
+    for fn in (*KERNEL_WRAPPERS.values(), *SORT_WRAPPERS):
         fn.launches = 0

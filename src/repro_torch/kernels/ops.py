@@ -156,6 +156,13 @@ def domination_matrix_bool(objs: torch.Tensor):
     return domination_block_bool(objs, objs)
 
 
+def non_dominated_rank(objs: torch.Tensor):
+    """(P,) int32 rank of each row of objs (P, M), 0 = first front: on the
+    card the packed relation and the front peel, two launches and no host
+    sync; on the CPU the host loop."""
+    return _dom.non_dominated_rank(objs.to(torch.float32).contiguous())
+
+
 def prepare_design(bits, t_int, trunc=None, vote_adder: str = "exact",
                    device=None):
     """Fixed-design kernel operands from a decoded pareto point: (shift,

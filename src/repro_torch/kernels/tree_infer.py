@@ -8,13 +8,15 @@ samples b it returns the (P, B, C) vote counts of the dataflow
     d     = x_p > thr[p, n]
     score = d @ PATH^T ;  sat = score == target ;  votes = sat @ CLS1H
 
-(`csrc/tree_infer.cu` with `csrc/tree_common.cuh`). What bounds it on the
-H100, and what the design does about it, is stated in the CUDA source. On
-a CPU tensor the wrapper runs the plain PyTorch version below; on a CUDA
-tensor it launches the kernel or raises. Its operands hold the path
-matrix packed into +1 / -1 bit masks of ``mask_words(N)`` words; the
-plain dataflow `leaf_votes_plain` is shared with the fitness kernel's
-plain version.
+(`csrc/tree_infer.cu`: a block per chromosome and tile of 16 samples, the
+tile's decisions packed by warp ballots into shared memory, the leaf axis
+spread over the block's threads). What bounds
+it on the H100, and what the design does about it, is stated in the CUDA
+source. On a CPU tensor the wrapper runs the plain PyTorch version below;
+on a CUDA tensor it launches the kernel or raises. Its operands hold the
+path matrix packed into +1 / -1 bit masks of ``mask_words(N)`` words per
+leaf, rows 16-byte aligned; the plain dataflow `leaf_votes_plain` is
+shared with the fitness kernel's plain version.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 from repro_torch.kernels import _build
 
 # 32-bit words per leaf mask the CUDA kernel is instantiated for; must
-# equal REPRO_NWP_CASES in csrc/tree_common.cuh (a test holds them equal).
+# equal REPRO_NWP_CASES in csrc/tree_infer.cu (a test holds them equal).
 # 64 words = 2048 comparators.
 NWP_CHOICES = (4, 8, 12, 16, 20, 24, 28, 32, 48, 64)
 PLAIN_CHUNK = 8  # chromosomes per step of the plain versions
@@ -133,11 +135,13 @@ def tree_infer_scores(x8: torch.Tensor, ops: TreeOperands,
     for name in ("pos", "neg"):
         _build.require(getattr(ops, name), name, torch.int32, dev,
                        (n_leaves, words))
+        if getattr(ops, name).data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     for name in ("target", "leaf_class"):
         _build.require(getattr(ops, name), name, torch.int32, dev, (n_leaves,))
     votes = torch.empty((n_pop, batch, ops.n_classes), dtype=torch.int32,
                         device=dev)
-    if n_pop == 0 or batch == 0:
+    if n_pop == 0 or batch == 0 or ops.n_classes == 0:
         return votes
     fn = _build.function("tree_infer", "repro_tree_infer_scores", 9, 7)
     rc = fn(_build.ptr(x8), _build.ptr(ops.feature), _build.ptr(shift),

@@ -1,6 +1,7 @@
-"""The port's three tree kernels: plain versions held to `repro.kernels.ref`
-on the CPU, and (on a CUDA machine) each Hopper kernel held to its plain
-version. Tolerance: exact equality (every quantity is an integer).
+"""The port's three tree kernels and the non-dominated sort: plain versions
+held to `repro.kernels.ref` and `repro.core.nsga2` on the CPU, and (on a
+CUDA machine) each Hopper kernel held to its plain version. Tolerance:
+exact equality (every quantity is an integer).
 
 The JAX package is imported by a fixture, not at the top: the machine with
 the card has no JAX, and runs this file's card tests alone with
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import nsga2 as t_nsga2
 from repro_torch.core import quant as t_quant
 from repro_torch.kernels import _build
 from repro_torch.kernels import domination as t_dom
@@ -250,6 +252,154 @@ def test_tree_infer_plain_matches_ref(jref, seed, p, b, n, l, c):
     np.testing.assert_array_equal(preds.numpy(), capped.argmax(-1))
 
 
+def _tree_like(case, seed, depth=8, exact_share=0.75):
+    """The case with leaves of a tree's shape: ``depth`` comparators a path,
+    most targets the path's number of +1 entries (as every leaf of a real
+    tree has: the kernel tests those without a popcount), the rest any
+    score (the popcount test)."""
+    rng = np.random.default_rng(seed + 100)
+    n_leaves, n = case["path"].shape
+    path = np.zeros((n_leaves, n), np.int8)
+    for i in range(n_leaves):
+        cols = rng.choice(n, min(depth, n), replace=False)
+        path[i, cols] = rng.choice(np.array([-1, 1], np.int8), len(cols))
+    target = (path == 1).sum(1).astype(np.int32)
+    other = rng.random(n_leaves) >= exact_share
+    target[other] = rng.integers(-depth, depth + 1, int(other.sum()))
+    return dict(case, path=path, target=target)
+
+
+@pytest.mark.parametrize("seed,p,b,n,l,c", [(0, 2, 40, 20, 45, 4),
+                                            (1, 1, 33, 588, 589, 6)])
+def test_tree_infer_plain_matches_ref_on_tree_like_leaves(jref, seed, p, b, n,
+                                                          l, c):
+    jnp, j_ops, j_ref = jref.jnp, jref.ops, jref.ref
+    case = _tree_like(_random_case(seed, p, b, n, l, c), seed, depth=3)
+    sel, path_t, target, cls1h = j_ops.prepare_operands(
+        case["feature"], case["path"], case["target"], np.zeros(l, np.int32),
+        case["leaf_class"], c, case["n_features"])
+    x8f = _pad(jref, case["x8"].astype(np.float32), 128, 1)[:, :sel.shape[0]]
+    scale, thr = _ref_chromosome_operands(jref, case, sel.shape[1])
+    expect = np.asarray(j_ref.tree_infer_scores(
+        jnp.asarray(x8f), sel, jnp.asarray(scale), jnp.asarray(thr), path_t,
+        target, cls1h))[:, :, :c]
+    assert expect.sum() > 0            # some samples reach some leaves
+    ops = t_ops.prepare_operands(
+        case["feature"], case["path"], case["target"], np.zeros(l, np.int32),
+        case["leaf_class"], c, case["n_features"])
+    shift, thr_t, _ = _port_chromosome_operands(case)
+    got = t_ti.tree_infer_scores(torch.as_tensor(case["x8"]), ops, shift,
+                                 thr_t)
+    np.testing.assert_array_equal(got.numpy(), expect.astype(np.int32))
+
+
+@pytest.mark.parametrize("seed,words", [(0, 1), (1, 4), (2, 20), (3, 64)])
+def test_exact_leaf_test_equals_the_score_test(seed, words):
+    """`csrc/tree_infer.cu` tests a leaf whose target is its number of +1
+    entries with no popcount: it is satisfied iff ``(~d & pos) | (d & neg)``
+    is 0 in every word. For any decisions d that equals score == target."""
+    rng = np.random.default_rng(seed)
+    k, n = 3000, 32 * words
+    path = rng.choice(np.array([-1, 0, 0, 0, 0, 0, 1], np.int8), (k, n))
+    d = rng.random((k, n)) < 0.5
+    hit = rng.random(k) < 0.5              # make half the rows satisfy
+    d[hit] = np.where(path[hit] == 1, True,
+                      np.where(path[hit] == -1, False, d[hit]))
+    flip = rng.random(k) < 0.25            # then spoil a quarter by a bit
+    col = rng.integers(0, n, k)
+    d[flip, col[flip]] ^= True
+    score = (d * path).sum(1)
+    n_pos = (path == 1).sum(1)
+
+    def pack(bits):
+        return np.packbits(bits.reshape(k, words, 32), axis=-1,
+                           bitorder="little").view(np.uint32)[..., 0]
+
+    dw, pw, nw = pack(d), pack(path == 1), pack(path == -1)
+    miss = ((~dw & pw) | (dw & nw)).any(1)
+    np.testing.assert_array_equal(~miss, score == n_pos)
+    assert 0 < int((~miss).sum()) < k
+
+
+def _sort_case(name):
+    """Objectives (P, M) float32 for the non-dominated sort's cases."""
+    rng = np.random.default_rng(len(name))
+    if name == "chain 300":    # each point dominates the next: 300 fronts
+        v = rng.permutation(300).astype(np.float32)
+        return np.stack([v, v / 7], 1)
+    p, m, levels = {"ties 96": (96, 2, 4), "ragged 45": (45, 2, 9),
+                    "ragged 100 M=3": (100, 3, 6),
+                    "pool 1500": (1500, 2, 40)}[name]
+    objs = (rng.integers(0, levels, (p, m)) / (levels - 1)).astype(np.float32)
+    objs[1::5] = objs[::5][:len(objs[1::5])]   # duplicate points
+    return objs
+
+
+SORT_CASES = ["ties 96", "chain 300", "ragged 45", "ragged 100 M=3",
+              "pool 1500"]
+
+
+@pytest.mark.parametrize("name", SORT_CASES)
+def test_domination_bits_plain_matches_ref(name):
+    """The packed relation's plain version holds the bits of
+    `repro.core.nsga2.domination_matrix`, column j's word w at [w, j]."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.core import nsga2 as j_nsga2
+    objs = _sort_case(name)
+    p = objs.shape[0]
+    dom = np.asarray(j_nsga2.domination_matrix(jnp.asarray(objs)))
+    rel, counts = t_dom.domination_bits(torch.as_tensor(objs))
+    words = t_dom.relation_words(p)
+    assert rel.dtype == counts.dtype == torch.int32
+    assert tuple(rel.shape) == (words, p)
+    u = rel.numpy().view(np.uint32)
+    rows = np.arange(32 * words)
+    bits = (u[rows // 32] >> (rows % 32)[:, None].astype(np.uint32)) & 1
+    assert not bits[p:].any()
+    np.testing.assert_array_equal(bits[:p].astype(bool), dom)
+    np.testing.assert_array_equal(counts.numpy(), dom.sum(0))
+
+
+def _peel_packed(rel, counts):
+    """`csrc/domination.cu`'s peel in numpy on the packed relation: the
+    front is the unranked columns with no dominator left, and every
+    unranked column j drops popc(rel[w, j] & front[w]) dominators."""
+    words, p = rel.shape
+    rel = rel.view(np.uint32)
+    counts = counts.astype(np.int64)
+    rank = np.full(p, -1, np.int32)
+    for r in range(p):
+        front = (rank < 0) & (counts == 0)
+        rank[front] = r
+        if (rank >= 0).all():
+            break
+        padded = np.zeros(32 * words, bool)
+        padded[:p] = front
+        fw = np.packbits(padded.reshape(words, 32), axis=-1,
+                         bitorder="little").view(np.uint32)[:, 0]
+        dec = np.bitwise_count(rel & fw[:, None]).sum(0)
+        counts = np.where(rank < 0, counts - dec, counts)
+    return rank
+
+
+@pytest.mark.parametrize("name", SORT_CASES)
+def test_packed_peel_matches_ref(name):
+    """Peeling the packed relation as the card does gives the ranks of
+    `repro.core.nsga2.non_dominated_sort`, and so does the CPU sort."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.core import nsga2 as j_nsga2
+    objs = _sort_case(name)
+    want = np.asarray(j_nsga2.non_dominated_sort(jnp.asarray(objs)))
+    rel, counts = t_dom.domination_bits_plain(torch.as_tensor(objs))
+    np.testing.assert_array_equal(_peel_packed(rel.numpy(), counts.numpy()),
+                                  want)
+    got = t_dom.non_dominated_rank(torch.as_tensor(objs))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if name == "chain 300":
+        assert want.max() == 299
+
+
 @pytest.mark.parametrize("n_comp", [1, 31, 32, 33, 129, 588, 2048])
 def test_pack_path_bits(n_comp):
     rng = np.random.default_rng(n_comp)
@@ -267,11 +417,11 @@ def test_pack_path_bits(n_comp):
 
 
 def test_mask_widths_match_the_cuda_instantiations():
-    """`NWP_CHOICES` and the widths `csrc/tree_common.cuh` instantiates the
+    """`NWP_CHOICES` and the widths `csrc/tree_infer.cu` instantiates the
     kernels for (`REPRO_NWP_CASES`) are one list: a width missing on the
     CUDA side would only show as a failed launch."""
-    header = (_build.CSRC / "tree_common.cuh").read_text()
-    macro = re.search(r"#define REPRO_NWP_CASES\(X\)((?:.*\\\n)*.*)", header)
+    source = (_build.CSRC / "tree_infer.cu").read_text()
+    macro = re.search(r"#define REPRO_NWP_CASES\(X\)((?:.*\\\n)*.*)", source)
     assert macro is not None
     widths = tuple(int(w) for w in re.findall(r"X\((\d+)\)", macro.group(1)))
     assert widths == t_ti.NWP_CHOICES
@@ -358,6 +508,105 @@ class TestKernelsOnCuda:
         torch.cuda.synchronize()
         assert torch.equal(got, t_ti.tree_infer_scores_plain(x8, ops, shift,
                                                              thr))
+
+    # (seed, P, B, N, L, C): the har tree's serving buckets, its verify leg
+    # and population slab, and the widest masks (N = 2048)
+    @pytest.mark.parametrize("seed,p,b,n,l,c", [
+        (10, 1, 1, 588, 589, 6), (11, 1, 37, 588, 589, 6),
+        (12, 1, 1024, 588, 589, 6), (13, 1, 3090, 588, 589, 6),
+        (14, 8, 3090, 588, 589, 6), (15, 3, 300, 2048, 2049, 4)])
+    @pytest.mark.parametrize("leaves", ["tree-like", "random"])
+    def test_tree_infer_kernel_at_main_path_shapes(self, cuda_device, seed, p,
+                                                   b, n, l, c, leaves):
+        case = _random_case(seed, p, b, n, l, c, n_features=561)
+        if leaves == "tree-like":
+            case = _tree_like(case, seed)
+        ops = t_ops.prepare_operands(
+            case["feature"], case["path"], case["target"],
+            np.zeros(l, np.int32), case["leaf_class"], c, case["n_features"],
+            device=cuda_device)
+        shift, thr, _ = _to(cuda_device, *_port_chromosome_operands(case))
+        x8 = torch.as_tensor(case["x8"], device=cuda_device)
+        launches = t_ti.tree_infer_scores.launches
+        got = t_ti.tree_infer_scores(x8, ops, shift, thr)
+        torch.cuda.synchronize()
+        assert t_ti.tree_infer_scores.launches == launches + 1
+        want = t_ti.tree_infer_scores_plain(x8, ops, shift, thr)
+        assert torch.equal(got, want)
+        if leaves == "tree-like":
+            assert int(want.sum()) > 0
+
+    @pytest.mark.parametrize("p", [33, 256, 1024, 1500, 4096])
+    def test_domination_bits_kernel(self, cuda_device, p):
+        rng = np.random.default_rng(p)
+        objs = torch.as_tensor((rng.integers(0, 64, (p, 2)) / 63)
+                               .astype(np.float32), device=cuda_device)
+        rel, counts = t_dom.domination_bits(objs)
+        torch.cuda.synchronize()
+        want_rel, want_counts = t_dom.domination_bits_plain(objs)
+        assert torch.equal(rel, want_rel) and torch.equal(counts, want_counts)
+
+    @pytest.mark.parametrize("name", SORT_CASES + ["pool 256", "pool 1024",
+                                                   "pool 4096"])
+    def test_sort_kernel(self, cuda_device, name):
+        """Two launches, no host sync, the host loop's ranks."""
+        if name.startswith("pool ") and name != "pool 1500":
+            p = int(name.split()[1])
+            rng = np.random.default_rng(p)
+            objs = (rng.integers(0, 64, (p, 2)) / 63).astype(np.float32)
+        else:
+            objs = _sort_case(name)
+        objs = torch.as_tensor(objs, device=cuda_device)
+        t_dom.domination_bits(objs)          # build and load first
+        before = (t_dom.domination_bits.launches,
+                  t_dom.non_dominated_rank.launches)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = t_dom.non_dominated_rank(objs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert (t_dom.domination_bits.launches,
+                t_dom.non_dominated_rank.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+        want = t_dom.non_dominated_rank_plain(objs)
+        assert torch.equal(got, want)
+        if name == "chain 300":
+            assert int(got.max()) == 299
+
+    def test_survivors_and_step_equal_the_host_loop(self, cuda_device,
+                                                    monkeypatch):
+        """`survivors` and `make_step` on the card's sort equal them on the
+        host loop, fed the same pool and draws."""
+        rng = np.random.default_rng(0)
+        p, g = 256, 7
+        genes = torch.as_tensor(rng.random((p, g), dtype=np.float32),
+                                device=cuda_device)
+        objs = torch.as_tensor((rng.integers(0, 32, (2 * p, 2)) / 31)
+                               .astype(np.float32), device=cuda_device)
+
+        def fitness(x):
+            return torch.stack([x[:, 0].round(decimals=1),
+                                x[:, 1:].mean(1).round(decimals=1)], 1)
+
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        draws = t_nsga2.draw_step(gen, p, g, cuda_device)
+        cfg = t_nsga2.NSGA2Config(pop_size=p)
+        fit0 = fitness(genes)
+        rank0 = t_nsga2.non_dominated_sort(fit0)
+        state = t_nsga2.NSGA2State(genes, fit0, rank0,
+                                   t_nsga2.crowding_distance(fit0, rank0), 0)
+        card = (t_nsga2.survivors(objs, p),
+                t_nsga2.make_step(fitness, cfg)(state, draws))
+        monkeypatch.setattr(t_nsga2, "non_dominated_sort",
+                            t_dom.non_dominated_rank_plain)
+        host = (t_nsga2.survivors(objs, p),
+                t_nsga2.make_step(fitness, cfg)(state, draws))
+        for a, b in zip(card[0], host[0]):
+            assert torch.equal(a, b)
+        for f in ("genes", "objs", "rank", "crowd"):
+            assert torch.equal(getattr(card[1], f), getattr(host[1], f))
 
     def test_kernels_build_for_sm90a(self, cuda_device):
         _build.build()

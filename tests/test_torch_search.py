@@ -175,6 +175,40 @@ def test_sort_and_crowding_match_jax(p):
     np.testing.assert_array_equal(t_keep.numpy(), j_keep)
 
 
+def _sort_objs(name):
+    """Objectives of the sort's edge cases, made with numpy."""
+    rng = np.random.default_rng(len(name) + 7)
+    if name == "chain 300":      # each point dominates the next: 300 fronts
+        v = rng.permutation(300).astype(np.float32)
+        return np.stack([v / 3, v], 1)
+    if name == "duplicates 64":  # 16 distinct points, four copies each
+        base = (rng.integers(0, 5, (16, 2)) / 4).astype(np.float32)
+        return rng.permutation(np.repeat(base, 4, axis=0))
+    p, m, levels = {"ties 200": (200, 2, 6), "ragged 77": (77, 2, 20),
+                    "ragged 161 M=3": (161, 3, 5),
+                    "pool 1500": (1500, 2, 64)}[name]
+    return (rng.integers(0, levels, (p, m)) / (levels - 1)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["duplicates 64", "ties 200", "chain 300",
+                                  "ragged 77", "ragged 161 M=3", "pool 1500"])
+def test_non_dominated_sort_matches_jax(name):
+    """Ties, duplicate points, a 300-front chain, pools that are not a
+    multiple of 32 and one above the card's shared-memory relation (1500):
+    the port's sort gives the reference's ranks element for element."""
+    objs = _sort_objs(name)
+    want = np.asarray(j_nsga2.non_dominated_sort(jnp.asarray(objs)))
+    got = t_nsga2.non_dominated_sort(torch.as_tensor(objs))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if name == "chain 300":
+        assert want.max() == 299
+    if name == "duplicates 64":   # copies never dominate each other
+        for i in range(len(objs)):
+            same = (objs == objs[i]).all(1)
+            assert (want[same] == want[i]).all()
+
+
 def _jax_step_draws(key, p, g):
     """The random numbers JAX `make_step` draws from ``key``."""
     _, ksel, kx, km = jax.random.split(key, 4)
