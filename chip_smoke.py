@@ -42,7 +42,17 @@ Phases, each of which stops the script with a non-zero exit on failure:
    after they are read; every kernel of the path must have launched, and
    the sort's two kernels (counted under `domination_block`) twice per
    generation.
-5. `[flash]`: hold `flash_attention` to its plain version (float32 within
+5. `[forest]`: `--trees 5` on `har` (N=2227 comparators over five trees,
+   L=2232, B=3090, C=6; the script fails unless N > 2048): the trees'
+   training time; both widened kernels (`fitness_errors` at P=512,
+   `tree_infer_scores` at P=1) held to their plain versions, exactly, at
+   the forest's block-diagonal super-tree and at a synthetic single tree of
+   N=4096, each timed beside its bound with the path product counted tree
+   by tree; then the forest path through the user's entry points, counted
+   like the others: `run_search(backend="kernel", pop_size=512,
+   verify_rtl=True)` and serving at the 1 / 37 / 1024 / 3090-row buckets,
+   each request checked against the gate-level netlist.
+6. `[flash]`: hold `flash_attention` to its plain version (float32 within
    2e-5; bfloat16 by `row_error`, a row's largest difference over its root
    mean square, within 2^-4) at the LM prefill's shape (llama3.2-3b at
    B=4, S=4096: H=96, Hkv=32, hd=128, bf16) in the model's (B, S, H, hd)
@@ -52,7 +62,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    bound (the bf16 tensor-core rate) and `scaled_dot_product_attention`
    (causal, GQA); and check that the model's prefill attention runs nothing
    on the card but the kernel (no layout copies).
-6. `[lm]`: the LM serving path at llama3.2-3b's full width (28 layers,
+7. `[lm]`: the LM serving path at llama3.2-3b's full width (28 layers,
    random bf16 weights from the seed): `generate` of 32 greedy tokens after
    a B=4 x 4096-token prompt (the repo's `train_4k` length; `prefill_32k`
    would need 120 GB of cache on one card), counted: `flash_attention`
@@ -61,12 +71,25 @@ Phases, each of which stops the script with a non-zero exit on failure:
    must give the same tokens, and prefill and decode times, peak memory and
    the device time of one prefill split into the attention kernel,
    matmuls and the rest are printed.
-7. Print where one generation's time goes on each search path (its
+8. Print where one generation's time goes on each search path (its
    survivor selection run once under sync debug mode "error", its ranks
-   held to the host loop's on the same pool), the kernel list, the card's
-   name and power limit, one JSON line of per-kernel results (each row
-   names what it times in `what`), and last
+   held to the host loop's on the same pool).
+9. `[chunk]`: on the tree and MLP `har` paths, 8 generations chunked with
+   `checkpoint_every=4` (each chunk one captured CUDA graph, its warm-up
+   step run under sync debug mode "error") must equal the per-generation
+   loop element for element; one generation's host time, device busy time
+   and idle share inside a captured chunk beside an eager step's; the
+   graphs captured and the dispatches.
+10. `[resume]`: 8 tree `har` generations saving every 3; a fresh
+   `run_search` resuming from the step-6 save must equal the uninterrupted
+   run, the step-8 saves (the CUDA generator's state included) leaf for
+   leaf.
+11. The kernel list, the card's name and power limit, one JSON line of
+   per-kernel results (each row names what it times in `what`), and last
    `{"ok": true, "device": {...}}`.
+
+The search paths run through `run_search`, whose generations are chunks
+of captured CUDA graphs; a launch inside a graph counts at every replay.
 
 Without a CUDA device, or without the repository's `src/` beside it, the
 script exits non-zero and prints no result.
@@ -94,6 +117,10 @@ GENS = 8
 SEED = 0
 MLP_HIDDEN = 16
 MLP_RUNS = (("har", 512), ("pendigits", 128))    # (dataset, pop), GENS each
+FOREST_TREES = 5       # har --trees 5: N = 2227 comparators, past 2048
+WIDE_N, WIDE_POP = 4096, 64   # the synthetic single tree past the old cap
+CHUNK = 4              # [chunk]: checkpoint_every, so chunks of 4
+RESUME_EVERY = 3       # [resume]: saves at 3, 6 and 8
 QMM_RTOL, QMM_ATOL = 1e-5, 1e-3   # qmatmul on float inputs (module doc)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12       # H100 SXM tensor cores, int8 dense
@@ -189,6 +216,18 @@ def stream_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of ``fn()`` between two synchronisations."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def device_or_stream_ms(fn, reps: int) -> tuple[float, str]:
     """(ms, source): `device_ms` of every device activity of ``fn``, or
     `stream_ms` where the trace holds no device activity."""
@@ -225,11 +264,13 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def tree_ops(p: int, b: int, n: int, l: int, c: int) -> int:
+def tree_ops(p: int, b: int, n: int, l: int, c: int,
+             nl: int | None = None) -> int:
     """Integer operations of the tree dataflow for p chromosomes on b rows:
-    shift and compare per comparator, the path product (2NL) and the vote
-    product (2LC) per (chromosome, row)."""
-    return p * b * (2 * n + 2 * n * l + 2 * l * c)
+    shift and compare per comparator, the path product (2NL; for a forest
+    2 sum_k N_k L_k, ``nl``, since a leaf reads only its own tree's
+    comparators) and the vote product (2LC) per (chromosome, row)."""
+    return p * b * (2 * n + 2 * (n * l if nl is None else nl) + 2 * l * c)
 
 
 def peel_ops(rank: torch.Tensor) -> int:
@@ -374,13 +415,16 @@ def phase_kernels(problem, rng) -> dict:
     bms, by = bound(n_bytes, n_ops, INT8_OPS_PER_S)
     rows = fitness.BLOCK_ROWS
     blocks = POP * -(-b // rows)
-    l2_bytes = blocks * path_bytes
+    spans = fit_ops.spans.cpu().numpy()
+    span_pairs = int(((spans[:, 1] - spans[:, 0]) * fitness.LEAF_TILE).sum())
+    l2_bytes = blocks * (span_pairs + 2 * l_pad * 4)
     log(f"[kernel] fitness_errors P={POP} B={b} N={n} L={l} C={c}: equal; "
         f"{text}; bound {bms:.4f} ms ({by}; {n_ops:.4g} int ops, "
         f"{n_bytes} bytes); {n_ops / ms / 1e9:.1f} TOP/s, {ms / bms:.2f}x "
-        f"its bound; {rows} rows a block, {blocks} blocks, each reading the "
-        f"{tuple(fit_ops.path.shape)} path, targets and classes from L2: "
-        f"{l2_bytes} bytes ({l2_bytes / ms / 1e6:.0f} GB/s)")
+        f"its bound; {rows} rows a block, {blocks} blocks, each reading its "
+        f"tiles' spans of the {tuple(fit_ops.path.shape)} path ({span_pairs} "
+        f"bytes, {span_pairs / fit_ops.path.numel():.3f} of it), targets and "
+        f"classes from L2: {l2_bytes} bytes ({l2_bytes / ms / 1e6:.0f} GB/s)")
     record("fitness_errors", float(err), ms, plain_ms, bms, by)
 
     # domination_block: the GA pool (2P rows) against itself, and a slab
@@ -569,7 +613,7 @@ def phase_main_path(problem, out_dir: str) -> dict:
     log(f"[main] run_search {DATASET} backend=kernel pop={POP} gens={GENS}: "
         f"search {result.wall_s:.2f} s, pareto.json + verify_rtl "
         f"{t_run - result.wall_s:.2f} s over {len(objs)} points; "
-        f"{result.n_dispatches} generation-loop calls; launches {searched}")
+        f"{result.n_dispatches} device dispatches; launches {searched}")
     check(searched["fitness_errors"] >= 1 + GENS,
           "fitness_errors launched fewer than once per generation")
     check_sort_launches(searched, GENS)
@@ -835,16 +879,6 @@ def phase_breakdown(what: str, fitness, state, n_genes: int, device,
     step = nsga2.make_step(fitness_seen, cfg)
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
 
-    def host_ms(fn, reps=3):
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(out)
-
     draws = nsga2.draw_step(gen, pop, n_genes, device)
     t_step = host_ms(lambda: step(state, draws))
     busy = device_ms(lambda: step(state, draws), 3)
@@ -872,6 +906,317 @@ def phase_breakdown(what: str, fitness, state, n_genes: int, device,
         f"of the sort's two kernels {sort_text}) + operators and draws "
         f"{t_step - t_fit - t_surv:.2f} ms; device busy in a step: "
         f"{busy_text}")
+
+
+def forest_nl(ptrees) -> int:
+    """sum_k N_k L_k: the path product's multiply-adds per row of a forest
+    (N L for one tree)."""
+    return sum(pt.n_comparators * pt.n_leaves for pt in ptrees)
+
+
+def random_chromosomes(rng, p: int, n: int, dev):
+    """(shift, thr, cap) of p random chromosomes over n comparators, both
+    vote caps."""
+    from repro_torch.core import quant
+
+    bits = rng.integers(1, 9, (p, n))
+    shift = torch.as_tensor(8 - bits, dtype=torch.int32, device=dev)
+    thr = torch.as_tensor(rng.integers(0, 256, (p, n)) % (1 << bits),
+                          dtype=torch.int32, device=dev)
+    cap = torch.as_tensor(np.where(rng.random(p) < 0.5, 1,
+                                   quant.NO_VOTE_CAP), dtype=torch.int32,
+                          device=dev)
+    return shift, thr, cap
+
+
+def phase_wide_kernels(what: str, ptrees, x8: torch.Tensor, y, c: int,
+                       fit_pop: int, rng) -> None:
+    """Both widened kernels against their plain versions at one wide
+    layout (the forest's block-diagonal super-tree, or a single wide tree):
+    `fitness_correct_counts` at P = ``fit_pop`` over the rows of ``x8`` and
+    `tree_infer_scores` at P = 1 (the verify leg), exact, each timed beside
+    its bound with the path product counted tree by tree."""
+    from repro_torch.core.tree import concatenate_ptrees
+    from repro_torch.kernels import fitness, ops, tree_infer
+
+    dev = x8.device
+    arrays = concatenate_ptrees(ptrees)
+    n, l = arrays["path"].shape[1], arrays["path"].shape[0]
+    b, n_feat = x8.shape
+    nl = forest_nl(ptrees)
+    feature = torch.as_tensor(arrays["feature"], device=dev).long()
+    fit_ops = ops.prepare_fitness_operands(
+        x8[:, feature], y, arrays["path"], arrays["path_len"],
+        arrays["n_neg"], arrays["leaf_class"], c)
+    shift, thr, cap = random_chromosomes(rng, fit_pop, n, dev)
+    got = fitness.fitness_correct_counts(fit_ops, shift, thr, cap)
+    torch.cuda.synchronize()
+    want = fitness.fitness_correct_counts_plain(fit_ops, shift, thr, cap)
+    err = int((got.long() - want.long()).abs().max())
+    check(err == 0 and int(want.sum()) > 0,
+          f"fitness_errors at {what} differs from its plain version by {err}")
+    ms, plain_ms, text = timed(
+        lambda: fitness.fitness_correct_counts(fit_ops, shift, thr, cap),
+        lambda: fitness.fitness_correct_counts_plain(fit_ops, shift, thr, cap),
+        "fitness_mma_kernel", reps=10, plain_reps=2)
+    spans = fit_ops.spans.cpu().numpy()
+    span_work = int(((spans[:, 1] - spans[:, 0]) * fitness.LEAF_TILE).sum())
+    n_ops = tree_ops(fit_pop, b, n, l, c, nl)
+    n_bytes = (b * fit_ops.x_sel.shape[1] + 2 * fit_pop * n * 4
+               + fit_ops.path.numel() + 2 * fit_ops.path.shape[0] * 4
+               + b * 4 + 2 * fit_pop * 4)
+    bms, by = bound(n_bytes, n_ops, INT8_OPS_PER_S)
+    log(f"[forest] fitness_errors {what} P={fit_pop} B={b} N={n} L={l} C={c}:"
+        f" equal; {text}; bound {bms:.4f} ms ({by}; {n_ops:.4g} int ops with "
+        f"the path product tree by tree, sum N_k L_k = {nl}, dense N L = "
+        f"{n * l}; {n_bytes} bytes); {n_ops / ms / 1e9:.1f} TOP/s, "
+        f"{ms / bms:.2f}x its bound; chunk {fit_ops.chunk} comparators, the "
+        f"tiles' spans {span_work} leaf-comparator pairs "
+        f"({span_work / (n * l):.3f} of the dense product)")
+    operands = ops.prepare_operands(
+        arrays["feature"], arrays["path"], arrays["path_len"],
+        arrays["n_neg"], arrays["leaf_class"], c, n_feat, device=dev)
+    s1, t1 = shift[:1].contiguous(), thr[:1].contiguous()
+    got = tree_infer.tree_infer_scores(x8, operands, s1, t1)
+    torch.cuda.synchronize()
+    want = tree_infer.tree_infer_scores_plain(x8, operands, s1, t1)
+    err = int((got - want).abs().max())
+    check(err == 0 and int(want.sum()) > 0,
+          f"tree_infer_scores at {what} differs from its plain version by "
+          f"{err}")
+    ms, plain_ms, text = timed(
+        lambda: tree_infer.tree_infer_scores(x8, operands, s1, t1),
+        lambda: tree_infer.tree_infer_scores_plain(x8, operands, s1, t1),
+        "tree_infer_kernel", reps=20, plain_reps=5)
+    n_ops = tree_ops(1, b, n, l, c, nl)
+    n_bytes = (b * n_feat * 4 + n * 4 + 2 * n * 4
+               + 2 * operands.pos.numel() * 4 + 3 * l * 4 + b * c * 4)
+    bms, by = bound(n_bytes, n_ops, INT8_OPS_PER_S)
+    log(f"[forest] tree_infer_scores {what} P=1 B={b}: equal; {text}; bound "
+        f"{bms:.5f} ms ({by}; {n_ops:.4g} int ops, {n_bytes} bytes); "
+        f"{ms / bms:.1f}x its bound; masks of {operands.nwp} words x "
+        f"{operands.n_seg} segment(s) a leaf, {operands.d_words} decision "
+        f"words a sample")
+
+
+def phase_forest(rng, out_dir: str, device="cuda") -> dict:
+    """`--trees 5` on har: train the forest (timed), hold both widened
+    kernels to their plain versions at its super-tree and at a synthetic
+    single tree of 4096 comparators, then the forest path through the
+    user's entry points, counted: `run_search(backend="kernel")` with
+    `verify_rtl` into a `pareto.json`, and serving at the 1 / 37 / 1024 /
+    3090-row buckets against the netlist."""
+    from repro_torch import kernels, search
+    from repro_torch.core import netlist
+    from repro_torch.core.forest import train_forest
+    from repro_torch.core.tree import random_tree, to_parallel
+    from repro_torch.datasets import load_dataset
+    from repro_torch.runtime.classify import ClassifyServer
+
+    ds = load_dataset(DATASET)
+    t0 = time.perf_counter()
+    forest = train_forest(ds.x_train, ds.y_train, ds.n_classes,
+                          n_trees=FOREST_TREES)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    problem = search.build_forest_problem(forest, ds.x_test, ds.y_test,
+                                          device=device)
+    t_build = time.perf_counter() - t0
+    n, l = problem.n_comparators, problem.n_leaves
+    widest = max(problem.tree_comparators)
+    log(f"[forest] {DATASET} --trees {FOREST_TREES}: N={n} L={l} "
+        f"B={problem.x8.shape[0]} C={problem.n_classes}; trees' comparators "
+        f"{list(problem.tree_comparators)} (widest {widest}), leaves "
+        f"{list(problem.tree_leaves)}; exact accuracy "
+        f"{problem.exact_accuracy:.6f}, exact area "
+        f"{problem.exact_area_mm2:.2f} mm^2 (vote adder "
+        f"{problem.vote_units_exact} / {problem.vote_units_approx} quanta "
+        f"exact / approximate); training {t_train:.1f} s, problem "
+        f"{t_build:.1f} s")
+    check(n > 2048, f"the forest has N={n} comparators, not past the old "
+          f"2048 cap")
+    c = problem.n_classes
+    y = problem.y.cpu().numpy()
+    phase_wide_kernels(f"forest[{FOREST_TREES}]", forest.ptrees, problem.x8,
+                       y, c, POP, rng)
+    wide = to_parallel(random_tree(rng, WIDE_N, problem.n_features, c))
+    phase_wide_kernels(f"synthetic tree N={WIDE_N}", [wide], problem.x8, y, c,
+                       WIDE_POP, rng)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = search.run_search(problem, backend="kernel", pop_size=POP,
+                               n_generations=GENS, seed=SEED,
+                               dataset=DATASET, out_dir=out_dir,
+                               verify_rtl=True)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    searched = kernels.launch_counts()
+    objs = result.pareto_objs
+    log(f"[forest] run_search backend=kernel pop={POP} gens={GENS}: search "
+        f"{result.wall_s:.2f} s, pareto.json + verify_rtl "
+        f"{t_run - result.wall_s:.2f} s over {len(objs)} points; "
+        f"{result.n_dispatches} device dispatches; launches {searched}")
+    check(searched["fitness_errors"] >= 1 + GENS,
+          "fitness_errors launched fewer than once per generation")
+    check_sort_launches(searched, GENS)
+    check(bool(((objs[:, 0] <= 0) & (objs[:, 1] <= 1)).any()),
+          "no front point matches or dominates the exact design (0, 1)")
+    check(np.isfinite(objs).all() and objs.shape[1] == 2,
+          "pareto objectives are not finite (K, 2)")
+    art = search.load_pareto_artifact(str(pathlib.Path(out_dir) /
+                                          "pareto.json"))
+    check(art.n_trees == FOREST_TREES and art.payload["rtl_verified"]
+          and all(p.get("verified") for p in art.points),
+          "the forest's pareto.json does not record every point as verified")
+    log(f"[forest] front: {len(objs)} points, loss "
+        f"[{objs[:, 0].min():+.4f}, {objs[:, 0].max():+.4f}], area "
+        f"[{objs[:, 1].min():.4f}, {objs[:, 1].max():.4f}]; every point's "
+        f"netlist == predict_votes == tree_infer_scores over "
+        f"{problem.x8.shape[0]} rows")
+    idx = art.best_under_loss(0.01)
+    if idx is None:
+        idx = min(range(len(art.points)),
+                  key=lambda i: art.points[i]["acc_loss"])
+    server = ClassifyServer.from_artifact(art, point=idx, backend="kernel",
+                                          device=device)
+    bits, t_int, trunc, vote_adder = art.point_design(idx)
+    circuit = netlist.build_circuit(art.ptrees(), bits, t_int, art.n_classes,
+                                    trunc=trunc, vote_adder=vote_adder)
+    codes = server.featurize(ds.x_test)
+    latency, served = serve_latency(
+        server, codes, lambda rows: [("netlist", netlist.simulate(
+            circuit, torch.as_tensor(codes[:rows], device=device))
+            .cpu().numpy())], "forest")
+    acc = float((served == ds.y_test).mean())
+    check(abs(acc - art.point_accuracy(idx)) <= 1e-6,
+          f"served accuracy {acc} != recorded {art.point_accuracy(idx)}")
+    counts = kernels.launch_counts()
+    check(all(counts[k] > 0 for k in TREE_KERNELS),
+          f"a kernel of the forest path never launched: {counts}")
+    log(f"[forest] served point {idx} ({vote_adder} vote adder, acc_loss "
+        f"{art.points[idx]['acc_loss']:+.4f}, norm_area "
+        f"{art.points[idx]['norm_area']:.4f}) over requests of "
+        f"{sorted(latency)} rows == netlist simulation; accuracy {acc:.6f} "
+        f"== recorded; latency ms "
+        f"{json.dumps({k: round(v, 3) for k, v in latency.items()})}")
+    log(f"[forest] launches over search + serve: {counts}")
+    return dict(counts=counts)
+
+
+def eager_run(problem, fitness, pop: int, gens: int, seed: int):
+    """The per-generation loop `run_search` replaced: the same initial
+    population and generator, then `make_step` once per generation."""
+    from repro_torch.core import nsga2
+
+    dev = problem.device
+    cfg = nsga2.NSGA2Config(pop_size=pop)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = nsga2.init_state(fitness, cfg, nsga2.draw_init(
+        gen, pop, problem.n_genes, 1, dev), seed_genes=problem.exact_genes())
+    step = nsga2.make_step(fitness, cfg)
+    for _ in range(gens):
+        state = step(state, nsga2.draw_step(gen, pop, problem.n_genes, dev))
+    return state, gen
+
+
+def same_state(a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("genes", "objs", "rank", "crowd"))
+
+
+def phase_chunk(what: str, problem, fitness, out_dir: str) -> None:
+    """A chunked run (`run_search`, ``checkpoint_every`` = CHUNK: one CUDA
+    graph a chunk) equals the per-generation loop element for element; then
+    one generation's time inside a captured chunk beside an eager step
+    (draws included in both), host clock around synchronised calls, median
+    of 3, with the device's busy time from a profiler trace and the idle
+    share; the graphs captured and the dispatches."""
+    from repro_torch import search
+    from repro_torch.core import nsga2
+
+    captures = nsga2.make_chunk.captures
+    result = search.run_search(problem, backend="kernel", pop_size=POP,
+                               n_generations=GENS, seed=SEED,
+                               out_dir=out_dir, checkpoint_every=CHUNK)
+    torch.cuda.synchronize()
+    graphs = nsga2.make_chunk.captures - captures
+    eager, _ = eager_run(problem, fitness, POP, GENS, SEED)
+    check(same_state(result.state, eager),
+          f"{what}: the chunked run differs from the per-generation loop")
+    check(result.n_dispatches == 1 + -(-GENS // CHUNK),
+          f"{what}: {result.n_dispatches} dispatches for {GENS} generations "
+          f"in chunks of {CHUNK}")
+
+    state = result.state
+    dev = problem.device
+    cfg = nsga2.NSGA2Config(pop_size=POP)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    step = nsga2.make_step(fitness, cfg)
+    chunk = nsga2.make_chunk(fitness, cfg, CHUNK)
+    chunk(state, gen)                        # capture
+
+    def eager_step():
+        return step(state, nsga2.draw_step(gen, POP, problem.n_genes, dev))
+
+    t_eager = host_ms(eager_step)
+    busy_eager = device_ms(eager_step, 3)
+    t_chunk = host_ms(lambda: chunk(state, gen)) / CHUNK
+    busy_chunk = device_ms(lambda: chunk(state, gen), 3)
+
+    def busy_text(busy, t):
+        if busy is None:
+            return "not in the trace"
+        return f"{busy:.2f} ms, idle share {1 - busy / t:.3f}"
+
+    log(f"[chunk] {what}: {GENS} generations in chunks of {CHUNK} == the "
+        f"per-generation loop (genes, objs, rank, crowd); "
+        f"{result.n_dispatches} device dispatches, {graphs} CUDA graphs "
+        f"captured")
+    log(f"[chunk] {what}: one generation (pop {POP}, draws included): eager "
+        f"step {t_eager:.2f} ms, device busy "
+        f"{busy_text(busy_eager, t_eager)}; in a captured chunk of {CHUNK} "
+        f"{t_chunk:.2f} ms, device busy "
+        + busy_text(None if busy_chunk is None else busy_chunk / CHUNK,
+                    t_chunk))
+
+
+def phase_resume(problem, root: str) -> None:
+    """8 generations with saves every 3 (3, 6, 8); a fresh `run_search` that
+    resumes from the step-6 save must end equal to the uninterrupted run:
+    the population, ranks and crowding, and every leaf of the step-8 save,
+    the CUDA generator's state included."""
+    import shutil
+
+    from repro_torch import search
+
+    a, b = pathlib.Path(root) / "full", pathlib.Path(root) / "resumed"
+    full = search.run_search(problem, backend="kernel", pop_size=POP,
+                             n_generations=GENS, seed=SEED, out_dir=str(a),
+                             checkpoint_every=RESUME_EVERY)
+    saved = sorted(p.name for p in (a / "ckpt").iterdir())
+    check(saved == ["ckpt_00000003", "ckpt_00000006", "ckpt_00000008"],
+          f"saves {saved}, not at 3, 6 and 8")
+    (b / "ckpt").mkdir(parents=True)
+    shutil.copytree(a / "ckpt" / "ckpt_00000006", b / "ckpt" / "ckpt_00000006")
+    resumed = search.run_search(problem, backend="kernel", pop_size=POP,
+                                n_generations=GENS, seed=SEED,
+                                out_dir=str(b), checkpoint_every=RESUME_EVERY,
+                                resume=True)
+    check(same_state(full.state, resumed.state),
+          "the resumed run differs from the uninterrupted one")
+    with np.load(a / "ckpt" / "ckpt_00000008" / "arrays.npz") as x, \
+            np.load(b / "ckpt" / "ckpt_00000008" / "arrays.npz") as y:
+        check(sorted(x.files) == sorted(y.files) and all(
+            np.array_equal(x[k], y[k]) for k in x.files),
+            "the step-8 saves differ (population or generator state)")
+        rng_bytes = x["4"].size
+    log(f"[resume] {DATASET} tree pop {POP}: {GENS} generations saving every "
+        f"{RESUME_EVERY} (steps {[int(s[5:]) for s in saved]}); resumed from "
+        f"step 6 in a fresh run_search ({resumed.n_dispatches} dispatch, "
+        f"{resumed.n_evaluations} evaluations) == the uninterrupted run, and "
+        f"the step-8 saves are equal leaf for leaf (genes, objs, rank, "
+        f"crowd, the {rng_bytes}-byte CUDA generator state, generation)")
 
 
 def attention_pairs(sq: int, skv: int) -> int:
@@ -1086,16 +1431,6 @@ def phase_lm() -> dict:
     check(torch.equal(out, again), "a second generate gave other tokens")
     log("[lm] a second generate gave identical tokens")
 
-    def host_ms(fn, reps=3):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(times)
-
     t_prefill = host_ms(lambda: lm.prefill(params, cfg, batch, s_max=s_max))
     _, caches = lm.prefill(params, cfg, batch, s_max=s_max)
     tok = out[:, :1]
@@ -1230,8 +1565,10 @@ def main() -> None:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_mlp_") as out_dir:
             mlp_paths[name] = phase_mlp_path(mlp_problems[name], name, pop,
                                              out_dir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_forest_") as out_dir:
+        forest_path = phase_forest(rng, out_dir)
     lm_path = phase_lm()
-    for path in (tree_path, *mlp_paths.values(), lm_path):
+    for path in (tree_path, *mlp_paths.values(), forest_path, lm_path):
         for name, count in path["counts"].items():
             launches[name] += count
     check(all(v > 0 for v in launches.values()),
@@ -1248,6 +1585,14 @@ def main() -> None:
     phase_breakdown(f"mlp {MLP_RUNS[0][0]}", pm.make_kernel_fitness(mp),
                     mlp_paths[MLP_RUNS[0][0]]["state"], mp.n_genes,
                     mp.device, "qmatmul_u8")
+
+    for what, prob, fit in (
+            (f"tree {DATASET}", problem, make_kernel_fitness(problem)),
+            (f"mlp {MLP_RUNS[0][0]}", mp, pm.make_kernel_fitness(mp))):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_chunk_") as d:
+            phase_chunk(what, prob, fit, d)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
+        phase_resume(problem, d)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

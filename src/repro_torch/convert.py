@@ -31,29 +31,30 @@ def problem_from_arrays(fields: dict, scalars: dict,
     ``fields``: numpy arrays named as the JAX fields (feature, threshold,
     path, path_len, n_neg, leaf_class, leaf_tree, x8, x_sel, y, area_lut,
     lut_offsets); ``scalars``: overhead_mm2, exact_accuracy, n_classes,
-    n_features, n_trees, tree_comparators, tree_leaves. The float mm^2 LUT
-    and overhead are converted to the integer quanta the port scores in
+    n_features, n_trees, tree_comparators, tree_leaves and, for a forest,
+    vote_mm2_exact and vote_mm2_approx. The float mm^2 LUT, overhead and
+    vote adders are converted to the integer quanta the port scores in
     (they must be whole quanta), and the exact design's area is recomputed
     in quanta.
     """
     dev = resolve_device(device)
-    if int(scalars["n_trees"]) != 1:
-        raise NotImplementedError(
-            "forests (K > 1 trees) are not ported yet: ROADMAP.md Queue 1 "
-            "item 8")
-    units = np.asarray(fields["area_lut"], np.float64) / area_mod.AREA_QUANTUM_MM2
-    overhead = float(scalars["overhead_mm2"]) / area_mod.AREA_QUANTUM_MM2
+    q = area_mod.AREA_QUANTUM_MM2
+    units = np.asarray(fields["area_lut"], np.float64) / q
+    overhead = float(scalars["overhead_mm2"]) / q
+    votes = [float(scalars.get(k, 0.0)) / q
+             for k in ("vote_mm2_exact", "vote_mm2_approx")]
     if (np.abs(units - np.round(units)).max(initial=0) > 1e-3
-            or abs(overhead - round(overhead)) > 1e-6):
-        raise ValueError("area LUT / overhead are not whole area quanta")
+            or any(abs(v - round(v)) > 1e-6 for v in (overhead, *votes))):
+        raise ValueError("area LUT / overhead / vote adders are not whole "
+                         "area quanta")
     units = np.round(units).astype(np.int32)
     offsets = np.asarray(fields["lut_offsets"], np.int64)
     t = {k: torch.as_tensor(np.array(fields[k]), device=dev).to(dt)
          for k, dt in _PROBLEM_ARRAYS.items()}
     t8 = np.clip(np.floor(np.asarray(fields["threshold"], np.float64) * 256.0),
                  0, 255).astype(np.int64)
-    exact_units = int(units[offsets[8] + t8].astype(np.int64).sum()
-                      ) + int(round(overhead))
+    exact_units = (int(units[offsets[8] + t8].astype(np.int64).sum())
+                   + int(round(overhead)) + int(round(votes[0])))
     return SearchProblem(
         **t,
         area_units=torch.as_tensor(units, device=dev),
@@ -63,9 +64,11 @@ def problem_from_arrays(fields: dict, scalars: dict,
         exact_accuracy=float(scalars["exact_accuracy"]),
         n_classes=int(scalars["n_classes"]),
         n_features=int(scalars["n_features"]),
-        n_trees=1,
+        n_trees=int(scalars["n_trees"]),
         tree_comparators=tuple(int(v) for v in scalars["tree_comparators"]),
         tree_leaves=tuple(int(v) for v in scalars["tree_leaves"]),
+        vote_units_exact=int(round(votes[0])),
+        vote_units_approx=int(round(votes[1])),
     )
 
 

@@ -1,7 +1,7 @@
 """Bespoke-comparator and printed-MLP area models, Area LUT and power model.
 
-A copy of the tree and printed-MLP parts of `repro.core.area` (numpy, host
-side). Hard-wired unsigned greater-than ``X > t`` is ``X >= u`` with
+A copy of the tree, forest and printed-MLP parts of `repro.core.area`
+(numpy, host side). Hard-wired unsigned greater-than ``X > t`` is ``X >= u`` with
 ``u = t + 1``: bits below the lowest set bit of u are free, the lowest set
 bit is a free wire, and every higher bit adds one 2-input gate (AND2 where
 u_i = 1, OR2 where u_i = 0); ``u = 2^p`` is constant false. So
@@ -12,6 +12,8 @@ scores the area objective in those integer quanta (`build_area_unit_lut`),
 which is exact under any summation order on any device.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -87,6 +89,33 @@ def build_area_unit_lut() -> tuple[np.ndarray, np.ndarray]:
     return _build_lut(comparator_area_units)
 
 
+# --- forest vote-adder cells -------------------------------------------------
+# The vote stage of a K-tree forest is priced from the netlist it lowers to:
+# an isolated vote-stage harness (popcount adders and the first-max argmax
+# chain for the exact adder, a saturating OR per class and a 1-bit argmax
+# for the approximate one), built once per (n_trees, n_classes, mode) and
+# inventoried in whole quanta.
+
+
+@functools.lru_cache(maxsize=None)
+def vote_adder_units(n_trees: int, n_classes: int, approx: bool) -> int:
+    """Vote-adder area in exact AREA_QUANTUM_MM2 quanta; 0 for a single
+    tree (its one-hot class needs no adder in either mode, so the vote gene
+    is inert there)."""
+    if n_trees <= 1:
+        return 0
+    from repro_torch.core import netlist
+    counts = netlist.vote_adder_gate_counts(n_trees, n_classes, approx=approx)
+    units = gate_area_mm2(*counts) / AREA_QUANTUM_MM2
+    iunits = round(units)
+    assert abs(iunits - units) < 1e-6
+    return iunits
+
+
+def vote_adder_area_mm2(n_trees: int, n_classes: int, approx: bool) -> float:
+    return vote_adder_units(n_trees, n_classes, approx) * AREA_QUANTUM_MM2
+
+
 # --- printed-MLP MAC / activation cells --------------------------------------
 # A MAC term is lowered as shifted-copy rows through ripple full adders (the
 # netlist's `full_add`: 2 XOR2 + 2 AND2 + 1 OR2); a negative weight costs one
@@ -134,6 +163,26 @@ def gate_area_mm2(n_and: int = 0, n_or: int = 0, n_not: int = 0,
 
 def tree_overhead_mm2(n_comparators: int, n_leaves: int) -> float:
     return n_comparators * NODE_OVERHEAD_MM2 + n_leaves * LEAF_OVERHEAD_MM2
+
+
+def tree_area_mm2(features, t_ints, bits, n_leaves: int,
+                  dedup: bool = False) -> float:
+    """Total bespoke-tree (or forest) area: the additive LUT sum (the
+    search's estimate) or, with ``dedup``, one comparator per distinct
+    (feature, threshold, precision), shared as synthesis shares it; plus
+    the per-node and per-leaf overheads."""
+    features = np.asarray(features)
+    t_ints = np.asarray(t_ints)
+    bits = np.asarray(bits)
+    if dedup:
+        seen = {}
+        for f, t, p in zip(features.tolist(), t_ints.tolist(), bits.tolist()):
+            seen[(f, t, p)] = comparator_area_mm2(int(t), int(p))
+        comp_area = sum(seen.values())
+    else:
+        comp_area = sum(comparator_area_mm2(int(t), int(p))
+                        for t, p in zip(t_ints.tolist(), bits.tolist()))
+    return comp_area + tree_overhead_mm2(len(features), n_leaves)
 
 
 def tree_overhead_units(n_comparators: int, n_leaves: int) -> int:

@@ -1,17 +1,18 @@
 """Gate-level netlist IR of bespoke trees and printed MLPs, simulated on
 torch.
 
-The counterpart of the single-tree and printed-MLP parts of
-`repro.core.netlist`. A tree plus a decoded chromosome (per-comparator
-precision and substituted integer threshold) lowers to 2-input printed
-gates:
+The counterpart of `repro.core.netlist`. A tree or forest plus a decoded
+chromosome (per-comparator precision and substituted integer threshold)
+lowers to 2-input printed gates:
 
   comparator cells  hard-wired ``X > t'`` chains, one AND2/OR2 per
                     significant bit above the lowest set bit of ``t' + 1``
                     (the construction `core.area.comparator_gate_counts`
                     prices);
   path-AND cells    one AND tree per leaf over comparator literals;
-  class-OR cells    per-class vote wires, binary-encoded into the class.
+  class-OR cells    per-class vote wires, binary-encoded into the class
+                    (one tree) or counted by the forest's vote adders
+                    (popcount or saturating OR) and a first-max argmax.
 
 An integer-weight MLP lowers to shifted-copy MAC rows summed by ripple
 adders, a ReLU cell per hidden neuron and a first-max argmax chain over the
@@ -22,7 +23,6 @@ builds on the host; gate ids and arrays come out identical to the JAX
 package's. `simulate` evaluates the finished circuit over a batch of
 samples on the samples' device, one gather and one boolean op per logic
 level; it is the hardware oracle `--verify-rtl` and the server are held to.
-Forest vote adders (K > 1) are a later slice of the port.
 """
 from __future__ import annotations
 
@@ -185,6 +185,19 @@ class NetlistBuilder:
         out.append(carry)
         return out
 
+    def popcount(self, wires: list[int]) -> list[int]:
+        """LSB-first bit-vector count of set wires (balanced adder tree)."""
+        if not wires:
+            return [self.zero]
+        vecs = [[w] for w in wires]
+        while len(vecs) > 1:
+            nxt = [self.add(vecs[i], vecs[i + 1])
+                   for i in range(0, len(vecs) - 1, 2)]
+            if len(vecs) % 2:
+                nxt.append(vecs[-1])
+            vecs = nxt
+        return vecs[0]
+
     def gt(self, a_bits: list[int], b_bits: list[int]) -> int:
         """Unsigned a > b."""
         a_bits, b_bits = self._pad(a_bits, b_bits)
@@ -311,35 +324,86 @@ def build_tree_cells(nb: NetlistBuilder, pt: ParallelTree, bits, t_int,
 
 def build_circuit(ptrees, bits, t_int, n_classes: int, trunc=None,
                   vote_adder: str = "exact") -> Circuit:
-    """Tree + decoded chromosome -> verified-hardware netlist. A single tree
+    """Tree or forest + decoded chromosome -> verified-hardware netlist.
+
+    ``bits``/``t_int``/``trunc`` are concatenated per-comparator arrays over
+    the K trees (the `SearchProblem` chromosome layout). A single tree
     binary-encodes its one-hot class votes (exactly one leaf fires), so
-    `vote_adder` is inert."""
+    ``vote_adder`` is inert. K > 1 builds the vote stage ``vote_adder``
+    selects: "exact" counts each class's votes with a popcount adder tree,
+    "approx" saturates each class to the 1-bit OR of its votes; either way
+    a first-max argmax chain picks the class, as `predict_votes`' argmax
+    over (capped) vote counts does.
+    """
     if vote_adder not in ("exact", "approx"):
         raise ValueError(f"unknown vote_adder {vote_adder!r}")
     if isinstance(ptrees, ParallelTree):
         ptrees = [ptrees]
-    if len(ptrees) != 1:
-        raise NotImplementedError(
-            "forest circuits (K > 1 trees) are not ported yet: ROADMAP.md "
-            "Queue 1 item 8")
-    pt = ptrees[0]
     bits = np.asarray(bits)
-    if pt.n_comparators != bits.shape[0]:
-        raise ValueError(f"chromosome covers {bits.shape[0]} comparators, "
-                         f"trees have {pt.n_comparators}")
+    t_int = np.asarray(t_int)
+    trunc = (np.zeros_like(bits) if trunc is None else np.asarray(trunc))
     nb = NetlistBuilder()
-    cells = build_tree_cells(nb, pt, bits, t_int, n_classes, trunc=trunc)
+    trees, off = [], 0
+    for pt in ptrees:
+        n = pt.n_comparators
+        trees.append(build_tree_cells(nb, pt, bits[off:off + n],
+                                      t_int[off:off + n], n_classes,
+                                      trunc=trunc[off:off + n]))
+        off += n
+    if off != bits.shape[0]:
+        raise ValueError(
+            f"chromosome covers {bits.shape[0]} comparators, trees have {off}")
+
     n_bits = class_bits(n_classes)
-    out = [nb.or_many([cells.votes[c] for c in range(n_classes)
-                       if (c >> b) & 1]) for b in range(n_bits)]
+    if len(trees) == 1:
+        # one-hot votes -> binary class index (exactly one leaf fires)
+        out = [nb.or_many([trees[0].votes[c] for c in range(n_classes)
+                           if (c >> b) & 1]) for b in range(n_bits)]
+    else:
+        out = _vote_argmax(nb, trees, n_classes, approx=vote_adder == "approx")
     return Circuit(
         op=np.asarray(nb.op, np.int8),
         a=np.asarray(nb.a, np.int32),
         b=np.asarray(nb.b, np.int32),
         out_bits=tuple(out[:n_bits]),
-        trees=[cells],
+        trees=trees,
         n_classes=int(n_classes),
     )
+
+
+def _vote_argmax(nb: NetlistBuilder, trees, n_classes: int,
+                 approx: bool) -> list:
+    """Forest vote stage: per-class counts (popcount adders, or in approx
+    mode the 1-bit OR of the class's votes) and a first-max argmax chain."""
+    n_bits = class_bits(n_classes)
+    if approx:
+        counts = [[nb.or_many([t.votes[c] for t in trees])]
+                  for c in range(n_classes)]
+    else:
+        counts = [nb.popcount([t.votes[c] for t in trees])
+                  for c in range(n_classes)]
+    best_cnt, best_idx = counts[0], nb.const_vec(0, n_bits)
+    for c in range(1, n_classes):
+        sel = nb.gt(counts[c], best_cnt)
+        best_cnt = nb.mux_vec(sel, counts[c], best_cnt)
+        best_idx = nb.mux_vec(sel, nb.const_vec(c, n_bits), best_idx)
+    return best_idx
+
+
+def vote_adder_gate_counts(n_trees: int, n_classes: int,
+                           approx: bool) -> tuple[int, int, int, int]:
+    """(n_and, n_or, n_not, n_xor) of an isolated forest vote stage, built
+    on free-standing input wires (one per tree and class): the inventory
+    `core.area.vote_adder_units` prices, so the search's vote-adder quanta
+    come from the lowering `build_circuit` emits. An isolated stage shares
+    no logic with tree cells, so this is the pre-CSE estimate."""
+    nb = NetlistBuilder()
+    trees = [TreeCells([], [], [nb.input_bit(k, c) for c in range(n_classes)])
+             for k in range(n_trees)]
+    _vote_argmax(nb, trees, n_classes, approx=approx)
+    op = np.asarray(nb.op)
+    return (int((op == AND).sum()), int((op == OR).sum()),
+            int((op == NOT).sum()), int((op == XOR).sum()))
 
 
 @dataclasses.dataclass

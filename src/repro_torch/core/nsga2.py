@@ -18,6 +18,8 @@ differences from the JAX package:
 
 Sorts are stable (`jnp.argsort` is), and crowding adds its per-objective
 terms in axis order, so ranks, crowding and survivors equal the reference.
+`make_chunk` runs several generations per call, as one CUDA graph on the
+card, equal to the per-generation loop.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import ops as kops
 
 _BIG = 1e9
@@ -163,20 +166,22 @@ def draw_init(generator: torch.Generator, pop_size: int, n_genes: int,
 
 
 def draw_step(generator: torch.Generator, pop_size: int, n_genes: int,
-              device) -> StepDraws:
+              device, out: StepDraws | None = None) -> StepDraws:
+    """One generation's draws, in a fixed order; with ``out`` they are
+    drawn into its (contiguous) tensors, the same numbers."""
     half = pop_size // 2
-
-    def uniform(*shape):
-        return torch.rand(shape, generator=generator, device=device)
-
-    return StepDraws(
-        tour_a=torch.randint(0, pop_size, (pop_size,), generator=generator,
-                             device=device),
-        tour_b=torch.randint(0, pop_size, (pop_size,), generator=generator,
-                             device=device),
-        sbx_u=uniform(half, n_genes), sbx_do=uniform(half),
-        sbx_swap=uniform(half, n_genes), mut_u=uniform(pop_size, n_genes),
-        mut_mask=uniform(pop_size, n_genes))
+    shapes = {"tour_a": (pop_size,), "tour_b": (pop_size,),
+              "sbx_u": (half, n_genes), "sbx_do": (half,),
+              "sbx_swap": (half, n_genes), "mut_u": (pop_size, n_genes),
+              "mut_mask": (pop_size, n_genes)}
+    drawn = {}
+    for name, shape in shapes.items():
+        kw = dict(generator=generator, device=device)
+        if out is not None:
+            kw["out"] = getattr(out, name)
+        drawn[name] = (torch.randint(0, pop_size, shape, **kw)
+                       if name.startswith("tour") else torch.rand(shape, **kw))
+    return StepDraws(**drawn)
 
 
 def init_state(fitness_fn, cfg: NSGA2Config, draws: InitDraws,
@@ -234,6 +239,101 @@ def make_step(fitness_fn, cfg: NSGA2Config):
                           crowd[keep], state.generation + 1)
 
     return step
+
+
+def make_chunk(fitness_fn, cfg: NSGA2Config, chunk_len: int):
+    """``chunk_len`` generations of `make_step` as one call:
+    ``chunk(state, generator) -> state``, each generation fed by `draw_step`
+    from ``generator``, so a chunked run equals the per-generation loop.
+
+    On the CPU it is that loop. On a CUDA device the chunk is one captured
+    CUDA graph, replayed once per call (the JAX package's `lax.scan` over
+    the step): the first call runs one eager step on the chunk's own
+    buffers, under `torch.cuda.set_sync_debug_mode("error")` (so every
+    kernel is built and nothing in the step waits for the host), then
+    captures the ``chunk_len`` steps. Each call draws the chunk's numbers
+    eagerly, in generation order, into static buffers that generation g of
+    the graph reads, copies the state in and replays. Kernel launch counts
+    advance by the graph's launches at every replay
+    (`kernels.add_launches`); `make_chunk.captures` counts the graphs."""
+    if chunk_len < 1:
+        raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
+    step = make_step(fitness_fn, cfg)
+    captured = []
+
+    def chunk(state: NSGA2State, generator: torch.Generator) -> NSGA2State:
+        p, g = state.genes.shape
+        dev = state.genes.device
+        if dev.type != "cuda":
+            for _ in range(chunk_len):
+                state = step(state, draw_step(generator, p, g, dev))
+            return state
+        if not captured:
+            captured.append(_GraphChunk(step, chunk_len, state))
+        return captured[0].run(state, generator)
+
+    return chunk
+
+
+make_chunk.captures = 0
+
+_STATE_TENSORS = ("genes", "objs", "rank", "crowd")
+
+
+class _GraphChunk:
+    """A chunk of generations captured as one CUDA graph (`make_chunk`)."""
+
+    def __init__(self, step, chunk_len: int, state: NSGA2State):
+        p, g = state.genes.shape
+        dev = state.genes.device
+        self.inputs = NSGA2State(*(getattr(state, f).clone()
+                                   for f in _STATE_TENSORS), 0)
+        half = p // 2
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros((chunk_len, *shape), dtype=dtype, device=dev)
+
+        draws = StepDraws(
+            tour_a=zeros(p, dtype=torch.int64),
+            tour_b=zeros(p, dtype=torch.int64), sbx_u=zeros(half, g),
+            sbx_do=zeros(half), sbx_swap=zeros(half, g), mut_u=zeros(p, g),
+            mut_mask=zeros(p, g))
+        self.draws = [StepDraws(**{f.name: getattr(draws, f.name)[i]
+                                   for f in dataclasses.fields(StepDraws)})
+                      for i in range(chunk_len)]
+        # warm-up on a side stream, as graph capture wants: every kernel is
+        # built and its libraries' handles made before the capture
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                step(self.inputs, self.draws[0])
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = kernels.launch_snapshot()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            out = self.inputs
+            for d in self.draws:
+                out = step(out, d)
+        self.outputs = out
+        self.launches = kernels.rewind_launches(before)
+        make_chunk.captures += 1
+
+    def run(self, state: NSGA2State, generator: torch.Generator) -> NSGA2State:
+        p, g = state.genes.shape
+        for d in self.draws:
+            draw_step(generator, p, g, state.genes.device, out=d)
+        for f in _STATE_TENSORS:
+            getattr(self.inputs, f).copy_(getattr(state, f))
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        return NSGA2State(*(getattr(self.outputs, f).clone()
+                            for f in _STATE_TENSORS),
+                          state.generation + len(self.draws))
 
 
 def pareto_front(objs: torch.Tensor, genes: torch.Tensor):

@@ -1,12 +1,11 @@
-"""Bespoke RTL (Verilog) emission for single trees and finished netlists.
+"""Bespoke RTL (Verilog) emission for trees, forests and finished netlists.
 
-A copy of the single-tree path and of `emit_circuit_verilog` of
-`repro.core.rtl`: a tree is lowered to the gate-level netlist IR
+A copy of `repro.core.rtl`: a tree (or each tree of a forest, under a
+majority-vote top module) is lowered to the gate-level netlist IR
 (`core.netlist`) and the Verilog is printed from its cells; any other
 circuit (the printed MLP) is printed gate by gate. Either way
 `netlist.simulate` is the emitted module's software oracle, and the tests
-require the text to be byte-identical to the JAX package's. Forest
-hierarchies (K > 1) are a later slice of the port.
+require the text to be byte-identical to the JAX package's.
 """
 from __future__ import annotations
 
@@ -76,6 +75,94 @@ def emit_verilog(
     return "\n".join(lines) + "\n"
 
 
+def emit_forest_verilog(ptrees, bits, t_int, n_classes: int | None = None,
+                        module_name: str = "bespoke_forest", trunc=None,
+                        vote_adder: str = "exact") -> str:
+    """Emit a bespoke forest: one vote module per tree and the majority-vote
+    top module.
+
+    bits/t_int (and trunc) are concatenated per-comparator arrays over the K
+    trees. Each tree module emits its one-hot class vote (the OR of its
+    class's leaves); the top module counts the votes per class (an adder
+    tree for ``vote_adder="exact"``, the 1-bit OR for ``"approx"``) and
+    picks the argmax, ties to the lowest class, as `predict_votes` and the
+    kernels do.
+    """
+    if vote_adder not in ("exact", "approx"):
+        raise ValueError(f"unknown vote_adder {vote_adder!r}")
+    if isinstance(ptrees, ParallelTree):
+        ptrees = [ptrees]
+    if n_classes is None:
+        n_classes = max(pt.n_classes for pt in ptrees)
+    bits = np.asarray(bits)
+    t_int = np.asarray(t_int)
+    trunc = (np.zeros_like(bits) if trunc is None else np.asarray(trunc))
+    n_trees = len(ptrees)
+    n_cls_bits = nl_mod.class_bits(n_classes)
+    approx_vote = vote_adder == "approx"
+    # exact counts reach K; the approximate OR saturates at 1 bit
+    cnt_bits = 1 if approx_vote else max(1, n_trees.bit_length())
+
+    nb = nl_mod.NetlistBuilder()
+    all_cells, off = [], 0
+    for pt in ptrees:
+        n = pt.n_comparators
+        all_cells.append(nl_mod.build_tree_cells(
+            nb, pt, bits[off:off + n], t_int[off:off + n], n_classes,
+            trunc=trunc[off:off + n]))
+        off += n
+
+    lines = [
+        f"// Auto-generated bespoke approximate random forest",
+        f"// trees={n_trees} comparators={off} classes={n_classes}",
+    ]
+    for k, (pt, cells) in enumerate(zip(ptrees, all_cells)):
+        used = sorted(set(int(f) for f in pt.feature))
+        lines.append(f"module {module_name}_tree{k} (")
+        lines += [f"    input  wire [7:0] x{f}," for f in used]
+        lines += [f"    output wire [{n_classes - 1}:0] vote", ");"]
+        lines += _tree_body_lines(cells)
+        for c in range(n_classes):
+            rhs = _class_or_expr(cells, lambda lc: lc == c)
+            lines.append(f"  assign vote[{c}] = {rhs};")
+        lines.append("endmodule")
+        lines.append("")
+
+    used_all = sorted({int(f) for pt in ptrees for f in pt.feature})
+    lines.append(f"module {module_name} (")
+    lines += [f"    input  wire [7:0] x{f}," for f in used_all]
+    lines += [f"    output wire [{n_cls_bits - 1}:0] class_out", ");"]
+    for k, pt in enumerate(ptrees):
+        used = sorted(set(int(f) for f in pt.feature))
+        ports = ", ".join([f".x{f}(x{f})" for f in used] + [f".vote(vote{k})"])
+        lines.append(f"  wire [{n_classes - 1}:0] vote{k};")
+        lines.append(f"  {module_name}_tree{k} t{k} ({ports});")
+    if approx_vote:
+        lines.append("  // approximate vote adder: saturating OR-tree "
+                     "(DESIGN.md §16)")
+        for c in range(n_classes):
+            total = " | ".join(f"vote{k}[{c}]" for k in range(n_trees))
+            lines.append(f"  wire [{cnt_bits - 1}:0] cnt{c} = {total};")
+    else:
+        lines.append("  // majority-vote adder tree "
+                     "(the vote matmul in hardware)")
+        for c in range(n_classes):
+            total = " + ".join(f"vote{k}[{c}]" for k in range(n_trees))
+            lines.append(f"  wire [{cnt_bits - 1}:0] cnt{c} = {total};")
+    lines.append("  // argmax chain, ties -> lowest class index")
+    lines.append(f"  wire [{cnt_bits - 1}:0] best0 = cnt0;")
+    lines.append(f"  wire [{n_cls_bits - 1}:0] idx0 = {n_cls_bits}'d0;")
+    for c in range(1, n_classes):
+        lines.append(f"  wire sel{c} = (cnt{c} > best{c - 1});")
+        lines.append(f"  wire [{cnt_bits - 1}:0] best{c} = "
+                     f"sel{c} ? cnt{c} : best{c - 1};")
+        lines.append(f"  wire [{n_cls_bits - 1}:0] idx{c} = "
+                     f"sel{c} ? {n_cls_bits}'d{c} : idx{c - 1};")
+    lines.append(f"  assign class_out = idx{n_classes - 1};")
+    lines.append("endmodule")
+    return "\n".join(lines) + "\n"
+
+
 def emit_circuit_verilog(circuit: nl_mod.Circuit,
                          module_name: str = "bespoke_circuit") -> str:
     """Emit a finished gate-level `netlist.Circuit` as structural Verilog:
@@ -116,15 +203,14 @@ def emit_design(ptrees, bits, t_int, n_classes: int | None = None,
                 module_name: str | None = None, trunc=None,
                 vote_adder: str = "exact") -> str:
     """One entry point: a single tree emits `emit_verilog` (the vote mode is
-    inert for a single tree, which has no vote stage)."""
+    inert for a single tree, which has no vote stage), K > 1 the forest
+    hierarchy (`emit_forest_verilog`)."""
     if isinstance(ptrees, ParallelTree):
         ptrees = [ptrees]
-    if len(ptrees) != 1:
-        raise NotImplementedError(
-            "forest RTL (K > 1 trees) is not ported yet: ROADMAP.md Queue 1 "
-            "item 8")
-    if vote_adder not in ("exact", "approx"):
-        raise ValueError(f"unknown vote_adder {vote_adder!r}")
-    return emit_verilog(ptrees[0], bits, t_int,
-                        module_name=module_name or "bespoke_dtree",
-                        trunc=trunc)
+    if len(ptrees) == 1:
+        return emit_verilog(ptrees[0], bits, t_int,
+                            module_name=module_name or "bespoke_dtree",
+                            trunc=trunc)
+    return emit_forest_verilog(ptrees, bits, t_int, n_classes=n_classes,
+                               module_name=module_name or "bespoke_forest",
+                               trunc=trunc, vote_adder=vote_adder)

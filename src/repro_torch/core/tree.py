@@ -134,3 +134,36 @@ def predict_descent_quantized(x8, tree: TreeArrays, bits_full, margin_full):
         nxt = np.where(go_right, tree.right[node], tree.left[node])
         node = np.where(active, nxt, node)
     return tree.leaf_class[node].astype(np.int32)
+
+
+def random_tree(rng: np.random.Generator, n_comparators: int,
+                n_features: int, n_classes: int) -> TreeArrays:
+    """A random tree of exactly ``n_comparators`` internal nodes, in
+    preorder as `core.train.train_tree` lays trees out: each node splits its
+    remaining internal nodes uniformly between its children. It exercises
+    the kernels past any dataset's width (a tree of 4096 comparators)."""
+    feature, threshold, left, right, leaf_class = [], [], [], [], []
+    stack = [(-1, 0, n_comparators)]   # (parent, 0 left / 1 right, size)
+    while stack:
+        parent, side, size = stack.pop()
+        node = len(feature)
+        if parent >= 0:
+            (left if side == 0 else right)[parent] = node
+        left.append(-1)
+        right.append(-1)
+        if size == 0:
+            feature.append(-1)
+            threshold.append(0.0)
+            leaf_class.append(int(rng.integers(0, n_classes)))
+            continue
+        feature.append(int(rng.integers(0, n_features)))
+        threshold.append(float(rng.uniform(0.05, 0.95)))
+        leaf_class.append(-1)
+        n_left = int(rng.integers(0, size))
+        stack.append((node, 1, size - 1 - n_left))
+        stack.append((node, 0, n_left))
+    return TreeArrays(
+        feature=np.asarray(feature, np.int32),
+        threshold=np.asarray(threshold, np.float32),
+        left=np.asarray(left, np.int32), right=np.asarray(right, np.int32),
+        leaf_class=np.asarray(leaf_class, np.int32), n_classes=n_classes)

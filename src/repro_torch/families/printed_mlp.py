@@ -253,8 +253,8 @@ def predict_master(w1, w2, shift: int, x8) -> np.ndarray:
 def _accuracy(correct: torch.Tensor, n: int) -> torch.Tensor:
     """float32 accuracy, rounded as the reference rounds it: a float32
     division of the count by the row count."""
-    return correct.to(torch.float32) / torch.tensor(
-        float(n), dtype=torch.float32, device=correct.device)
+    return correct.to(torch.float32) / torch.full(
+        (), float(n), dtype=torch.float32, device=correct.device)
 
 
 def problem_from_masters(w1_master, w2_master, shift: int, n_classes: int,
@@ -372,8 +372,8 @@ def _objectives(problem: MLPProblem, pred: torch.Tensor,
     """(P, B) classes + (P,) area quanta -> (P, 2) float32 objectives."""
     correct = (pred == problem.y[None, :]).sum(-1)
     acc = _accuracy(correct, problem.y.shape[0])
-    loss = torch.tensor(problem.exact_accuracy, dtype=torch.float32,
-                        device=acc.device) - acc
+    loss = torch.full((), problem.exact_accuracy, dtype=torch.float32,
+                      device=acc.device) - acc
     area = units.to(torch.float32) / float(problem.exact_units)
     return torch.stack([loss, area], dim=1)
 

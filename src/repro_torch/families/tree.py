@@ -1,9 +1,11 @@
-"""The single-tree family: `search.SearchProblem` behind the protocol.
+"""The decision-tree and forest family: `search.SearchProblem` behind the
+protocol.
 
 The counterpart of `repro.families.tree`. Every method delegates to the
 port's tree modules (`search.problem`, `search.backends`, `search.engine`,
 `search.artifact`, `runtime.classify`, `core.netlist`) and changes none of
-their behaviour. Forests (K > 1 trees) are a later slice of the port.
+their behaviour; ``n_trees > 1`` trains a bootstrap forest
+(`core.forest.train_forest`).
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ from repro_torch.search.problem import SearchProblem
 
 
 class TreeFamily(ClassifierFamily):
-    """Bespoke decision trees (paper arxiv 2203.08011)."""
+    """Bespoke decision trees and bootstrap forests (paper arxiv
+    2203.08011)."""
 
     name = "tree"
 
@@ -20,19 +23,22 @@ class TreeFamily(ClassifierFamily):
         return isinstance(problem, SearchProblem)
 
     def build_problem(self, dataset: str, n_trees: int = 1, device="cuda"):
+        from repro_torch.core.forest import train_forest
         from repro_torch.core.train import train_tree
         from repro_torch.core.tree import to_parallel
         from repro_torch.datasets import load_dataset
-        from repro_torch.search.problem import build_problem
+        from repro_torch.search.problem import (build_forest_problem,
+                                                build_tree_problem)
 
-        if n_trees != 1:
-            raise NotImplementedError(
-                "forests (K > 1 trees) are not ported yet: ROADMAP.md Queue "
-                "1 item 8")
         ds = load_dataset(dataset)
-        tree = train_tree(ds.x_train, ds.y_train, ds.n_classes)
-        return build_problem(to_parallel(tree), ds.x_test, ds.y_test,
-                             device=device)
+        if n_trees <= 1:
+            tree = train_tree(ds.x_train, ds.y_train, ds.n_classes)
+            return build_tree_problem(to_parallel(tree), ds.x_test, ds.y_test,
+                                      device=device)
+        forest = train_forest(ds.x_train, ds.y_train, ds.n_classes,
+                              n_trees=n_trees)
+        return build_forest_problem(forest, ds.x_test, ds.y_test,
+                                    device=device)
 
     def n_genes(self, problem) -> int:
         return problem.n_genes
@@ -41,7 +47,9 @@ class TreeFamily(ClassifierFamily):
         return problem.exact_genes()
 
     def describe(self, problem) -> str:
-        return (f"tree: comparators={problem.n_comparators} "
+        kind = ("tree" if problem.n_trees == 1
+                else f"forest[{problem.n_trees}]")
+        return (f"{kind}: comparators={problem.n_comparators} "
                 f"leaves={problem.n_leaves} "
                 f"exact_acc={problem.exact_accuracy:.3f}")
 

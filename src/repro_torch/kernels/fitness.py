@@ -10,8 +10,10 @@ classifies correctly:
     count = sum_b (first-max argmax(votes) == y[b])
 
 Only the (P,) counts leave the kernel (`csrc/fitness.cu`: the path product
-``d @ PATH^T`` as an s8 x s8 -> s32 product on the int8 tensor cores; what
-bounds it on the H100 and how the design answers is stated there). The
+``d @ PATH^T`` as an s8 x s8 -> s32 product on the int8 tensor cores, each
+leaf tile over its own comparator span, so any N and a forest's block
+diagonal cost only the trees' products; what bounds it on the H100 and how
+the design answers is stated there). The
 TPU kernel's (P, 128) lane-replicated output was a layout artifact; this
 returns (P,). Everything is integer: `floor(x * 2^-(8-p))` of the TPU
 kernel is ``x >> (8 - p)`` on integer codes, and ``vote_cap`` is an int32
@@ -29,25 +31,39 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.tree_infer import PLAIN_CHUNK, leaf_votes_plain
 
 # The operand layout of csrc/fitness.cu (a test holds the two files equal):
-# K (comparators) padded to a multiple of K_ALIGN bytes, at most MAX_K_PAD,
-# and each path row by ROW_PAD more (the row stride of the kernel's shared
-# path tiles, so a tile is one contiguous copy); leaves padded to a
-# multiple of LEAF_TILE. A block of the kernel holds BLOCK_ROWS
-# (chromosome, sample) rows.
+# K (comparators) padded to a multiple of K_ALIGN bytes, leaves to a
+# multiple of LEAF_TILE. Each leaf tile carries its comparator span, and a
+# block holds at most MAX_CHUNK comparators of it at a time. A block of the
+# kernel holds BLOCK_ROWS (chromosome, sample) rows.
 K_ALIGN = 32
-ROW_PAD = 16
-MAX_K_PAD = 2048
+MAX_CHUNK = 1024
 LEAF_TILE = 32
 BLOCK_ROWS = 256
 
 
 def k_padded(n_comparators: int) -> int:
     """Comparator axis of the kernel's operands for N comparators."""
-    k_pad = max(K_ALIGN, -(-n_comparators // K_ALIGN) * K_ALIGN)
-    if k_pad > MAX_K_PAD:
-        raise ValueError(f"{n_comparators} comparators exceed the fitness "
-                         f"kernel's {MAX_K_PAD}")
-    return k_pad
+    return max(K_ALIGN, -(-n_comparators // K_ALIGN) * K_ALIGN)
+
+
+def tile_spans(path: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(spans, chunk) of a padded path (L_pad, K_pad): spans (L_pad /
+    LEAF_TILE, 2) int32, each tile's [lo, hi) from the first to the last
+    nonzero column of its rows, widened to multiples of K_ALIGN (one
+    K_ALIGN step where a tile has none: its scores are all 0); chunk the
+    widest span, at most MAX_CHUNK, the comparators the kernel holds at a
+    time."""
+    l_pad, k_pad = path.shape
+    live = (path != 0).view(l_pad // LEAF_TILE, LEAF_TILE, k_pad).any(1)
+    any_live = live.any(1)
+    col = torch.arange(k_pad, device=path.device)
+    first = torch.where(live, col, k_pad).amin(1)
+    last = torch.where(live, col, -1).amax(1)
+    lo = torch.where(any_live, first // K_ALIGN * K_ALIGN, 0)
+    hi = torch.where(any_live, (last // K_ALIGN + 1) * K_ALIGN, K_ALIGN)
+    spans = torch.stack([lo, hi], 1).to(torch.int32).contiguous()
+    chunk = min(MAX_CHUNK, int((hi - lo).max())) if l_pad else K_ALIGN
+    return spans, chunk
 
 
 @dataclasses.dataclass
@@ -55,16 +71,19 @@ class FitnessOperands:
     """Chromosome-invariant operands of `fitness_correct_counts`, in the
     kernel's layout: K contiguous, padded with zeros (comparators past N
     never fire and have zero path entries); leaves past L have a zero path
-    row and a target no score reaches (|score| <= N)."""
+    row and a target no score reaches (|score| <= N); `tile_spans` of the
+    path."""
 
     x_sel: torch.Tensor       # (B, K_pad) uint8 gathered codes
     y: torch.Tensor           # (B,) int32 labels; -1 rows never count
-    path: torch.Tensor        # (L_pad, K_pad + ROW_PAD) int8 in {-1, 0, 1}
+    path: torch.Tensor        # (L_pad, K_pad) int8 in {-1, 0, 1}
+    spans: torch.Tensor       # (L_pad / LEAF_TILE, 2) int32 [lo, hi) a tile
     target: torch.Tensor      # (L_pad,) int32 score of a satisfied leaf
     leaf_class: torch.Tensor  # (L_pad,) int32 in [0, n_classes)
     n_comparators: int        # N
     n_classes: int
     n_valid: int              # rows with a label >= 0
+    chunk: int                # comparators the kernel holds at a time
 
     @property
     def device(self) -> torch.device:
@@ -106,8 +125,12 @@ def fitness_correct_counts(ops: FitnessOperands, shift: torch.Tensor,
         raise ValueError(f"operands for {ops.n_comparators} comparators "
                          f"(K_pad {k_pad}, L_pad {l_pad}) do not fit {n}")
     _build.require(ops.x_sel, "x_sel", torch.uint8, dev, (batch, k_pad))
-    _build.require(ops.path, "path", torch.int8, dev,
-                   (l_pad, k_pad + ROW_PAD))
+    _build.require(ops.path, "path", torch.int8, dev, (l_pad, k_pad))
+    _build.require(ops.spans, "spans", torch.int32, dev,
+                   (l_pad // LEAF_TILE, 2))
+    if ops.chunk % K_ALIGN or not K_ALIGN <= ops.chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {ops.chunk} is not a multiple of {K_ALIGN} "
+                         f"in [{K_ALIGN}, {MAX_CHUNK}]")
     for name in ("target", "leaf_class"):
         _build.require(getattr(ops, name), name, torch.int32, dev, (l_pad,))
     _build.require(shift, "shift", torch.int32, dev)
@@ -117,12 +140,13 @@ def fitness_correct_counts(ops: FitnessOperands, shift: torch.Tensor,
     correct = torch.zeros((n_pop,), dtype=torch.int32, device=dev)
     if n_pop == 0 or batch == 0:
         return correct
-    fn = _build.function("fitness", "repro_fitness_correct_counts", 9, 6)
+    fn = _build.function("fitness", "repro_fitness_correct_counts", 10, 7)
     rc = fn(_build.ptr(ops.x_sel), _build.ptr(shift), _build.ptr(thr),
-            _build.ptr(ops.path), _build.ptr(ops.target),
-            _build.ptr(ops.leaf_class), _build.ptr(ops.y),
-            _build.ptr(vote_cap), _build.ptr(correct), n_pop, batch, n,
-            k_pad, l_pad, ops.n_classes, _build.stream(dev))
+            _build.ptr(ops.path), _build.ptr(ops.spans),
+            _build.ptr(ops.target), _build.ptr(ops.leaf_class),
+            _build.ptr(ops.y), _build.ptr(vote_cap), _build.ptr(correct),
+            n_pop, batch, n, k_pad, l_pad, ops.n_classes, ops.chunk,
+            _build.stream(dev))
     _build.check_launch(rc, "fitness_correct_counts")
     fitness_correct_counts.launches += 1
     return correct

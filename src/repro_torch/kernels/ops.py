@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quant
+from repro_torch.core.tree import concatenate_ptrees
 from repro_torch.kernels import domination as _dom
 from repro_torch.kernels import fitness as _fit
 from repro_torch.kernels import qmatmul as _qmm
@@ -43,15 +44,37 @@ def prepare_operands(feature, path, path_len, n_neg, leaf_class,
     device = device if device is not None else torch.as_tensor(path).device
     path, target, leaf_class = _leaf_operands(
         path, path_len, n_neg, leaf_class, n_classes, device)
-    pos, neg = _ti.pack_path(path)
+    packed = _ti.pack_path(path)
     feature = _as_int32(feature, device)
     if feature.numel() and not (0 <= int(feature.min())
                                 and int(feature.max()) < n_features):
         raise ValueError(f"comparator features must lie in [0, {n_features})")
     return _ti.TreeOperands(
-        feature=feature, path=path, pos=pos, neg=neg,
-        target=target, leaf_class=leaf_class, n_classes=int(n_classes),
-        n_features=int(n_features))
+        feature=feature, path=path, pos=packed.pos, neg=packed.neg,
+        word_off=packed.word_off, target=target, leaf_class=leaf_class,
+        n_classes=int(n_classes), n_features=int(n_features),
+        nwp=packed.nwp, n_seg=packed.n_seg, d_words=packed.d_words)
+
+
+def prepare_forest_operands(ptrees, n_features: int,
+                            device="cuda") -> _ti.TreeOperands:
+    """Static `tree_infer_scores` operands of a forest laid out as one
+    block-diagonal super-tree (`core.tree.concatenate_ptrees`): each leaf
+    row sees only its own tree's comparators, and exactly one leaf per tree
+    fires, so the votes count one per tree and class and their first-max
+    argmax is the majority vote. A single tree is the K = 1 case
+    (`prepare_tree_operands`)."""
+    arrays = concatenate_ptrees(ptrees)
+    return prepare_operands(
+        arrays["feature"], arrays["path"], arrays["path_len"],
+        arrays["n_neg"], arrays["leaf_class"],
+        max(pt.n_classes for pt in ptrees), n_features, device=device)
+
+
+def prepare_tree_operands(pt, n_features: int,
+                          device="cuda") -> _ti.TreeOperands:
+    """Single-tree operands: the K = 1 case of `prepare_forest_operands`."""
+    return prepare_forest_operands([pt], n_features, device=device)
 
 
 def prepare_fitness_operands(x_sel, y, path, path_len, n_neg, leaf_class,
@@ -60,10 +83,10 @@ def prepare_fitness_operands(x_sel, y, path, path_len, n_neg, leaf_class,
     """Chromosome-invariant `fitness_correct_counts` operands in the
     kernel's layout. ``x_sel`` is the hoisted gather ``x8[:, feature]``
     (B, N) of codes in [0, 255]. The comparator axis is padded with zeros
-    to `fitness.k_padded(N)` (the path's rows by `fitness.ROW_PAD` more, the
-    kernel's shared-memory row) and the leaf axis to a multiple of
+    to `fitness.k_padded(N)` and the leaf axis to a multiple of
     `fitness.LEAF_TILE`, padded leaves getting the target N + 1, which no
-    score (|d . PATH[l]| <= N) reaches."""
+    score (|d . PATH[l]| <= N) reaches; each leaf tile gets its comparator
+    span (`fitness.tile_spans`)."""
     device = device if device is not None else torch.as_tensor(x_sel).device
     x_sel = torch.as_tensor(x_sel, device=device)
     if x_sel.numel() and not (0 <= int(x_sel.min()) and int(x_sel.max()) <= 255):
@@ -77,17 +100,17 @@ def prepare_fitness_operands(x_sel, y, path, path_len, n_neg, leaf_class,
     codes = torch.zeros((x_sel.shape[0], k_pad), dtype=torch.uint8,
                         device=device)
     codes[:, :n] = x_sel
-    path_pad = torch.zeros((l_pad, k_pad + _fit.ROW_PAD), dtype=torch.int8,
-                           device=device)
+    path_pad = torch.zeros((l_pad, k_pad), dtype=torch.int8, device=device)
     path_pad[:n_leaves, :n] = path
     target_pad = torch.full((l_pad,), n + 1, dtype=torch.int32, device=device)
     target_pad[:n_leaves] = target
     class_pad = torch.zeros((l_pad,), dtype=torch.int32, device=device)
     class_pad[:n_leaves] = leaf_class
+    spans, chunk = _fit.tile_spans(path_pad)
     return _fit.FitnessOperands(
-        x_sel=codes, y=y, path=path_pad, target=target_pad,
+        x_sel=codes, y=y, path=path_pad, spans=spans, target=target_pad,
         leaf_class=class_pad, n_comparators=int(n),
-        n_classes=int(n_classes), n_valid=int((y >= 0).sum()))
+        n_classes=int(n_classes), n_valid=int((y >= 0).sum()), chunk=chunk)
 
 
 def decode_population_full(threshold: torch.Tensor, genes: torch.Tensor):

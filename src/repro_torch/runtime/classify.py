@@ -1,10 +1,10 @@
 """Classifier serving runtime for one searched design.
 
-The counterpart of `repro.runtime.classify` for single trees and printed
+The counterpart of `repro.runtime.classify` for trees, forests and printed
 MLPs. `ClassifyServer` loads one design (a `pareto.json` point of either
-family, decoded tree `bits`/`t_int` arrays, or an MLP's effective integer
-weights through `ClassifyServer.for_mlp`) and serves feature-vector
-requests:
+family, decoded tree or forest `bits`/`t_int` arrays, or an MLP's
+effective integer weights through `ClassifyServer.for_mlp`) and serves
+feature-vector requests:
 
   - a request of n rows pads up to the power-of-two bucket
     ``round_up_pow2(n)`` (at least GRANULE, at most ``max_batch``; larger
@@ -78,8 +78,10 @@ class ClassifyServer:
     """Serve one fixed approximate design: a tree (this constructor) or a
     printed MLP (`for_mlp`).
 
-    ptrees: `[ParallelTree]` (e.g. `ParetoArtifact.ptrees()`); bits, t_int:
-    (N,) decoded precisions and substituted thresholds, pre-truncation;
+    ptrees: `[ParallelTree]`, one per tree of a forest (e.g.
+    `ParetoArtifact.ptrees()`), served as one block-diagonal super-tree
+    whose votes count one per tree; bits, t_int: (N,) concatenated decoded
+    precisions and substituted thresholds, pre-truncation;
     trunc: (N,) truncated-LSB counts or None; vote_adder: "exact" or
     "approx" (inert for a single tree); n_features: request width the
     design reads (default: widest comparator feature + 1); backend:
@@ -96,10 +98,6 @@ class ClassifyServer:
             raise ValueError(
                 f"unknown vote_adder {vote_adder!r}; "
                 f"options: {quant.VOTE_ADDER_MODES}")
-        if len(ptrees) != 1:
-            raise NotImplementedError(
-                "serving forests (K > 1 trees) is not ported yet: "
-                "ROADMAP.md Queue 1 item 8")
         self._init_serving(backend, max_batch, granule, device)
         self.family = "tree"
         arrays = concatenate_ptrees(ptrees)

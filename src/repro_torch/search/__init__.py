@@ -1,11 +1,15 @@
-"""Design-space search of the single-tree slice: `SearchProblem`, the
-reference and kernel fitness backends, `run_search` and the `pareto.json`
-artifact. CLI: ``python -m repro_torch.search --dataset seeds --backend
+"""Design-space search of trees and forests: `SearchProblem`, the
+reference and kernel fitness backends, `run_search` (chunked generations,
+checkpoint/resume) and the `pareto.json` artifact. CLI: ``python -m repro_torch.search --dataset seeds --backend
 kernel`` and ``python -m repro_torch.search serve --pareto OUT/pareto.json``.
 """
 from repro_torch.search.problem import (
     SearchProblem,
+    build_forest_problem,
     build_problem,
+    build_tree_problem,
+    chromosome_accuracy,
+    chromosome_area_mm2,
     decode_chromosome,
     objectives,
     predict_votes,
@@ -31,7 +35,11 @@ from repro_torch.search.artifact import (
 
 __all__ = [
     "SearchProblem",
+    "build_forest_problem",
     "build_problem",
+    "build_tree_problem",
+    "chromosome_accuracy",
+    "chromosome_area_mm2",
     "decode_chromosome",
     "objectives",
     "predict_votes",

@@ -2,13 +2,18 @@
 
     PYTHONPATH=src python -m repro_torch.search --dataset seeds \
         --backend kernel --pop 64 --gens 40 --out runs/seeds [--device cuda]
+    PYTHONPATH=src python -m repro_torch.search --dataset seeds --trees 4 \
+        --backend kernel --checkpoint-every 10 --out runs/seeds_forest \
+        [--resume]
     PYTHONPATH=src python -m repro_torch.search --family mlp --hidden 16 \
         --dataset seeds --backend kernel --out runs/seeds_mlp
     PYTHONPATH=src python -m repro_torch.search serve \
         --pareto runs/seeds/pareto.json [--verify-netlist] [--device cuda]
 
-The run command trains the exact design (a bespoke tree, or with
-`--family mlp` a printed integer-weight MLP), runs the NSGA-II search on
+The run command trains the exact design (a bespoke tree, with `--trees K` a
+bootstrap forest, or with `--family mlp` a printed integer-weight MLP), runs
+the NSGA-II search (with `--checkpoint-every N --out D`, saving every N
+generations under D/ckpt; `--resume` continues from the newest save) on
 the selected backend, prints the pareto front and the best design under the
 accuracy-loss budget, and with --out writes pareto.json plus the Verilog of
 the selected design (`--emit-rtl`: every point's; `--verify-rtl`: simulate
@@ -32,10 +37,8 @@ from repro_torch.datasets import DATASET_SPECS, load_dataset
 # Surfaces of `python -m repro.search` this slice does not port yet, and the
 # ROADMAP.md item that will.
 NOT_PORTED = {
-    "trees": "--trees > 1 (forests): ROADMAP.md Queue 1 item 8",
     "islands": "--backend islands: ROADMAP.md Queue 1 item 12",
     "mesh": "--mesh (multi-device search): ROADMAP.md Queue 1 item 12",
-    "checkpoint": "--checkpoint-every/--resume: ROADMAP.md Queue 1 item 5",
     "sweep": "the sweep subcommand: ROADMAP.md Queue 1 item 9",
     "faults": "the faults subcommand: ROADMAP.md Queue 1 item 11",
 }
@@ -192,8 +195,9 @@ def main(argv=None) -> None:
                     help="classifier family: bespoke decision trees, or "
                          "integer-weight printed MLPs")
     ap.add_argument("--trees", type=int, default=1,
-                    help="tree family: 1 = single bespoke DT (forests are "
-                         "not ported)")
+                    help="tree family: 1 = single bespoke DT; K>1 = "
+                         "bootstrap forest with a joint 3*sum(N_k)+1-gene "
+                         "chromosome (DESIGN.md §16)")
     ap.add_argument("--hidden", type=int, default=16,
                     help="mlp family: hidden-layer width")
     ap.add_argument("--backend", default="reference",
@@ -205,9 +209,12 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="artifact directory")
     ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help="generations between checkpoint saves (not ported)")
+                    help="generations between checkpoint saves (0 = off); "
+                         "also the chunk length (one CUDA graph on the "
+                         "card), so one interval = one device dispatch")
     ap.add_argument("--resume", action="store_true",
-                    help="continue from the latest checkpoint (not ported)")
+                    help="continue from the latest checkpoint under "
+                         "OUT/ckpt (both backends)")
     ap.add_argument("--max-loss", type=float, default=0.01)
     ap.add_argument("--emit-rtl", action="store_true",
                     help="write every pareto point's Verilog under OUT/rtl/")
@@ -219,14 +226,10 @@ def main(argv=None) -> None:
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
     args = ap.parse_args(argv)
-    if args.family == "tree" and args.trees > 1:
-        _not_ported("trees")
     if args.backend == "islands":
         _not_ported("islands")
     if args.mesh is not None:
         _not_ported("mesh")
-    if args.checkpoint_every or args.resume:
-        _not_ported("checkpoint")
     if (args.emit_rtl or args.verify_rtl) and not args.out:
         ap.error("--emit-rtl/--verify-rtl require --out")
     device = _device_or_exit(args.device)
@@ -242,8 +245,9 @@ def main(argv=None) -> None:
                                     device=device)
         kind = f"mlp[h={args.hidden}]"
     else:
-        problem = fam.build_problem(args.dataset, device=device)
-        kind = "tree"
+        problem = fam.build_problem(args.dataset, n_trees=args.trees,
+                                    device=device)
+        kind = "tree" if args.trees <= 1 else f"forest[{args.trees}]"
     print(f"== {args.dataset} {fam.describe(problem)} "
           f"exact_area={problem.exact_area_mm2:.1f}mm^2 "
           f"power={area.power_mw(problem.exact_area_mm2):.2f}mW "
@@ -252,6 +256,7 @@ def main(argv=None) -> None:
     cfg = search.SearchConfig(
         backend=args.backend, pop_size=args.pop, n_generations=args.gens,
         seed=args.seed, dataset=args.dataset, out_dir=args.out,
+        checkpoint_every=args.checkpoint_every, resume=args.resume,
         emit_rtl=args.emit_rtl, verify_rtl=args.verify_rtl)
     print(f"== run_search backend={cfg.backend} pop={cfg.pop_size} "
           f"gens={cfg.n_generations} ==")
@@ -259,7 +264,7 @@ def main(argv=None) -> None:
 
     print(f"search wall time: {result.wall_s:.1f}s "
           f"({result.n_evaluations} chromosome evaluations, "
-          f"{result.n_dispatches} generation-loop calls)")
+          f"{result.n_dispatches} device dispatches)")
     print("pareto front (acc_loss, normalized area):")
     for o in result.pareto_objs:
         print(f"  {o[0]:+.4f}  {o[1]:.3f}  ({1 / max(o[1], 1e-9):.2f}x smaller)")

@@ -1,11 +1,11 @@
 """Fitness backends: (P, n_genes) genes -> (P, 2) objectives.
 
-For a tree `SearchProblem` (genes (P, 3N+1)):
+For a tree or forest `SearchProblem` (genes (P, 3N+1)):
 
   reference — the plain tensor dataflow (`problem.objectives`);
   kernel    — accuracy through the Hopper fused-fitness kernel, one launch
               per population (`kernels.ops.fitness_errors`), area through
-              the same integer-quanta LUT gather.
+              the same integer-quanta LUT gather and vote-adder term.
 
 The two agree exactly: the kernel's counts equal the plain dataflow's, and
 both turn the same integer into an accuracy with `problem.accuracy`.
@@ -49,7 +49,8 @@ def make_kernel_fitness(problem: SearchProblem):
             problem.threshold, pop)
         errors = kops.fitness_errors(fit_operands, shift, t_eff, vote_cap)
         acc = accuracy(n_samples - errors, n_samples)
-        area = normalized_area(problem, area_units(problem, bits, t_eff))
+        area = normalized_area(problem, area_units(problem, bits, t_eff,
+                                                   vote_cap))
         return torch.stack([exact_accuracy - acc, area], dim=1)
 
     return fitness

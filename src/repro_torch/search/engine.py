@@ -5,18 +5,23 @@ The counterpart of the single-device path of `repro.search.engine`:
     problem = search.build_problem(ptree, x_test, y_test, device="cuda")
     result  = search.run_search(problem, SearchConfig(backend="kernel"))
 
-``problem`` is a family's problem (a tree `SearchProblem` or a printed-MLP
-`families.printed_mlp.MLPProblem`): the loop reads only its ``device``,
-``n_genes`` and ``exact_genes()``, and hands fitness construction and the
-artifact back to the family.
+``problem`` is a family's problem (a tree or forest `SearchProblem` or a
+printed-MLP `families.printed_mlp.MLPProblem`): the loop reads only its
+``device``, ``n_genes`` and ``exact_genes()``, and hands fitness
+construction and the artifact back to the family.
 
-Generations run as a host loop, one `nsga2.make_step` call each, with the
-draws made from a `torch.Generator` seeded with ``cfg.seed`` on the
-problem's device; `SearchResult.n_dispatches` counts those host calls (the
-initial population included). With ``out_dir`` the pareto front is written
-to ``pareto.json`` (the family's schema) in the format
-`repro.search.load_pareto_artifact` reads.
-Checkpoint/resume, islands and meshes are later slices of the port.
+Generations run as `nsga2.make_chunk` chunks of ``checkpoint_every``
+generations (the whole run when checkpointing is off or there is no
+``out_dir``), each one CUDA graph on the card, with the draws made from a
+`torch.Generator` seeded with ``cfg.seed`` on the problem's device; a
+chunked run equals the per-generation loop. `SearchResult.n_dispatches`
+counts the host calls: the initial population and one per chunk.
+``checkpoint_every`` saves the population and the generator's state
+through `runtime.checkpoint` under ``out_dir/ckpt`` and ``resume=True``
+continues from the newest intact save. With ``out_dir`` the pareto front is
+written to ``pareto.json`` (the family's schema) in the format
+`repro.search.load_pareto_artifact` reads. Islands and meshes are a later
+slice of the port.
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ class SearchConfig:
     seed_exact: bool = True         # inject the exact design into the init pop
     dataset: str | None = None      # dataset label recorded in pareto.json
     out_dir: str | None = None
+    checkpoint_every: int = 0       # generations between saves; 0 = off
+    resume: bool = False
     emit_rtl: bool = False          # write per-pareto-point Verilog (OUT/rtl/)
     verify_rtl: bool = False        # netlist-simulate every pareto point and
                                     # require it to equal the tensor predict
@@ -68,6 +75,157 @@ class SearchResult:
         return self.pareto_objs[best], self.pareto_genes[best]
 
 
+def _ckpt_dir(cfg: SearchConfig) -> str | None:
+    return os.path.join(cfg.out_dir, "ckpt") if cfg.out_dir else None
+
+
+def _chunk_schedule(start: int, stop: int, every: int) -> list[int]:
+    """Chunk lengths covering [start, stop) with boundaries at multiples of
+    ``every`` (every = 0: one chunk for the rest of the run). A resume from
+    an off-boundary final save realigns at the next multiple, so
+    checkpoints land on the same cadence whatever the interruptions."""
+    if every < 0:
+        raise ValueError(f"checkpoint_every must be >= 0, got {every}")
+    if start >= stop:
+        return []
+    if not every:
+        return [stop - start]
+    out = []
+    g = start
+    while g < stop:
+        nxt = min(stop, (g // every + 1) * every)
+        out.append(nxt - g)
+        g = nxt
+    return out
+
+
+def _drive_chunks(state, start: int, stop: int, every: int, make_chunk_fn,
+                  save_fn=None):
+    """Run positions [start, stop) as chunks with boundaries at multiples of
+    ``every``, making one chunk function per distinct length (at most
+    three: the realignment after an off-boundary resume, the steady
+    ``every``-long chunk and a shorter tail; on the card each is one
+    captured graph). ``save_fn`` is called at every boundary and, unless
+    that position was just saved, once at the end, so a partial run always
+    leaves its final state on disk. Returns (state, position, n_chunks)."""
+    chunk_fns = {}
+    cur = start
+    last_saved = start if start else -1
+    n_chunks = 0
+    for length in _chunk_schedule(start, stop, every):
+        fn = chunk_fns.get(length)
+        if fn is None:
+            fn = chunk_fns[length] = make_chunk_fn(length)
+        state = fn(state)
+        cur += length
+        n_chunks += 1
+        if save_fn and every and cur % every == 0:
+            save_fn(cur, state)
+            last_saved = cur
+    if save_fn and last_saved != cur:
+        save_fn(cur, state)
+    return state, cur, n_chunks
+
+
+def _validate_resume_meta(ckpt_dir: str, step: int, family: str,
+                          cfg: SearchConfig) -> dict:
+    """Refuse a checkpoint whose layout cannot match this run: another
+    driver family, another pop size, or a state not drawn from a torch
+    generator (a JAX checkpoint keeps a threefry key there). Returns the
+    manifest's meta."""
+    from repro_torch.runtime import checkpoint
+
+    meta = checkpoint.read_manifest(ckpt_dir, step).get("meta", {})
+    where = f"checkpoint at {ckpt_dir} step {step}"
+    saved = meta.get("family")
+    if saved != family:
+        raise ValueError(
+            f"{where} was written by the {saved!r} driver; cannot resume it "
+            f"with backend={cfg.backend!r} ({family!r} state layout)")
+    if meta.get("pop_size", cfg.pop_size) != cfg.pop_size:
+        raise ValueError(
+            f"{where} was written with pop_size={meta['pop_size']}; cannot "
+            f"resume with pop_size={cfg.pop_size}")
+    if meta.get("rng") != "torch":
+        raise ValueError(
+            f"{where} holds rng={meta.get('rng')!r} state, not a torch "
+            f"generator's (a JAX search checkpoint keeps a threefry key); "
+            f"cannot resume it in the port")
+    return meta
+
+
+def _state_leaves(state: nsga2.NSGA2State, generator: torch.Generator):
+    """Checkpoint leaves in the JAX package's `NSGA2State` order: genes,
+    objs, rank, crowd, the RNG (the generator's state where JAX keeps its
+    key) and the generation."""
+    return (state.genes, state.objs, state.rank, state.crowd,
+            generator.get_state(), np.int32(state.generation))
+
+
+def _restore_template(problem, cfg: SearchConfig, generator: torch.Generator):
+    """Leaves of the shapes and dtypes `_state_leaves` saves, for
+    `checkpoint.restore`; no fitness evaluation."""
+    p, dev = cfg.pop_size, problem.device
+    return (torch.zeros((p, problem.n_genes), dtype=torch.float32, device=dev),
+            torch.zeros((p, 2), dtype=torch.float32, device=dev),
+            torch.zeros((p,), dtype=torch.int32, device=dev),
+            torch.zeros((p,), dtype=torch.float32, device=dev),
+            generator.get_state(), torch.zeros((), dtype=torch.int32))
+
+
+def _run_single(problem, cfg: SearchConfig, fitness):
+    """The chunked generation loop with checkpoint/resume. Returns (state,
+    n_evaluations, n_dispatches) for this call."""
+    from repro_torch.runtime import checkpoint
+
+    device = problem.device
+    nsga_cfg = nsga2.NSGA2Config(pop_size=cfg.pop_size,
+                                 n_generations=cfg.n_generations)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(cfg.seed)
+    state = None
+    start_gen = n_evals = n_dispatches = 0
+    ckpt_dir = _ckpt_dir(cfg)
+    meta = {"family": "single", "backend": cfg.backend,
+            "pop_size": cfg.pop_size, "rng": "torch"}
+    if cfg.resume and ckpt_dir:
+        step = checkpoint.latest_step(ckpt_dir)
+        if step is not None:
+            _validate_resume_meta(ckpt_dir, step, "single", cfg)
+            leaves, start_gen = checkpoint.restore(
+                ckpt_dir, step, _restore_template(problem, cfg, generator))
+            genes, objs, rank, crowd, rng_state, _ = leaves
+            generator.set_state(rng_state)
+            state = nsga2.NSGA2State(genes, objs, rank, crowd, start_gen)
+
+    if state is None:
+        seed_genes = problem.exact_genes() if cfg.seed_exact else None
+        draws = nsga2.draw_init(generator, cfg.pop_size, problem.n_genes,
+                                0 if seed_genes is None else 1, device)
+        state = nsga2.init_state(fitness, nsga_cfg, draws,
+                                 seed_genes=seed_genes)
+        n_evals += cfg.pop_size
+        n_dispatches += 1
+
+    def make_chunk_fn(length):
+        chunk = nsga2.make_chunk(fitness, nsga_cfg, length)
+        return lambda s: chunk(s, generator)
+
+    # no out_dir: nothing to save, so checkpoint_every does not shrink the
+    # chunks (the whole run stays one dispatch)
+    saving = bool(ckpt_dir and cfg.checkpoint_every)
+    state, cur_gen, n_chunks = _drive_chunks(
+        state, start_gen, cfg.n_generations,
+        cfg.checkpoint_every if saving else 0, make_chunk_fn,
+        (lambda gen, s: checkpoint.save(ckpt_dir, gen,
+                                        _state_leaves(s, generator),
+                                        meta=meta))
+        if saving else None)
+    n_evals += cfg.pop_size * (cur_gen - start_gen)
+    n_dispatches += n_chunks
+    return state, n_evals, n_dispatches
+
+
 def run_search(problem, cfg: SearchConfig | None = None,
                **overrides) -> SearchResult:
     """Search the problem's design space on its device; `overrides` are
@@ -76,26 +234,17 @@ def run_search(problem, cfg: SearchConfig | None = None,
     if cfg.backend not in _backends.BACKENDS:
         raise ValueError(
             f"unknown backend {cfg.backend!r}; options: {_backends.BACKENDS}")
+    if cfg.checkpoint_every < 0:
+        raise ValueError(
+            f"checkpoint_every must be >= 0, got {cfg.checkpoint_every}")
     if (cfg.emit_rtl or cfg.verify_rtl) and not cfg.out_dir:
         raise ValueError("emit_rtl/verify_rtl require out_dir")
     if cfg.pop_size < 2 or cfg.pop_size % 2:
         raise ValueError(f"pop_size must be even and >= 2, got {cfg.pop_size}")
 
-    device = problem.device
     t0 = time.time()
     fitness = _backends.make_fitness(problem, cfg.backend)
-    nsga_cfg = nsga2.NSGA2Config(pop_size=cfg.pop_size,
-                                 n_generations=cfg.n_generations)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(cfg.seed)
-    seed_genes = problem.exact_genes() if cfg.seed_exact else None
-    draws = nsga2.draw_init(generator, cfg.pop_size, problem.n_genes,
-                            0 if seed_genes is None else 1, device)
-    state = nsga2.init_state(fitness, nsga_cfg, draws, seed_genes=seed_genes)
-    step = nsga2.make_step(fitness, nsga_cfg)
-    for _ in range(cfg.n_generations):
-        state = step(state, nsga2.draw_step(generator, cfg.pop_size,
-                                            problem.n_genes, device))
+    state, n_evals, n_dispatches = _run_single(problem, cfg, fitness)
     objs, genes = nsga2.pareto_front(state.objs, state.genes)
     wall_s = time.time() - t0
 
@@ -105,8 +254,8 @@ def run_search(problem, cfg: SearchConfig | None = None,
         pareto_genes=genes,
         backend=cfg.backend,
         wall_s=wall_s,
-        n_evaluations=cfg.pop_size * (1 + cfg.n_generations),
-        n_dispatches=1 + cfg.n_generations,
+        n_evaluations=n_evals,
+        n_dispatches=n_dispatches,
     )
     if cfg.out_dir:
         from repro_torch.families import family_of

@@ -1,18 +1,25 @@
-"""`SearchProblem`: the evaluation context of one tree and its test set.
+"""`SearchProblem`: the evaluation context of one tree or forest and its
+test set.
 
-The counterpart of `repro.search.problem` for a single tree (K = 1; forests
-are a later slice). The comparator and leaf arrays live on the problem's
-device as tensors; the chromosome is 3N+1 genes (precision, margin and
-truncation per comparator, plus the vote-adder gene, inert for one tree).
+The counterpart of `repro.search.problem`. The comparator axis concatenates
+every tree's comparators and the leaf axis every tree's leaves, with `path`
+the block-diagonal super-tree (`core.tree.concatenate_ptrees`), so one
+dataflow evaluates every tree and its class-vote product counts one vote
+per tree (a single tree is the K = 1 case). The arrays live on the
+problem's device as tensors; the chromosome is 3N+1 genes (precision,
+margin and truncation per comparator, plus the forest's vote-adder gene,
+inert for one tree).
 
 Objectives are (accuracy loss vs the exact design, normalised area), both
 minimised. The accuracy term equals the reference's: every quantity is an
 integer and the final division is the same float32 division. The area term
 is held to the integer-quanta LUT (`core.area.build_area_unit_lut`): the
-port sums integer quanta, exact in any order on any device, and divides
-once, ``float32(units) / float32(exact_units)``. The JAX package sums the
-float mm^2 LUT in float32, so the two areas agree to float32 rounding
-(about 1e-7 relative), and the exact design scores exactly 1.0 here.
+port sums integer quanta, exact in any order on any device, adds the vote
+adder of the decoded mode (whole quanta, `core.area.vote_adder_units`; 0
+for one tree) and divides once, ``float32(units) / float32(exact_units)``.
+The JAX package sums the float mm^2 LUT in float32, so the two areas agree
+to float32 rounding (about 1e-7 relative), and the exact design scores
+exactly 1.0 here.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ from repro_torch.device import resolve_device
 
 @dataclasses.dataclass
 class SearchProblem:
-    """Evaluation context for one (tree, test set) pair."""
+    """Evaluation context for one (tree ensemble, test set) pair; arrays
+    concatenated over the K trees, `path` block diagonal."""
 
     feature: torch.Tensor      # (N,) int32 comparator features
     threshold: torch.Tensor    # (N,) float32 trained float thresholds
@@ -52,6 +60,8 @@ class SearchProblem:
     n_trees: int
     tree_comparators: tuple
     tree_leaves: tuple
+    vote_units_exact: int = 0   # vote-stage area per adder mode, in quanta
+    vote_units_approx: int = 0  # (both 0 for one tree)
 
     @property
     def device(self) -> torch.device:
@@ -126,12 +136,21 @@ def predict_votes(problem: SearchProblem, bits: torch.Tensor,
     return pred[0] if single else pred
 
 
+def vote_area_units(problem: SearchProblem,
+                    vote_cap: torch.Tensor) -> torch.Tensor:
+    """The vote stage's quanta of the decoded adder mode: the approximate
+    adder where the cap is 1, else the exact one (0 for one tree)."""
+    return torch.where(vote_cap == 1, problem.vote_units_approx,
+                       problem.vote_units_exact)
+
+
 def area_units(problem: SearchProblem, bits: torch.Tensor,
-               t_sub: torch.Tensor) -> torch.Tensor:
-    """(...,) int64 area in quanta: comparator LUT + overheads (the vote
-    adder is zero for one tree)."""
+               t_sub: torch.Tensor, vote_cap: torch.Tensor) -> torch.Tensor:
+    """(...,) int64 area in quanta: comparator LUT + overheads + the vote
+    adder of the decoded mode."""
     idx = problem.lut_offsets[bits.long()] + t_sub.long()
-    return problem.area_units[idx].sum(-1) + problem.overhead_units
+    return (problem.area_units[idx].sum(-1) + problem.overhead_units
+            + vote_area_units(problem, vote_cap))
 
 
 def normalized_area(problem: SearchProblem, units: torch.Tensor):
@@ -142,7 +161,8 @@ def accuracy(correct: torch.Tensor, n: int) -> torch.Tensor:
     """float32 accuracy of ``correct`` counts over ``n`` samples, rounded as
     the reference's `jnp.mean` rounds it: the count times the float32
     reciprocal of ``n`` (not a division, which can differ by one ulp)."""
-    inv = torch.tensor(np.float32(1) / np.float32(n), device=correct.device)
+    inv = torch.full((), float(np.float32(1) / np.float32(n)),
+                     dtype=torch.float32, device=correct.device)
     return correct.to(torch.float32) * inv
 
 
@@ -152,23 +172,36 @@ def objectives(problem: SearchProblem, genes: torch.Tensor) -> torch.Tensor:
     bits, t_sub, vote_cap = decode_chromosome(problem, genes)
     pred = predict_votes(problem, bits, t_sub, vote_cap)
     acc = accuracy((pred == problem.y.long()).sum(-1), problem.y.shape[0])
-    loss = torch.tensor(problem.exact_accuracy, dtype=torch.float32,
-                        device=acc.device) - acc
+    loss = torch.full((), problem.exact_accuracy, dtype=torch.float32,
+                      device=acc.device) - acc
     return torch.stack([loss, normalized_area(
-        problem, area_units(problem, bits, t_sub))], dim=-1)
+        problem, area_units(problem, bits, t_sub, vote_cap))], dim=-1)
+
+
+def chromosome_accuracy(problem: SearchProblem,
+                        genes: torch.Tensor) -> torch.Tensor:
+    """float32 test accuracy of one chromosome (3N+1,)."""
+    bits, t_sub, vote_cap = decode_chromosome(problem, genes)
+    pred = predict_votes(problem, bits, t_sub, vote_cap)
+    return accuracy((pred == problem.y.long()).sum(), problem.y.shape[0])
+
+
+def chromosome_area_mm2(problem: SearchProblem, genes: torch.Tensor) -> float:
+    """The LUT area estimate of one chromosome: comparators + overheads +
+    the vote adder of its mode, in mm^2 (whole quanta)."""
+    bits, t_sub, vote_cap = decode_chromosome(problem, genes)
+    units = area_units(problem, bits, t_sub, vote_cap)
+    return int(units) * area_mod.AREA_QUANTUM_MM2
 
 
 def build_problem(ptrees, x_test: np.ndarray, y_test: np.ndarray,
                   n_classes: int | None = None,
                   device="cuda") -> SearchProblem:
-    """Build a SearchProblem from one `ParallelTree` (or a list of one)."""
+    """Build a SearchProblem from one `ParallelTree` or a list of them (a
+    forest: one joint chromosome over the block-diagonal super-tree)."""
     dev = resolve_device(device)
     if isinstance(ptrees, ParallelTree):
         ptrees = [ptrees]
-    if len(ptrees) != 1:
-        raise NotImplementedError(
-            "forests (K > 1 trees) are not ported yet: ROADMAP.md Queue 1 "
-            "item 8")
     if n_classes is None:
         n_classes = max(pt.n_classes for pt in ptrees)
     arrays = concatenate_ptrees(ptrees)
@@ -177,10 +210,14 @@ def build_problem(ptrees, x_test: np.ndarray, y_test: np.ndarray,
     units_lut, offsets = area_mod.build_area_unit_lut()
     x8 = quantize_u8(x_test).astype(np.int32)
     overhead = area_mod.tree_overhead_units(n_total, l_total)
+    vote_exact = area_mod.vote_adder_units(len(ptrees), int(n_classes),
+                                           approx=False)
+    vote_approx = area_mod.vote_adder_units(len(ptrees), int(n_classes),
+                                            approx=True)
     t8 = np.clip(np.floor(arrays["threshold"].astype(np.float64) * 256.0),
                  0, 255).astype(np.int64)
-    exact_units = int(units_lut[offsets[quant.MAX_BITS] + t8].astype(
-        np.int64).sum()) + overhead
+    exact_units = (int(units_lut[offsets[quant.MAX_BITS] + t8].astype(
+        np.int64).sum()) + overhead + vote_exact)
 
     def t(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
@@ -203,30 +240,52 @@ def build_problem(ptrees, x_test: np.ndarray, y_test: np.ndarray,
         exact_accuracy=0.0,  # filled below
         n_classes=int(n_classes),
         n_features=int(x_test.shape[1]),
-        n_trees=1,
+        n_trees=len(ptrees),
         tree_comparators=tuple(pt.n_comparators for pt in ptrees),
         tree_leaves=tuple(pt.n_leaves for pt in ptrees),
+        vote_units_exact=int(vote_exact),
+        vote_units_approx=int(vote_approx),
     )
-    genes = torch.as_tensor(problem.exact_genes(), device=dev)[None]
-    bits, t_sub, vote_cap = decode_chromosome(problem, genes)
-    correct = (predict_votes(problem, bits, t_sub, vote_cap)
-               == problem.y.long()).sum()
-    acc = accuracy(correct, problem.y.shape[0])
+    genes = torch.as_tensor(problem.exact_genes(), device=dev)
+    acc = chromosome_accuracy(problem, genes)
     return dataclasses.replace(problem, exact_accuracy=float(acc))
 
 
+def build_tree_problem(ptree: ParallelTree, x_test, y_test,
+                       device="cuda") -> SearchProblem:
+    return build_problem(ptree, x_test, y_test, device=device)
+
+
+def build_forest_problem(forest, x_test, y_test,
+                         device="cuda") -> SearchProblem:
+    """``forest`` is a `repro_torch.core.forest.Forest`."""
+    return build_problem(list(forest.ptrees), x_test, y_test,
+                         n_classes=forest.n_classes, device=device)
+
+
 def problem_ptrees(problem: SearchProblem) -> list:
-    """The `ParallelTree` (numpy) of the problem's layout, as a list of one."""
-    n_k, l_k = problem.tree_comparators[0], problem.tree_leaves[0]
+    """The per-tree `ParallelTree`s (numpy) of the concatenated layout, the
+    block-diagonal path sliced apart by the per-tree counts."""
+    feature = problem.feature.cpu().numpy()
+    threshold = problem.threshold.cpu().numpy()
     path = problem.path.cpu().numpy()
-    if n_k == 0:  # single-leaf tree: ParallelTree keeps one dummy column
-        path = np.zeros((l_k, 1), np.int8)
-    return [ParallelTree(
-        feature=problem.feature.cpu().numpy(),
-        threshold=problem.threshold.cpu().numpy(),
-        path=np.ascontiguousarray(path),
-        path_len=problem.path_len.cpu().numpy(),
-        n_neg=problem.n_neg.cpu().numpy(),
-        leaf_class=problem.leaf_class.cpu().numpy(),
-        n_classes=problem.n_classes,
-    )]
+    path_len = problem.path_len.cpu().numpy()
+    n_neg = problem.n_neg.cpu().numpy()
+    leaf_class = problem.leaf_class.cpu().numpy()
+    ptrees, n_off, l_off = [], 0, 0
+    for n_k, l_k in zip(problem.tree_comparators, problem.tree_leaves):
+        block = path[l_off:l_off + l_k, n_off:n_off + n_k]
+        if n_k == 0:  # single-leaf tree: ParallelTree keeps one dummy column
+            block = np.zeros((l_k, 1), np.int8)
+        ptrees.append(ParallelTree(
+            feature=feature[n_off:n_off + n_k],
+            threshold=threshold[n_off:n_off + n_k],
+            path=np.ascontiguousarray(block),
+            path_len=path_len[l_off:l_off + l_k],
+            n_neg=n_neg[l_off:l_off + l_k],
+            leaf_class=leaf_class[l_off:l_off + l_k],
+            n_classes=problem.n_classes,
+        ))
+        n_off += n_k
+        l_off += l_k
+    return ptrees

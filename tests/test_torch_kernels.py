@@ -9,6 +9,7 @@ the card has no JAX, and runs this file's card tests alone with
 """
 from __future__ import annotations
 
+import functools
 import re
 import types
 
@@ -150,7 +151,7 @@ def test_fitness_operands_padding(seed, p, b, n, l, c):
     assert (ops.target[l:] > n).all() and not ops.leaf_class[l:].any()
     # a padded leaf's score is 0 for any decisions; even all-ones decisions
     # leave every score within [-N, N]
-    assert ops.path.shape[1] == k_pad + t_fit.ROW_PAD
+    assert ops.path.shape[1] == k_pad
     ones = torch.ones((1, ops.path.shape[1]), dtype=torch.int32)
     scores = ones @ ops.path.to(torch.int32).T
     assert not (scores[0, l:] == ops.target[l:]).any()
@@ -194,12 +195,12 @@ def test_fitness_layout_matches_the_cuda_source():
         return int(hit.group(1))
 
     assert const("kLeafTile") == t_fit.LEAF_TILE
-    assert const("kMaxKPad") == t_fit.MAX_K_PAD
-    assert "return k_pad + 16;" in src and t_fit.ROW_PAD == 16
+    assert const("kMaxChunk") == t_fit.MAX_CHUNK
+    assert "return kc + 16;" in src
     assert (16 * const("kWarps") * const("kRowTiles")
             == t_fit.BLOCK_ROWS)
-    with pytest.raises(ValueError, match="exceed"):
-        t_fit.k_padded(2049)
+    # no comparator cap: the kernel walks each tile's span in chunks
+    assert t_fit.k_padded(2049) == 2080 and t_fit.k_padded(40000) == 40000
 
 
 @pytest.mark.parametrize("seed,pi,pj,m", [(0, 40, 40, 2), (1, 17, 53, 2),
@@ -400,20 +401,134 @@ def test_packed_peel_matches_ref(name):
         assert want.max() == 299
 
 
-@pytest.mark.parametrize("n_comp", [1, 31, 32, 33, 129, 588, 2048])
+def _unpack(packed, n_comp):
+    """(pos, neg) bool (L, N) from a `PackedPath`, each leaf's masks placed
+    at its word offset."""
+    n_leaves, width = packed.pos.shape
+    full_words = max(packed.d_words, -(-n_comp // 32))
+    out = []
+    for masks in (packed.pos, packed.neg):
+        words = np.zeros((n_leaves, full_words), np.uint32)
+        u = masks.numpy().view(np.uint32)
+        for i, off in enumerate(packed.word_off.tolist()):
+            words[i, off:off + width] = u[i]
+        bits = np.arange(32 * full_words)
+        out.append(((words[:, bits // 32] >> (bits % 32).astype(np.uint32))
+                    & 1).astype(bool))
+    return out
+
+
+@pytest.mark.parametrize("n_comp", [1, 31, 32, 33, 129, 588, 2048, 2049,
+                                    4100])
 def test_pack_path_bits(n_comp):
     rng = np.random.default_rng(n_comp)
     path = rng.choice(np.array([-1, 0, 1], np.int8), (5, n_comp))
-    pos, neg = t_ti.pack_path(torch.as_tensor(path))
-    words = t_ti.mask_words(n_comp)
-    assert pos.shape == neg.shape == (5, words) and words % 4 == 0
-    assert 32 * words >= n_comp
-    bits = np.arange(32 * words)
-    for masks, sign in ((pos, 1), (neg, -1)):
-        u = masks.numpy().view(np.uint32)
-        unpacked = (u[:, bits // 32] >> (bits % 32).astype(np.uint32)) & 1
-        assert not unpacked[:, n_comp:].any()
-        np.testing.assert_array_equal(unpacked[:, :n_comp], path == sign)
+    packed = t_ti.pack_path(torch.as_tensor(path))
+    need = -(-n_comp // 32)
+    assert packed.nwp in t_ti.NWP_CHOICES and packed.d_words % 4 == 0
+    assert packed.pos.shape == packed.neg.shape == (5, packed.n_seg
+                                                    * packed.nwp)
+    assert packed.n_seg == (1 if need <= 64 else -(-need // 64))
+    assert (packed.word_off % 4 == 0).all()
+    assert (packed.word_off + packed.n_seg * packed.nwp
+            <= packed.d_words).all()
+    pos, neg = _unpack(packed, n_comp)
+    assert not pos[:, n_comp:].any() and not neg[:, n_comp:].any()
+    np.testing.assert_array_equal(pos[:, :n_comp], path == 1)
+    np.testing.assert_array_equal(neg[:, :n_comp], path == -1)
+
+
+def _forest_path(seed, widths, n_features=40, n_classes=4):
+    """The block-diagonal super-tree of random trees of ``widths``
+    comparators (`core.tree.concatenate_ptrees`)."""
+    from repro_torch.core import tree as t_tree
+    rng = np.random.default_rng(seed)
+    trees = [t_tree.to_parallel(t_tree.random_tree(rng, w, n_features,
+                                                   n_classes))
+             for w in widths]
+    return t_tree.concatenate_ptrees(trees)
+
+
+# (seed, tree widths): a five-tree forest of har's trees' widths, a single
+# tree past the old 2048-comparator cap, and a forest with a one-leaf tree
+WIDE_LAYOUTS = [(0, (473, 414, 482, 431, 427)), (1, (4096,)),
+                (2, (30, 0, 45, 2500))]
+
+
+@pytest.mark.parametrize("seed,widths", WIDE_LAYOUTS)
+def test_forest_masks_follow_the_widest_tree(seed, widths):
+    """A leaf's masks start at its own tree's words, so the instantiated
+    width follows the widest leaf span, not N; the packed layout's scores
+    (what `tree_infer_kernel` computes, segment by segment) equal
+    ``d @ PATH^T`` for random decisions."""
+    arrays = _forest_path(seed, widths)
+    path = arrays["path"]
+    n_leaves, n = path.shape
+    packed = t_ti.pack_path(torch.as_tensor(path))
+    widest = max(widths)
+    assert packed.n_seg * packed.nwp * 32 <= max(32 * 64, widest + 4 * 32
+                                                 + 64 * 32)
+    if widest <= 1900:
+        assert packed.n_seg == 1 and packed.nwp < -(-n // 32) + 4
+    pos, neg = _unpack(packed, n)
+    np.testing.assert_array_equal(pos[:, :n], path == 1)
+    np.testing.assert_array_equal(neg[:, :n], path == -1)
+    rng = np.random.default_rng(seed + 10)
+    d = rng.random((7, 32 * packed.d_words)) < 0.5
+    d[:, n:] = False
+    dw = np.packbits(d.reshape(7, packed.d_words, 32), axis=-1,
+                     bitorder="little").view(np.uint32)[..., 0]
+    pw = packed.pos.numpy().view(np.uint32)
+    nw = packed.neg.numpy().view(np.uint32)
+    popc = np.vectorize(lambda v: bin(int(v)).count("1"))
+    score = np.zeros((7, n_leaves), np.int64)
+    for l, off in enumerate(packed.word_off.tolist()):
+        for seg in range(packed.n_seg):
+            lo = off + seg * packed.nwp
+            win = dw[:, lo:lo + packed.nwp]
+            m = slice(seg * packed.nwp, (seg + 1) * packed.nwp)
+            score[:, l] += (popc(win & pw[l, m]).sum(1)
+                            - popc(win & nw[l, m]).sum(1))
+    np.testing.assert_array_equal(score, d[:, :n].astype(np.int64)
+                                  @ path.T.astype(np.int64))
+
+
+@pytest.mark.parametrize("seed,widths", WIDE_LAYOUTS)
+def test_fitness_spans_cover_every_path_entry(seed, widths):
+    """`fitness.tile_spans`: a leaf tile's span holds every nonzero column
+    of its rows, in multiples of 32 within K_pad, and the kernel's work
+    list (each span in chunks of at most `chunk`) gives the full product
+    ``D @ PATH^T``. A forest's tiles span about one tree, so the work is
+    near the sum of the trees' products."""
+    arrays = _forest_path(seed, widths)
+    n_leaves, n = arrays["path"].shape
+    rng = np.random.default_rng(seed)
+    x_sel = torch.as_tensor(rng.integers(0, 256, (6, n)))
+    ops = t_ops.prepare_fitness_operands(
+        x_sel, np.zeros(6), arrays["path"], arrays["path_len"],
+        arrays["n_neg"], arrays["leaf_class"], 4)
+    spans = ops.spans.numpy()
+    k_pad, tile = ops.path.shape[1], t_fit.LEAF_TILE
+    assert spans.shape == (ops.path.shape[0] // tile, 2)
+    assert (spans % 32 == 0).all() and (spans[:, 0] < spans[:, 1]).all()
+    assert spans.min() >= 0 and spans.max() <= k_pad
+    assert ops.chunk % 32 == 0 and 32 <= ops.chunk <= t_fit.MAX_CHUNK
+    assert ops.chunk == min(t_fit.MAX_CHUNK, int((spans[:, 1]
+                                                  - spans[:, 0]).max()))
+    path = ops.path.numpy().astype(np.int64)
+    d = (rng.random((6, k_pad)) < 0.5).astype(np.int64)
+    got = np.zeros((6, path.shape[0]), np.int64)
+    for t, (lo, hi) in enumerate(spans):
+        rows = slice(t * tile, (t + 1) * tile)
+        for c0 in range(lo, hi, ops.chunk):
+            c1 = min(c0 + ops.chunk, hi)
+            got[:, rows] += d[:, c0:c1] @ path[rows, c0:c1].T
+    np.testing.assert_array_equal(got, d @ path.T)
+    work = int(((spans[:, 1] - spans[:, 0]) * tile).sum())
+    dense = k_pad * path.shape[0]
+    if len(widths) > 1:
+        per_tree = sum((w + 64) * (w + 1 + 2 * tile) for w in widths)
+        assert work <= per_tree < dense
 
 
 def test_mask_widths_match_the_cuda_instantiations():
@@ -428,12 +543,28 @@ def test_mask_widths_match_the_cuda_instantiations():
 
 
 def test_mask_words_limit_and_device_routing():
-    with pytest.raises(ValueError, match="exceed"):
-        t_ti.mask_words(2049)
+    # no mask-width limit: a leaf wider than 64 words takes segments of 64
+    path = np.zeros((2, 5000), np.int8)
+    path[0, [0, 4999]] = [1, -1]
+    path[1, 100] = 1
+    packed = t_ti.pack_path(torch.as_tensor(path))
+    assert (packed.nwp, packed.n_seg) == (64, 3)
+    assert packed.word_off.tolist() == [0, 0]
     # neither a CPU nor a CUDA tensor: the wrappers refuse, never fall back
     meta = torch.empty((2, 2), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         t_dom.domination_block(meta, meta)
+
+
+def _seeds_problem(device):
+    from repro_torch import search
+    from repro_torch.core import train, tree
+    from repro_torch.datasets import load_dataset
+
+    ds = load_dataset("seeds")
+    pt = tree.to_parallel(train.train_tree(ds.x_train, ds.y_train,
+                                           ds.n_classes))
+    return search.build_problem(pt, ds.x_test, ds.y_test, device=device)
 
 
 @pytest.fixture
@@ -455,7 +586,9 @@ class TestKernelsOnCuda:
         (4, 40, 700, 588, 589, 6),        # har width, decisions in registers
         (5, 1, 1, 588, 589, 6),           # one chromosome, one sample
         (6, 3, 300, 2000, 2001, 4),       # decisions in shared memory
-        (7, 5, 80, 20, 21, 3)])
+        (7, 5, 80, 20, 21, 3),
+        (16, 3, 300, 4096, 600, 4),       # dense spans: four chunks a tile
+        (17, 2, 70, 33000, 64, 3)])       # 33 chunks a tile
     @pytest.mark.parametrize("caps", ["mixed", "all 1"])
     def test_fitness_kernel(self, cuda_device, seed, p, b, n, l, c, caps):
         case = _random_case(seed, p, b, n, l, c)
@@ -469,6 +602,45 @@ class TestKernelsOnCuda:
         assert t_fit.fitness_correct_counts.launches == launches + 1
         expect = t_fit.fitness_correct_counts_plain(ops, shift, thr, cap)
         assert torch.equal(got, expect)
+
+    # (seed, tree widths, P, B, C): a five-tree forest of har's widths (N =
+    # 2227) at har's rows, and single trees of 4096 and 9000 comparators
+    @pytest.mark.parametrize("seed,widths,p,b,c", [
+        (0, (473, 414, 482, 431, 427), 16, 3090, 6),
+        (1, (4096,), 8, 3090, 6), (2, (9000,), 2, 700, 4)])
+    def test_wide_kernels_equal_their_plain_versions(self, cuda_device, seed,
+                                                     widths, p, b, c):
+        """Both kernels past the old 2048-comparator cap, on a forest's
+        block-diagonal super-tree and on single wide trees."""
+        arrays = _forest_path(seed, widths, n_features=561, n_classes=c)
+        n_leaves, n = arrays["path"].shape
+        rng = np.random.default_rng(seed)
+        x8 = torch.as_tensor(rng.integers(0, 256, (b, 561)), dtype=torch.int32,
+                             device=cuda_device)
+        y = rng.integers(0, c, b)
+        bits = rng.integers(1, 9, (p, n))
+        shift = torch.as_tensor(8 - bits, dtype=torch.int32,
+                                device=cuda_device)
+        thr = torch.as_tensor(rng.integers(0, 256, (p, n)) % (1 << bits),
+                              dtype=torch.int32, device=cuda_device)
+        cap = torch.as_tensor(np.where(rng.random(p) < 0.5, 1,
+                                       t_quant.NO_VOTE_CAP),
+                              dtype=torch.int32, device=cuda_device)
+        fit_ops = t_ops.prepare_fitness_operands(
+            x8[:, torch.as_tensor(arrays["feature"]).long().to(cuda_device)],
+            y, arrays["path"], arrays["path_len"], arrays["n_neg"],
+            arrays["leaf_class"], c)
+        got = t_fit.fitness_correct_counts(fit_ops, shift, thr, cap)
+        torch.cuda.synchronize()
+        want = t_fit.fitness_correct_counts_plain(fit_ops, shift, thr, cap)
+        assert torch.equal(got, want) and int(want.sum()) > 0
+        ops = t_ops.prepare_operands(
+            arrays["feature"], arrays["path"], arrays["path_len"],
+            arrays["n_neg"], arrays["leaf_class"], c, 561, device=cuda_device)
+        got = t_ti.tree_infer_scores(x8[:300], ops, shift[:2], thr[:2])
+        torch.cuda.synchronize()
+        want = t_ti.tree_infer_scores_plain(x8[:300], ops, shift[:2], thr[:2])
+        assert torch.equal(got, want)
 
     def test_fitness_kernel_refuses_other_operands(self, cuda_device):
         """A CUDA tensor the kernel cannot take raises; nothing falls
@@ -514,7 +686,9 @@ class TestKernelsOnCuda:
     @pytest.mark.parametrize("seed,p,b,n,l,c", [
         (10, 1, 1, 588, 589, 6), (11, 1, 37, 588, 589, 6),
         (12, 1, 1024, 588, 589, 6), (13, 1, 3090, 588, 589, 6),
-        (14, 8, 3090, 588, 589, 6), (15, 3, 300, 2048, 2049, 4)])
+        (14, 8, 3090, 588, 589, 6), (15, 3, 300, 2048, 2049, 4),
+        (18, 2, 300, 4100, 300, 4),       # three mask segments a leaf
+        (19, 1, 40, 120000, 64, 3)])      # decisions in global scratch
     @pytest.mark.parametrize("leaves", ["tree-like", "random"])
     def test_tree_infer_kernel_at_main_path_shapes(self, cuda_device, seed, p,
                                                    b, n, l, c, leaves):
@@ -607,6 +781,70 @@ class TestKernelsOnCuda:
             assert torch.equal(a, b)
         for f in ("genes", "objs", "rank", "crowd"):
             assert torch.equal(getattr(card[1], f), getattr(host[1], f))
+
+    @pytest.mark.parametrize("lengths", [(5,), (2, 3)])
+    def test_captured_chunk_equals_eager_loop(self, cuda_device, lengths):
+        """`make_chunk` on the card (one CUDA graph a chunk length) equals
+        the eager per-generation loop on the seeds tree's kernel fitness,
+        generator state included, and counts each replayed launch."""
+        from repro_torch import kernels
+        from repro_torch.search import make_kernel_fitness
+
+        problem = _seeds_problem(cuda_device)
+        fitness = make_kernel_fitness(problem)
+        p, g = 64, problem.n_genes
+
+        def start():
+            gen = torch.Generator(device=cuda_device).manual_seed(4)
+            return gen, t_nsga2.init_state(fitness, cfg, t_nsga2.draw_init(
+                gen, p, g, 1, cuda_device), seed_genes=problem.exact_genes())
+
+        cfg = t_nsga2.NSGA2Config(pop_size=p)
+        step = t_nsga2.make_step(fitness, cfg)
+        gen, eager = start()
+        for _ in range(sum(lengths)):
+            eager = step(eager, t_nsga2.draw_step(gen, p, g, cuda_device))
+        gen2, chunked = start()
+        captures = t_nsga2.make_chunk.captures
+        chunks = {n: t_nsga2.make_chunk(fitness, cfg, n) for n in lengths}
+        kernels.reset_launch_counts()
+        for n in lengths:
+            chunked = chunks[n](chunked, gen2)
+        counts = kernels.launch_counts()
+        for f in ("genes", "objs", "rank", "crowd"):
+            assert torch.equal(getattr(eager, f), getattr(chunked, f)), f
+        assert chunked.generation == sum(lengths)
+        assert torch.equal(gen.get_state(), gen2.get_state())
+        assert t_nsga2.make_chunk.captures == captures + len(set(lengths))
+        # each chunk's warm-up step, then every replayed generation
+        assert counts["fitness_errors"] == len(set(lengths)) + sum(lengths)
+
+    def test_run_search_chunked_equals_one_chunk(self, cuda_device,
+                                                 tmp_path):
+        """Chunks of 4 and 2 with saves, one chunk of 6, and a resume from
+        the save at 4 give one state; the MLP family's chunks too."""
+        import shutil
+
+        from repro_torch import search
+        from repro_torch.families import printed_mlp
+
+        problem = _seeds_problem(cuda_device)
+        mlp = printed_mlp.build_problem("seeds", n_hidden=4, n_steps=30,
+                                        device=cuda_device)
+        for prob in (problem, mlp):
+            run = functools.partial(search.run_search, prob,
+                                    backend="kernel", pop_size=32,
+                                    n_generations=6, seed=3)
+            a = run(out_dir=str(tmp_path / "a"), checkpoint_every=4)
+            b = run()
+            assert (a.n_dispatches, b.n_dispatches) == (3, 2)
+            shutil.rmtree(tmp_path / "a" / "ckpt" / "ckpt_00000006")
+            c = run(out_dir=str(tmp_path / "a"), checkpoint_every=4,
+                    resume=True)
+            shutil.rmtree(tmp_path / "a")
+            for f in ("genes", "objs", "rank", "crowd"):
+                assert torch.equal(getattr(a.state, f), getattr(b.state, f))
+                assert torch.equal(getattr(a.state, f), getattr(c.state, f))
 
     def test_kernels_build_for_sm90a(self, cuda_device):
         _build.build()

@@ -282,7 +282,9 @@ def test_seeds_run_kernel_backend(seeds, tmp_path):
                                  dataset="seeds", emit_rtl=True,
                                  verify_rtl=True)
     objs = result.pareto_objs
-    assert result.n_dispatches == 4 and result.n_evaluations == 64
+    # one dispatch for the initial population, one for the one chunk of
+    # three generations (the JAX engine's count for this run)
+    assert result.n_dispatches == 2 and result.n_evaluations == 64
     # the injected exact design (0, 1) is on the front or dominated by it
     assert ((objs[:, 0] <= 0.0) & (objs[:, 1] <= 1.0)).any()
     recomputed = _jax_objectives(jp, result.pareto_genes)
@@ -291,7 +293,7 @@ def test_seeds_run_kernel_backend(seeds, tmp_path):
     # the port's pareto.json loads and validates through the JAX loader
     art = j_search.load_pareto_artifact(str(tmp_path / "pareto.json"))
     assert len(art.points) == len(objs) and art.payload["rtl_verified"]
-    assert art.payload["n_dispatches"] == 4
+    assert art.payload["n_dispatches"] == 2
     ptrees = art.ptrees()
     for i, point in enumerate(art.points):
         bits, t_int, trunc, vote_adder = art.point_design(i)
@@ -390,8 +392,7 @@ def test_default_device_entry_points_raise_without_gpu(monkeypatch, seeds):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--trees", "2"], ["--family", "mlp", "--checkpoint-every", "5"],
-    ["--backend", "islands"], ["--mesh", "4"], ["--checkpoint-every", "5"], ["--resume"], ["sweep"],
+    ["--backend", "islands"], ["--mesh", "4"], ["sweep"],
     ["faults", "--pareto", "x.json"],
 ])
 def test_cli_refuses_unported_surfaces(argv):
