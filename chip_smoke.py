@@ -84,9 +84,25 @@ Phases, each of which stops the script with a non-zero exit on failure:
    `run_search` resuming from the step-6 save must equal the uninterrupted
    run, the step-8 saves (the CUDA generator's state included) leaf for
    leaf.
-11. The kernel list, the card's name and power limit, one JSON line of
-   per-kernel results (each row names what it times in `what`), and last
-   `{"ok": true, "device": {...}}`.
+11. `[sweep]`: the paper's campaign, `repro_torch.search.sweep.run_sweep`
+   over the ten datasets at their real sizes (six buckets, pop 64, 40
+   generations, the CLI's defaults): batched with `verify_rtl` and the
+   report, then the serial loop, equal array for array; per bucket its
+   dims, K, the search's seconds, one generation's host and device busy
+   time inside a captured chunk, and its launches (batched: one fitness
+   launch and one sort a generation for the bucket, plus the initial
+   population's and the capture's warm-up step's; serial: K times that);
+   the report's mean area reduction beside the paper's 3.2x; every front
+   holds a point no worse than its padded exact design. The batched
+   fitness kernel and the batched sort are held to K single launches and
+   their plain versions at bucket 0's shape (K=5, pool 128) and timed
+   beside their bounds; then a mixed campaign (seeds and vertebral
+   two-tree forests in one bucket, seeds and pendigits MLPs in another,
+   pop 16, 4 generations), batched == serial.
+12. The kernel list, the card's name and power limit, one JSON line of
+   per-kernel results (each row names what it times in `what`; the rows
+   `fitness_errors[bucket]` and `domination_block[bucket]` are the batched
+   launches), and last `{"ok": true, "device": {...}}`.
 
 The search paths run through `run_search`, whose generations are chunks
 of captured CUDA graphs; a launch inside a graph counts at every replay.
@@ -893,8 +909,13 @@ def phase_breakdown(what: str, fitness, state, n_genes: int, device,
     t_surv = host_ms(lambda: nsga2.survivors(pool, pop))
     t_sort = device_ms(lambda: nsga2.non_dominated_sort(pool), 10)
     fronts = int(rank.max()) + 1
+    p2 = pool.shape[0]
+    sort_ops = 3 * 2 * p2 * p2 + peel_ops(rank)
+    sort_bound, sort_by = bound(p2 * 2 * 4 + p2 * 4, sort_ops, FP32_OPS_PER_S)
     sort_text = ("not in the trace" if t_sort is None
                  else f"{t_sort:.4f} ms")
+    sort_text += (f", bound {sort_bound:.6f} ms ({sort_by}; {sort_ops} "
+                  f"compares and popcounts)")
     kernel_text = ("not in the trace" if t_kernel is None
                    else f"{t_kernel:.3f} ms")
     busy_text = ("not in the trace" if busy is None else
@@ -1217,6 +1238,320 @@ def phase_resume(problem, root: str) -> None:
         f"{resumed.n_evaluations} evaluations) == the uninterrupted run, and "
         f"the step-8 saves are equal leaf for leaf (genes, objs, rank, "
         f"crowd, the {rng_bytes}-byte CUDA generator state, generation)")
+
+
+SWEEP_POP, SWEEP_GENS = 64, 40     # the sweep CLI's defaults
+SWEEP_MIXED = dict(datasets=("seeds", "vertebral"), n_trees=2,
+                   mlp_datasets=("seeds", "pendigits"), pop=16, gens=4,
+                   max_buckets=2)   # one forest bucket, one MLP bucket
+
+
+def same_results(a, b) -> bool:
+    """Two `SweepResult`s equal array for array: every problem's final
+    population (genes, objs, rank, crowd) and its pareto front."""
+    if a.results.keys() != b.results.keys():
+        return False
+    return all(same_state(a.results[n].state, b.results[n].state)
+               and np.array_equal(a.results[n].pareto_objs,
+                                  b.results[n].pareto_objs)
+               and np.array_equal(a.results[n].pareto_genes,
+                                  b.results[n].pareto_genes)
+               for n in a.results)
+
+
+def bucket_dims_text(bucket) -> str:
+    keys = ("N", "L", "C", "F", "B") if bucket.family == "tree" else (
+        "H", "C", "F", "B")
+    return ", ".join(f"{k}={v}" for k, v in zip(keys, bucket.dims))
+
+
+def sweep_generation_ms(problems, bucket) -> tuple[float, float | None]:
+    """(host ms, device busy ms) of one generation of ``bucket`` inside a
+    captured chunk of CHUNK generations of the batched sweep (draws
+    included), host clock around synchronised replays, median of 3, and the
+    device's busy time from a profiler trace of 3 replays."""
+    from repro_torch.core import nsga2
+    from repro_torch.families import get_family
+    from repro_torch.search import sweep
+
+    fam = get_family(bucket.family)
+    stacked = sweep.stack_padded([fam.pad_problem(problems[n], bucket.dims)
+                                  for n in bucket.names])
+    n_genes = fam.padded_n_genes(bucket.dims)
+    cfg = nsga2.NSGA2Config(pop_size=SWEEP_POP)
+
+    def fitness(pop):
+        return fam.population_objectives(stacked, pop)
+
+    gens = list(sweep.problem_generators(list(bucket.names), SEED + 3,
+                                         "cuda").values())
+    state = nsga2.make_batched_init(fitness, n_genes, cfg,
+                                    fam.padded_exact_genes(bucket.dims))(
+        gens, torch.device("cuda"))
+    chunk = nsga2.make_batched_chunk(fitness, cfg, CHUNK)
+    chunk(state, gens)                            # capture
+    t = host_ms(lambda: chunk(state, gens)) / CHUNK
+    busy = device_ms(lambda: chunk(state, gens), 3)
+    return t, None if busy is None else busy / CHUNK
+
+
+def padded_exact_objs(problems, bucket, name) -> np.ndarray:
+    """The padded exact design's objectives of problem ``name``."""
+    from repro_torch.families import get_family
+
+    fam = get_family(bucket.family)
+    pp = fam.pad_problem(problems[name], bucket.dims)
+    genes = torch.as_tensor(fam.padded_exact_genes(bucket.dims),
+                            device="cuda")[None]
+    return fam.population_objectives(pp, genes)[0].cpu().numpy()
+
+
+def check_fronts(what: str, sweep_result, problems, buckets) -> None:
+    """Every dataset's front holds a point no worse in both objectives than
+    its padded exact design, and every front is finite (K, 2)."""
+    for bucket in buckets:
+        for name in bucket.names:
+            objs = sweep_result.results[name].pareto_objs
+            exact = padded_exact_objs(problems, bucket, name)
+            check(np.isfinite(objs).all() and objs.ndim == 2
+                  and objs.shape[1] == 2,
+                  f"{what} {name}: the front is not finite (K, 2)")
+            check(bool(((objs[:, 0] <= exact[0])
+                        & (objs[:, 1] <= exact[1])).any()),
+                  f"{what} {name}: no front point matches or dominates the "
+                  f"padded exact design {exact.tolist()}")
+
+
+def phase_sweep_kernels(problems, bucket, rng, counts: dict) -> dict:
+    """The batched fitness kernel and the batched sort at ``bucket``'s shape
+    (bucket 0 of the campaign: K=5, pool 2 x SWEEP_POP) against K single
+    launches and their plain versions, exactly; each timed beside its
+    bound and the K single launches. Returns the kernel-line rows."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import domination, fitness
+    from repro_torch.search import problem_ptrees, sweep
+
+    padded = [sweep.pad_problem(problems[n], bucket.dims)
+              for n in bucket.names]
+    stacked = sweep.stack_padded(padded)
+    k = len(padded)
+    genes = torch.as_tensor(rng.random((k, SWEEP_POP, padded[0].n_genes),
+                                       dtype=np.float32), device="cuda")
+    genes[:, 0] = torch.as_tensor(quant.exact_tree_genes(bucket.dims[0]))
+    shift, t_sub, cap = sweep.padded_fitness_args(stacked, genes)
+    ops = stacked.fit_ops
+    got = fitness.fitness_correct_counts(ops, shift, t_sub, cap)
+    torch.cuda.synchronize()
+    want = fitness.fitness_correct_counts_plain(ops, shift, t_sub, cap)
+    singles = [(p.fit_ops, shift[i].contiguous(), t_sub[i].contiguous(),
+                cap[i].contiguous()) for i, p in enumerate(padded)]
+    one_by_one = torch.stack([fitness.fitness_correct_counts(*a)
+                              for a in singles])
+    err = int((got.long() - want.long()).abs().max())
+    check(err == 0 and torch.equal(got, one_by_one),
+          f"the batched fitness kernel differs from its plain version "
+          f"({err}) or from {k} single launches")
+    for i, name in enumerate(bucket.names):
+        b_real = int(problems[name].y.shape[0])
+        check(int(got[i, 0]) == round(problems[name].exact_accuracy * b_real),
+              f"the batched fitness kernel miscounts {name}'s exact design")
+    ms, plain_ms, text = timed(
+        lambda: fitness.fitness_correct_counts(ops, shift, t_sub, cap),
+        lambda: fitness.fitness_correct_counts_plain(ops, shift, t_sub, cap),
+        "fitness_mma_kernel", reps=20, plain_reps=3)
+    single_ms = device_ms(lambda: [fitness.fitness_correct_counts(*a)
+                                   for a in singles], 20,
+                          "fitness_mma_kernel")
+    n_ops = n_bytes = 0
+    for name in bucket.names:
+        p = problems[name]
+        b_real = int(p.y.shape[0])
+        n_ops += tree_ops(SWEEP_POP, b_real, p.n_comparators, p.n_leaves,
+                          p.n_classes, forest_nl(problem_ptrees(p)))
+        n_bytes += (b_real * p.n_comparators + 2 * SWEEP_POP
+                    * p.n_comparators * 4 + p.n_leaves * p.n_comparators
+                    + 2 * p.n_leaves * 4 + b_real * 4 + 2 * SWEEP_POP * 4)
+    bms, by = bound(n_bytes, n_ops, INT8_OPS_PER_S)
+    single_text = ("not in the trace" if single_ms is None
+                   else f"{single_ms:.4f} ms")
+    log(f"[sweep] batched fitness_errors, bucket of K={k} "
+        f"({bucket_dims_text(bucket)}), P={SWEEP_POP}: equal to its plain "
+        f"version and to {k} single launches; one launch {text}; {k} single "
+        f"launches {single_text} device time; bound {bms:.5f} ms ({by}; "
+        f"{n_ops:.4g} int ops of the real trees, {n_bytes} bytes)")
+    fit_row = dict(name="fitness_errors[bucket]", route="cuda",
+                   source=TPU_KERNELS["fitness_errors"][0],
+                   replaces=TPU_KERNELS["fitness_errors"][1],
+                   launches=counts["fitness_errors"], max_abs_err=float(err),
+                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=None,
+                   what=f"fitness_correct_counts over a stacked bucket: "
+                        f"K={k} problems ({', '.join(bucket.names)}) padded "
+                        f"to ({bucket_dims_text(bucket)}), P={SWEEP_POP}; "
+                        f"launches: the ten-dataset campaign's")
+
+    pool = 2 * SWEEP_POP
+    objs = torch.as_tensor((rng.integers(0, 64, (k, pool, 2)) / 63)
+                           .astype(np.float32), device="cuda")
+    got = sync_free(lambda: domination.non_dominated_rank(objs),
+                    "the batched sort")
+    torch.cuda.synchronize()
+    one_by_one = torch.stack([domination.non_dominated_rank(objs[i])
+                              for i in range(k)])
+    want = domination.non_dominated_rank_plain(objs)
+    err = int((got - want).abs().max())
+    check(err == 0 and torch.equal(got, one_by_one),
+          f"the batched sort differs from the host loop ({err}) or from {k} "
+          f"single sorts")
+    ms_s, plain_s, text = timed(
+        lambda: domination.non_dominated_rank(objs),
+        lambda: domination.non_dominated_rank_plain(objs), None, reps=20,
+        plain_reps=3)
+    single_s = device_ms(lambda: [domination.non_dominated_rank(objs[i])
+                                  for i in range(k)], 20)
+    n_ops = sum(3 * 2 * pool * pool + peel_ops(got[i]) for i in range(k))
+    n_bytes = k * (pool * 2 * 4 + pool * 4)
+    bms, by = bound(n_bytes, n_ops, FP32_OPS_PER_S)
+    fronts = [int(r.max()) + 1 for r in got]
+    single_text = ("not in the trace" if single_s is None
+                   else f"{single_s:.4f} ms")
+    log(f"[sweep] batched sort, K={k} pools of {pool} ({fronts} fronts): "
+        f"ranks equal {k} single sorts and the host loop, 2 launches, no "
+        f"host sync; {text}; {k} single sorts {single_text} device time; "
+        f"bound {bms:.6f} ms ({by}; {n_ops} compares and popcounts)")
+    sort_row = dict(name="domination_block[bucket]", route="cuda",
+                    source=TPU_KERNELS["domination_block"][0],
+                    replaces=TPU_KERNELS["domination_block"][1],
+                    launches=counts["domination_block"],
+                    max_abs_err=float(err), ms=ms_s, plain_ms=plain_s,
+                    bound_ms=bms, bound_by=by, library_ms=None,
+                    what=f"the sort of K={k} random pools of {pool}, M=2: "
+                         f"domination_bits on a (words, K) grid + the peel "
+                         f"on K blocks; launches: the ten-dataset "
+                         f"campaign's, two per sort")
+    return {fit_row["name"]: fit_row, sort_row["name"]: sort_row}
+
+
+def phase_sweep(rng, root: str) -> dict:
+    """`[sweep]`: the paper's campaign over the ten datasets at their real
+    sizes, batched (with --verify-rtl and the report) and serial, equal
+    array for array; per bucket its dims, K, a generation's host and busy
+    ms and its launches; the batched kernels held at bucket 0; then a mixed
+    campaign (trees, forests and MLPs) batched == serial."""
+    from repro_torch import kernels
+    from repro_torch.datasets import DATASET_SPECS
+    from repro_torch.search import sweep
+
+    t_start = time.perf_counter()
+    names = sorted(DATASET_SPECS)
+    problems = sweep.build_problems(names, device="cuda")
+    t_build = time.perf_counter() - t_start
+    buckets = sweep.plan_buckets(problems)
+    log(f"[sweep] {len(names)} datasets trained and built in {t_build:.1f} s "
+        f"(host CART training + problem set-up); {len(buckets)} buckets")
+
+    out_dir = str(pathlib.Path(root) / "campaign")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    batched = sweep.run_sweep(problems, pop_size=SWEEP_POP,
+                              n_generations=SWEEP_GENS, seed=SEED,
+                              out_dir=out_dir, verify_rtl=True)
+    torch.cuda.synchronize()
+    t_batched = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    json_path, _ = sweep.write_sweep_report(
+        batched, problems, out_dir, meta={"datasets": "all", "trees": 1,
+                                          "pop": SWEEP_POP,
+                                          "gens": SWEEP_GENS, "seed": SEED,
+                                          "mode": "vmapped"})
+    t1 = time.perf_counter()
+    serial = sweep.run_sweep(problems, pop_size=SWEEP_POP,
+                             n_generations=SWEEP_GENS, seed=SEED,
+                             vmapped=False)
+    torch.cuda.synchronize()
+    t_serial = time.perf_counter() - t1
+    check(same_results(batched, serial),
+          "the batched ten-dataset campaign differs from the serial loop")
+    check([r.bucket for r in batched.bucket_runs] == buckets,
+          "the campaign's buckets are not the planner's")
+    check_fronts("[sweep]", batched, problems, buckets)
+    n_pts = sum(len(r.pareto_objs) for r in batched.results.values())
+    log(f"[sweep] batched campaign pop={SWEEP_POP} gens={SWEEP_GENS}: "
+        f"{t_batched:.1f} s with verify_rtl over {n_pts} pareto points "
+        f"({batched.n_dispatches} dispatches); serial {t_serial:.1f} s "
+        f"without verify ({serial.n_dispatches} dispatches); batched == "
+        f"serial (genes, objs, rank, crowd, fronts) for all {len(names)}; "
+        f"every front holds a point no worse than its padded exact design")
+    fit_sort = {"fitness_errors": 0, "domination_block": 0}
+    for run, srun in zip(batched.bucket_runs, serial.bucket_runs):
+        b = run.bucket
+        k = len(b.names)
+        # the initial population, the graph capture's warm-up step, then
+        # one fitness launch and one sort (two launches) a generation
+        want_b = {"fitness_errors": 2 + SWEEP_GENS,
+                  "domination_block": 2 * (2 + SWEEP_GENS)}
+        got_b = {n: run.launches.get(n, 0) for n in want_b}
+        got_s = {n: srun.launches.get(n, 0) for n in want_b}
+        check(got_b == want_b,
+              f"bucket {b.names}: batched launches {got_b}, not {want_b}: "
+              f"one fitness launch and one sort a generation (and the "
+              f"initial population's and the warm-up step's)")
+        check(got_s == {n: k * v for n, v in want_b.items()},
+              f"bucket {b.names}: serial launches {got_s}, not K times "
+              f"{want_b}")
+        for n in fit_sort:
+            fit_sort[n] += got_b[n]
+        t_gen, busy = sweep_generation_ms(problems, b)
+        busy_text = ("not in the trace" if busy is None else
+                     f"device busy {busy:.3f} ms, idle share "
+                     f"{1 - busy / t_gen:.3f}")
+        log(f"[sweep] bucket [{b.family}] {', '.join(b.names)}: "
+            f"({bucket_dims_text(b)}), K={k}; search {run.search_s:.3f} s "
+            f"batched / {srun.search_s:.3f} s serial for init + "
+            f"{SWEEP_GENS} generations; one generation in a captured chunk "
+            f"of {CHUNK}: {t_gen:.3f} ms host clock, {busy_text}; launches "
+            f"per run batched {got_b}, serial {got_s}")
+    report = json.load(open(json_path))
+    s = report["summary"]
+    log(f"[sweep] report: mean area reduction at the 1% budget "
+        f"{s['mean_area_reduction_at_budget']}x over {s['n_at_budget']}/"
+        f"{s['n_datasets']} datasets (paper: "
+        f"{s['paper_mean_area_reduction_1pct']}x); mean |accuracy delta| vs "
+        f"Table I {s['mean_abs_accuracy_delta_vs_paper']}")
+    rows = phase_sweep_kernels(problems, buckets[0], rng, fit_sort)
+
+    mixed = sweep.build_problems(SWEEP_MIXED["datasets"],
+                                 n_trees=SWEEP_MIXED["n_trees"],
+                                 mlp_datasets=SWEEP_MIXED["mlp_datasets"],
+                                 device="cuda")
+    kw = dict(pop_size=SWEEP_MIXED["pop"],
+              n_generations=SWEEP_MIXED["gens"], seed=SEED,
+              max_buckets=SWEEP_MIXED["max_buckets"])
+    kernels.reset_launch_counts()
+    mb = sweep.run_sweep(mixed, out_dir=str(pathlib.Path(root) / "mixed"),
+                         verify_rtl=True, **kw)
+    torch.cuda.synchronize()
+    mixed_counts = kernels.launch_counts()
+    ms_ = sweep.run_sweep(mixed, vmapped=False, **kw)
+    torch.cuda.synchronize()
+    check(same_results(mb, ms_),
+          "the batched mixed campaign differs from the serial loop")
+    check_fronts("[sweep mixed]", mb, mixed,
+                 [r.bucket for r in mb.bucket_runs])
+    check(mixed_counts["qmatmul"] > 0 and mixed_counts["fitness_errors"] > 0,
+          f"the mixed campaign did not run both families' kernels: "
+          f"{mixed_counts}")
+    log(f"[sweep] mixed campaign {sorted(mixed)} (--trees "
+        f"{SWEEP_MIXED['n_trees']}, pop {SWEEP_MIXED['pop']}, gens "
+        f"{SWEEP_MIXED['gens']}): buckets "
+        f"{[(r.bucket.family, r.bucket.names) for r in mb.bucket_runs]}; "
+        f"batched == serial; launches {mixed_counts}")
+    for n, v in mixed_counts.items():
+        counts[n] += v
+    log(f"[sweep] launches over both campaigns (batched, verify included): "
+        f"{counts}; phase {time.perf_counter() - t_start:.1f} s, of which "
+        f"{t_build:.1f} s the ten trees' host training")
+    return dict(counts=counts, rows=rows)
 
 
 def attention_pairs(sq: int, skv: int) -> int:
@@ -1568,7 +1903,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_forest_") as out_dir:
         forest_path = phase_forest(rng, out_dir)
     lm_path = phase_lm()
-    for path in (tree_path, *mlp_paths.values(), forest_path, lm_path):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as d:
+        sweep_path = phase_sweep(rng, d)
+    for path in (tree_path, *mlp_paths.values(), forest_path, lm_path,
+                 sweep_path):
         for name, count in path["counts"].items():
             launches[name] += count
     check(all(v > 0 for v in launches.values()),
@@ -1576,6 +1914,9 @@ def main() -> None:
     for name, count in launches.items():
         results[name]["launches"] = count
         results[name]["what"] = TPU_KERNELS[name][2]
+    check(all(row["launches"] > 0 for row in sweep_path["rows"].values()),
+          "a batched kernel never launched in the campaign")
+    results.update(sweep_path["rows"])
 
     from repro_torch.search import make_kernel_fitness
     phase_breakdown(f"tree {DATASET}", make_kernel_fitness(problem),

@@ -20,6 +20,17 @@ Sorts are stable (`jnp.argsort` is), and crowding adds its per-objective
 terms in axis order, so ranks, crowding and survivors equal the reference.
 `make_chunk` runs several generations per call, as one CUDA graph on the
 card, equal to the per-generation loop.
+
+A leading problem axis (the sweep's bucket of K problems, the counterpart
+of the JAX package's `vmap` of the GA): every operator takes states of
+(K, P, ...) as well as (P, ...), gathering along the population axis of
+each problem, and the sort and the fitness kernel take the K pools in one
+launch each. Each problem draws from its own generator into its slice of
+the draws (`draw_step` with a list of generators), so a problem's numbers
+are the ones it draws alone, and a batched run equals the problems run one
+by one. `pow` is rounded once from float64 (`_pow`): the CPU's vectorised
+float32 `pow` and its scalar tail differ in the last bit, which would make
+a float32 result depend on where an element falls in its tensor.
 """
 from __future__ import annotations
 
@@ -35,42 +46,51 @@ _BIG = 1e9
 
 
 def non_dominated_sort(objs: torch.Tensor) -> torch.Tensor:
-    """int32 rank per individual (0 = first/pareto front)."""
+    """int32 rank per individual (0 = first/pareto front); objs (P, M), or
+    (K, P, M) for K pools."""
     return kops.non_dominated_rank(objs)
 
 
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (..., R) of x (..., P, D), per problem: (..., R, D)."""
+    return torch.gather(x, -2, idx[..., None].expand(*idx.shape, x.shape[-1]))
+
+
 def crowding_distance(objs: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
-    """Crowding distance per individual, computed within each front.
+    """Crowding distance per individual, computed within each front; objs
+    (..., P, M), rank (..., P).
 
     Per objective: a stable sort on (rank * 1e9 + value), neighbours within
     the same front, per-front min/max normalisation, +1e9 at the front's
     ends. The per-objective terms are added in axis order, as the
     reference does, so float32 rounding matches it.
     """
-    p, m = objs.shape
+    *lead, p, m = objs.shape
     rank_l = rank.long()
+    dev = objs.device
     dist = None
     for k in range(m):
-        v = objs[:, k]
+        v = objs[..., k]
         key = rank.to(torch.float32) * _BIG + v
-        order = torch.argsort(key, stable=True)
-        v_s = v[order]
-        r_s = rank_l[order]
-        same = r_s[1:] == r_s[:-1]
-        false = torch.zeros((1,), dtype=torch.bool, device=objs.device)
-        prev_ok = torch.cat([false, same])
-        next_ok = torch.cat([same, false])
-        v_prev = torch.cat([v_s[:1], v_s[:-1]])
-        v_next = torch.cat([v_s[1:], v_s[-1:]])
-        fmin = torch.full((p,), float("inf"), device=objs.device).scatter_reduce(
-            0, r_s, v_s, "amin")
-        fmax = torch.full((p,), float("-inf"), device=objs.device).scatter_reduce(
-            0, r_s, v_s, "amax")
-        span = torch.clamp_min((fmax - fmin)[r_s], 1e-12)
+        order = torch.argsort(key, dim=-1, stable=True)
+        v_s = torch.gather(v, -1, order)
+        r_s = torch.gather(rank_l, -1, order)
+        same = r_s[..., 1:] == r_s[..., :-1]
+        false = torch.zeros((*lead, 1), dtype=torch.bool, device=dev)
+        prev_ok = torch.cat([false, same], -1)
+        next_ok = torch.cat([same, false], -1)
+        v_prev = torch.cat([v_s[..., :1], v_s[..., :-1]], -1)
+        v_next = torch.cat([v_s[..., 1:], v_s[..., -1:]], -1)
+        fmin = torch.full((*lead, p), float("inf"), device=dev).scatter_reduce(
+            -1, r_s, v_s, "amin")
+        fmax = torch.full((*lead, p), float("-inf"), device=dev).scatter_reduce(
+            -1, r_s, v_s, "amax")
+        span = torch.clamp_min(torch.gather(fmax - fmin, -1, r_s), 1e-12)
         d = torch.where(prev_ok & next_ok, (v_next - v_prev) / span,
                         float("inf"))
-        contrib = torch.zeros((p,), dtype=torch.float32, device=objs.device)
-        contrib[order] = torch.where(torch.isinf(d), _BIG, d)
+        contrib = torch.zeros((*lead, p), dtype=torch.float32,
+                              device=dev).scatter(
+            -1, order, torch.where(torch.isinf(d), _BIG, d))
         dist = contrib if dist is None else dist + contrib
     return dist
 
@@ -78,20 +98,26 @@ def crowding_distance(objs: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
 def _tournament(rank, crowd, a, b):
     """Binary tournament over drawn index pairs (a, b): lower rank wins;
     tie -> higher crowding wins; tie -> a."""
-    a_wins = (rank[a] < rank[b]) | ((rank[a] == rank[b]) & (crowd[a] >= crowd[b]))
+    ra, rb = torch.gather(rank, -1, a), torch.gather(rank, -1, b)
+    ca, cb = torch.gather(crowd, -1, a), torch.gather(crowd, -1, b)
+    a_wins = (ra < rb) | ((ra == rb) & (ca >= cb))
     return torch.where(a_wins, a, b)
+
+
+def _pow(base: torch.Tensor, exponent: float) -> torch.Tensor:
+    """float32 ``base ** exponent``, computed in float64 and rounded once
+    (the same value wherever the element lies in its tensor)."""
+    return (base.to(torch.float64) ** exponent).to(torch.float32)
 
 
 def _sbx(parents_a, parents_b, u, do_u, swap_u, eta_c, p_cross):
     """Simulated binary crossover on [0,1] genes with drawn uniforms."""
-    beta = torch.where(
-        u <= 0.5,
-        (2.0 * u) ** (1.0 / (eta_c + 1.0)),
-        (1.0 / (2.0 * (1.0 - u))) ** (1.0 / (eta_c + 1.0)),
-    )
+    e = 1.0 / (eta_c + 1.0)
+    beta = torch.where(u <= 0.5, _pow(2.0 * u, e),
+                       _pow(1.0 / (2.0 * (1.0 - u)), e))
     c1 = 0.5 * ((1 + beta) * parents_a + (1 - beta) * parents_b)
     c2 = 0.5 * ((1 - beta) * parents_a + (1 + beta) * parents_b)
-    do = (do_u < p_cross)[:, None]
+    do = (do_u < p_cross)[..., None]
     c1 = torch.where(do, c1, parents_a)
     c2 = torch.where(do, c2, parents_b)
     swap = swap_u < 0.5
@@ -101,11 +127,9 @@ def _sbx(parents_a, parents_b, u, do_u, swap_u, eta_c, p_cross):
 
 
 def _poly_mutation(genes, u, mask_u, eta_m, p_mut):
-    delta = torch.where(
-        u < 0.5,
-        (2.0 * u) ** (1.0 / (eta_m + 1.0)) - 1.0,
-        1.0 - (2.0 * (1.0 - u)) ** (1.0 / (eta_m + 1.0)),
-    )
+    e = 1.0 / (eta_m + 1.0)
+    delta = torch.where(u < 0.5, _pow(2.0 * u, e) - 1.0,
+                        1.0 - _pow(2.0 * (1.0 - u), e))
     mask = mask_u < p_mut
     return torch.clamp(genes + torch.where(mask, delta, 0.0), 0.0, 1.0)
 
@@ -122,32 +146,50 @@ class NSGA2Config:
 
 @dataclasses.dataclass
 class NSGA2State:
-    genes: torch.Tensor   # (P, G) float32
-    objs: torch.Tensor    # (P, M) float32
-    rank: torch.Tensor    # (P,) int32
-    crowd: torch.Tensor   # (P,) float32
+    """One population, or K of them on a leading problem axis."""
+
+    genes: torch.Tensor   # ([K,] P, G) float32
+    objs: torch.Tensor    # ([K,] P, M) float32
+    rank: torch.Tensor    # ([K,] P) int32
+    crowd: torch.Tensor   # ([K,] P) float32
     generation: int
+
+    def member(self, i: int) -> "NSGA2State":
+        """Problem ``i`` of a batched state."""
+        return NSGA2State(self.genes[i], self.objs[i], self.rank[i],
+                          self.crowd[i], self.generation)
 
 
 @dataclasses.dataclass
 class InitDraws:
-    """Random numbers of `init_state`."""
+    """Random numbers of `init_state` (a leading K axis when batched)."""
 
-    genes: torch.Tensor   # (P, G) uniform [0, 1)
-    jitter: torch.Tensor  # (n_seed, G) standard normal
+    genes: torch.Tensor   # ([K,] P, G) uniform [0, 1)
+    jitter: torch.Tensor  # ([K,] n_seed, G) standard normal
 
 
 @dataclasses.dataclass
 class StepDraws:
-    """Random numbers of one `make_step` generation."""
+    """Random numbers of one `make_step` generation (a leading K axis when
+    batched)."""
 
-    tour_a: torch.Tensor    # (P,) int64 in [0, P)
-    tour_b: torch.Tensor    # (P,) int64 in [0, P)
-    sbx_u: torch.Tensor     # (P/2, G) uniform
-    sbx_do: torch.Tensor    # (P/2,) uniform, crossover where < p_crossover
-    sbx_swap: torch.Tensor  # (P/2, G) uniform, swap where < 0.5
-    mut_u: torch.Tensor     # (P, G) uniform
-    mut_mask: torch.Tensor  # (P, G) uniform, mutate where < p_mutation
+    tour_a: torch.Tensor    # ([K,] P) int64 in [0, P)
+    tour_b: torch.Tensor    # ([K,] P) int64 in [0, P)
+    sbx_u: torch.Tensor     # ([K,] P/2, G) uniform
+    sbx_do: torch.Tensor    # ([K,] P/2) uniform, crossover where < p_crossover
+    sbx_swap: torch.Tensor  # ([K,] P/2, G) uniform, swap where < 0.5
+    mut_u: torch.Tensor     # ([K,] P, G) uniform
+    mut_mask: torch.Tensor  # ([K,] P, G) uniform, mutate where < p_mutation
+
+    def member(self, i: int) -> "StepDraws":
+        """Problem ``i``'s draws of batched draws (views)."""
+        return StepDraws(**{f.name: getattr(self, f.name)[i]
+                            for f in dataclasses.fields(StepDraws)})
+
+
+def _batched(generator) -> bool:
+    """True for a sequence of generators, one per problem of a batch."""
+    return isinstance(generator, (list, tuple))
 
 
 def n_seeded(pop_size: int, n_seed_genes: int) -> int:
@@ -155,8 +197,21 @@ def n_seeded(pop_size: int, n_seed_genes: int) -> int:
     return min(pop_size // 2, max(n_seed_genes, pop_size // 8))
 
 
-def draw_init(generator: torch.Generator, pop_size: int, n_genes: int,
-              n_seed_genes: int, device) -> InitDraws:
+def seed_count(seed_genes) -> int:
+    """Rows of ``seed_genes`` (one chromosome or (S, G)); 0 for None."""
+    return 0 if seed_genes is None else np.atleast_2d(
+        np.asarray(seed_genes)).shape[0]
+
+
+def draw_init(generator, pop_size: int, n_genes: int, n_seed_genes: int,
+              device) -> InitDraws:
+    """The initial population's draws from ``generator``; for a list of
+    generators, problem i's from generator i, stacked."""
+    if _batched(generator):
+        draws = [draw_init(g, pop_size, n_genes, n_seed_genes, device)
+                 for g in generator]
+        return InitDraws(genes=torch.stack([d.genes for d in draws]),
+                         jitter=torch.stack([d.jitter for d in draws]))
     n_seed = n_seeded(pop_size, n_seed_genes) if n_seed_genes else 0
     return InitDraws(
         genes=torch.rand((pop_size, n_genes), generator=generator,
@@ -165,15 +220,38 @@ def draw_init(generator: torch.Generator, pop_size: int, n_genes: int,
                            device=device))
 
 
-def draw_step(generator: torch.Generator, pop_size: int, n_genes: int,
-              device, out: StepDraws | None = None) -> StepDraws:
-    """One generation's draws, in a fixed order; with ``out`` they are
-    drawn into its (contiguous) tensors, the same numbers."""
+def _step_shapes(pop_size: int, n_genes: int) -> dict:
     half = pop_size // 2
-    shapes = {"tour_a": (pop_size,), "tour_b": (pop_size,),
-              "sbx_u": (half, n_genes), "sbx_do": (half,),
-              "sbx_swap": (half, n_genes), "mut_u": (pop_size, n_genes),
-              "mut_mask": (pop_size, n_genes)}
+    return {"tour_a": (pop_size,), "tour_b": (pop_size,),
+            "sbx_u": (half, n_genes), "sbx_do": (half,),
+            "sbx_swap": (half, n_genes), "mut_u": (pop_size, n_genes),
+            "mut_mask": (pop_size, n_genes)}
+
+
+def empty_step_draws(lead: tuple, pop_size: int, n_genes: int,
+                     device) -> StepDraws:
+    """Zeroed draw buffers of shape (*lead, ...) each."""
+    return StepDraws(**{
+        name: torch.zeros((*lead, *shape), device=device,
+                          dtype=torch.int64 if name.startswith("tour")
+                          else torch.float32)
+        for name, shape in _step_shapes(pop_size, n_genes).items()})
+
+
+def draw_step(generator, pop_size: int, n_genes: int, device,
+              out: StepDraws | None = None) -> StepDraws:
+    """One generation's draws, in a fixed order; with ``out`` they are
+    drawn into its (contiguous) tensors, the same numbers. For a list of
+    generators, problem i draws from generator i into row i of batched
+    draws, the numbers it draws alone."""
+    if _batched(generator):
+        if out is None:
+            out = empty_step_draws((len(generator),), pop_size, n_genes,
+                                   device)
+        for i, g in enumerate(generator):
+            draw_step(g, pop_size, n_genes, device, out=out.member(i))
+        return out
+    shapes = _step_shapes(pop_size, n_genes)
     drawn = {}
     for name, shape in shapes.items():
         kw = dict(generator=generator, device=device)
@@ -186,9 +264,9 @@ def draw_step(generator: torch.Generator, pop_size: int, n_genes: int,
 
 def init_state(fitness_fn, cfg: NSGA2Config, draws: InitDraws,
                seed_genes=None) -> NSGA2State:
-    """seed_genes (K, G): known-good designs (e.g. the exact bespoke design)
-    injected into the initial population, the first K pristine and the rest
-    jittered copies."""
+    """seed_genes (S, G): known-good designs (e.g. the exact bespoke design)
+    injected into the initial population, the first S pristine and the rest
+    jittered copies; batched draws give every problem the same seeds."""
     genes = draws.genes.clone()
     if seed_genes is not None:
         seeds = torch.as_tensor(np.atleast_2d(np.asarray(seed_genes)),
@@ -197,8 +275,8 @@ def init_state(fitness_fn, cfg: NSGA2Config, draws: InitDraws,
         n_seed = n_seeded(cfg.pop_size, k)
         reps = seeds.repeat((n_seed + k - 1) // k, 1)[:n_seed]
         jitter = draws.jitter * 0.03
-        jitter[:k] = 0.0  # keep pristine seeds
-        genes[:n_seed] = torch.clamp(reps + jitter, 0.0, 1.0)
+        jitter[..., :k, :] = 0.0  # keep pristine seeds
+        genes[..., :n_seed, :] = torch.clamp(reps + jitter, 0.0, 1.0)
     objs = fitness_fn(genes)
     rank = non_dominated_sort(objs)
     crowd = crowding_distance(objs, rank)
@@ -211,7 +289,7 @@ def survivors(pool_objs: torch.Tensor, pop_size: int):
     rank = non_dominated_sort(pool_objs)
     crowd = crowding_distance(pool_objs, rank)
     key = rank.to(torch.float32) * _BIG - torch.clamp_max(crowd, _BIG / 2)
-    keep = torch.argsort(key, stable=True)[:pop_size]
+    keep = torch.argsort(key, dim=-1, stable=True)[..., :pop_size]
     return rank, crowd, keep
 
 
@@ -219,24 +297,27 @@ def make_step(fitness_fn, cfg: NSGA2Config):
     """One (mu+lambda) generation: ``step(state, draws) -> state``."""
 
     def step(state: NSGA2State, draws: StepDraws) -> NSGA2State:
-        p, g = state.genes.shape
+        p, g = state.genes.shape[-2:]
         if p % 2:
             raise ValueError(f"pop_size must be even, got {p}")
         p_mut = cfg.p_mutation if cfg.p_mutation is not None else 1.0 / g
         idx = _tournament(state.rank, state.crowd, draws.tour_a, draws.tour_b)
-        pa, pb = state.genes[idx[0::2]], state.genes[idx[1::2]]
+        pa = _rows(state.genes, idx[..., 0::2])
+        pb = _rows(state.genes, idx[..., 1::2])
         o1, o2 = _sbx(pa, pb, draws.sbx_u, draws.sbx_do, draws.sbx_swap,
                       cfg.eta_crossover, cfg.p_crossover)
-        children = torch.cat([o1, o2], dim=0)[:p]
+        children = torch.cat([o1, o2], dim=-2)[..., :p, :]
         children = _poly_mutation(children, draws.mut_u, draws.mut_mask,
                                   cfg.eta_mutation, p_mut)
         c_objs = fitness_fn(children)
 
-        pool_genes = torch.cat([state.genes, children], dim=0)
-        pool_objs = torch.cat([state.objs, c_objs], dim=0)
+        pool_genes = torch.cat([state.genes, children], dim=-2)
+        pool_objs = torch.cat([state.objs, c_objs], dim=-2)
         rank, crowd, keep = survivors(pool_objs, p)
-        return NSGA2State(pool_genes[keep], pool_objs[keep], rank[keep],
-                          crowd[keep], state.generation + 1)
+        return NSGA2State(_rows(pool_genes, keep), _rows(pool_objs, keep),
+                          torch.gather(rank, -1, keep),
+                          torch.gather(crowd, -1, keep),
+                          state.generation + 1)
 
     return step
 
@@ -255,14 +336,18 @@ def make_chunk(fitness_fn, cfg: NSGA2Config, chunk_len: int):
     eagerly, in generation order, into static buffers that generation g of
     the graph reads, copies the state in and replays. Kernel launch counts
     advance by the graph's launches at every replay
-    (`kernels.add_launches`); `make_chunk.captures` counts the graphs."""
+    (`kernels.add_launches`); `make_chunk.captures` counts the graphs.
+
+    A batched state (K problems) takes a list of K generators, problem i
+    drawing from generator i (`draw_step`); ``fitness_fn`` then maps
+    (K, P, G) genes to (K, P, M) objectives."""
     if chunk_len < 1:
         raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
     step = make_step(fitness_fn, cfg)
     captured = []
 
-    def chunk(state: NSGA2State, generator: torch.Generator) -> NSGA2State:
-        p, g = state.genes.shape
+    def chunk(state: NSGA2State, generator) -> NSGA2State:
+        p, g = state.genes.shape[-2:]
         dev = state.genes.device
         if dev.type != "cuda":
             for _ in range(chunk_len):
@@ -284,23 +369,12 @@ class _GraphChunk:
     """A chunk of generations captured as one CUDA graph (`make_chunk`)."""
 
     def __init__(self, step, chunk_len: int, state: NSGA2State):
-        p, g = state.genes.shape
+        *lead, p, g = state.genes.shape
         dev = state.genes.device
         self.inputs = NSGA2State(*(getattr(state, f).clone()
                                    for f in _STATE_TENSORS), 0)
-        half = p // 2
-
-        def zeros(*shape, dtype=torch.float32):
-            return torch.zeros((chunk_len, *shape), dtype=dtype, device=dev)
-
-        draws = StepDraws(
-            tour_a=zeros(p, dtype=torch.int64),
-            tour_b=zeros(p, dtype=torch.int64), sbx_u=zeros(half, g),
-            sbx_do=zeros(half), sbx_swap=zeros(half, g), mut_u=zeros(p, g),
-            mut_mask=zeros(p, g))
-        self.draws = [StepDraws(**{f.name: getattr(draws, f.name)[i]
-                                   for f in dataclasses.fields(StepDraws)})
-                      for i in range(chunk_len)]
+        draws = empty_step_draws((chunk_len, *lead), p, g, dev)
+        self.draws = [draws.member(i) for i in range(chunk_len)]
         # warm-up on a side stream, as graph capture wants: every kernel is
         # built and its libraries' handles made before the capture
         side = torch.cuda.Stream(dev)
@@ -323,8 +397,8 @@ class _GraphChunk:
         self.launches = kernels.rewind_launches(before)
         make_chunk.captures += 1
 
-    def run(self, state: NSGA2State, generator: torch.Generator) -> NSGA2State:
-        p, g = state.genes.shape
+    def run(self, state: NSGA2State, generator) -> NSGA2State:
+        p, g = state.genes.shape[-2:]
         for d in self.draws:
             draw_step(generator, p, g, state.genes.device, out=d)
         for f in _STATE_TENSORS:
@@ -334,6 +408,31 @@ class _GraphChunk:
         return NSGA2State(*(getattr(self.outputs, f).clone()
                             for f in _STATE_TENSORS),
                           state.generation + len(self.draws))
+
+
+def make_batched_init(fitness_fn, n_genes: int, cfg: NSGA2Config,
+                      seed_genes=None):
+    """`init_state` over a leading problem axis: ``init(generators, device)
+    -> state`` of K problems, problem i drawn from ``generators[i]``, with
+    ``fitness_fn`` mapping (K, P, G) genes to (K, P, M). ``seed_genes`` is
+    shared (the sweep pads a bucket's members to one chromosome length,
+    and the exact design to the same inert encoding). The counterpart of
+    the JAX package's vmapped `init_state`: one fitness launch and one
+    sort for the whole bucket."""
+
+    def init(generators, device) -> NSGA2State:
+        draws = draw_init(list(generators), cfg.pop_size, n_genes,
+                          seed_count(seed_genes), device)
+        return init_state(fitness_fn, cfg, draws, seed_genes=seed_genes)
+
+    return init
+
+
+# The JAX package's name for the chunk over a leading problem axis: here it
+# is `make_chunk` itself, whose ``chunk(state, generators)`` takes a batched
+# state and a list (or tuple) of K generators, problem i drawing from
+# generator i, so each problem equals `make_chunk` run on it alone.
+make_batched_chunk = make_chunk
 
 
 def pareto_front(objs: torch.Tensor, genes: torch.Tensor):

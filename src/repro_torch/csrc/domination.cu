@@ -32,6 +32,10 @@
 //     1300) and read from global memory (L2) beyond; counts and ranks live
 //     in shared memory up to pools of about 29000 and in global memory
 //     beyond, so any pool is sorted.
+// A problem axis: the sweep sorts a bucket's K pools (objs (K, P, M)) in
+// the same two launches, domination_bits_kernel on a (words, K) grid and
+// peel_kernel on K blocks, each block on its own problem's relation,
+// counts and ranks; K pools peel on K SMs at once. One pool is K = 1.
 // What bounds the sort is the chain of fronts, not bytes or operations:
 // a front costs about 0.7 us of latency (its ballots, list, barrier and
 // the dependent loads of the decrement) plus its popcounts, 16 a clock on
@@ -80,11 +84,15 @@ __device__ inline uint32_t dominates2(float2 a, float2 b) {
 }
 
 __global__ void __launch_bounds__(kTileJ * kBitsWarps) domination_bits_kernel(
-    const float* __restrict__ objs,  // (P, M)
-    uint32_t* __restrict__ rel,      // (W, P) dominators of each column
-    int32_t* __restrict__ counts,    // (P,) dominators of each column
+    const float* __restrict__ objs,  // (K, P, M)
+    uint32_t* __restrict__ rel,      // (K, W, P) dominators of each column
+    int32_t* __restrict__ counts,    // (K, P) dominators of each column
     int p, int m, int words) {
   __shared__ int partial[kBitsWarps][kTileJ];
+  const size_t prob = blockIdx.y;   // this block's pool
+  objs += prob * p * m;
+  rel += prob * words * p;
+  counts += prob * p;
   const int j = blockIdx.x * kTileJ + threadIdx.x;
   const bool live = j < p;
   const int jj = live ? j : 0;
@@ -146,12 +154,15 @@ inline size_t peel_smem(int p, int words, bool state, bool rel) {
 // barrier of front r - 1.
 template <bool kStateSmem, bool kRelSmem>
 __global__ void __launch_bounds__(kPeelThreads) peel_kernel(
-    const uint32_t* __restrict__ rel_g,  // (W, P)
-    int32_t* __restrict__ counts_g,      // (P,) consumed
-    int32_t* __restrict__ rank_g,        // (P,) out
+    const uint32_t* __restrict__ rel_g,  // (K, W, P)
+    int32_t* __restrict__ counts_g,      // (K, P) consumed
+    int32_t* __restrict__ rank_g,        // (K, P) out
     int p, int words) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ int n_front[3];
+  const size_t prob = blockIdx.x;   // this block's pool
+  counts_g += prob * p;
+  rank_g += prob * p;
   uint2* fronts = reinterpret_cast<uint2*>(smem);
   uint32_t* next = smem + 4 * static_cast<size_t>(words);
   int32_t* counts = counts_g;
@@ -161,11 +172,18 @@ __global__ void __launch_bounds__(kPeelThreads) peel_kernel(
     rank = counts + p;
     next += 2 * static_cast<size_t>(p);
   }
+  // a front word's row of the relation: in shared memory the pool's own
+  // (w), in global memory the stacked (K W, P) relation's (prob W + w), so
+  // that the decrement loop indexes the kernel's argument itself (a base
+  // held in registers costs that loop two more instructions a load)
   const uint32_t* rel = rel_g;
+  unsigned row0 = static_cast<unsigned>(prob) * words;
   if constexpr (kRelSmem) {
     const size_t n_rel = static_cast<size_t>(words) * p;
-    for (size_t i = threadIdx.x; i < n_rel; i += blockDim.x) next[i] = rel_g[i];
+    const uint32_t* mine = rel_g + prob * n_rel;
+    for (size_t i = threadIdx.x; i < n_rel; i += blockDim.x) next[i] = mine[i];
     rel = next;
+    row0 = 0;
   }
   const int span = words * 32;  // columns rounded up to whole words
   for (int j = threadIdx.x; j < p; j += blockDim.x) {
@@ -197,7 +215,7 @@ __global__ void __launch_bounds__(kPeelThreads) peel_kernel(
       }
       const uint32_t bits = __ballot_sync(0xffffffffu, in);
       if (lane == 0 && bits)
-        front[atomicAdd(n_words, 1)] = make_uint2(j >> 5, bits);
+        front[atomicAdd(n_words, 1)] = make_uint2((j >> 5) + row0, bits);
     }
     if (!__syncthreads_or(left)) break;
     // removing the front drops the dominator count of its dominatees
@@ -232,25 +250,28 @@ extern "C" int repro_domination_block(const void* objs_i, const void* objs_j,
   return cudaGetLastError();
 }
 
-// Launch 1 of the sort: rel (W, P) and counts (P,) of objs (P, M),
-// W = ceil(P / 32).
+// Launch 1 of the sort: rel (K, W, P) and counts (K, P) of objs (K, P, M),
+// W = ceil(P / 32), for K = n_prob pools.
 extern "C" int repro_domination_bits(const void* objs, void* rel, void* counts,
-                                     int p, int m, void* stream) {
-  if (p <= 0 || m <= 0) return cudaErrorInvalidValue;
+                                     int n_prob, int p, int m, void* stream) {
+  if (n_prob <= 0 || n_prob > 65535 || p <= 0 || m <= 0)
+    return cudaErrorInvalidValue;
   const int words = (p + 31) / 32;
   const dim3 block(kTileJ, kBitsWarps);
-  domination_bits_kernel<<<words, block, 0,
+  const dim3 grid(words, n_prob);
+  domination_bits_kernel<<<grid, block, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(objs), static_cast<uint32_t*>(rel),
       static_cast<int32_t*>(counts), p, m, words);
   return cudaGetLastError();
 }
 
-// Launch 2 of the sort: rank (P,) int32 from rel and counts (counts is
-// consumed: for pools too large for shared memory it is the peel's state).
+// Launch 2 of the sort: rank (K, P) int32 from rel and counts, one block a
+// pool (counts is consumed: for pools too large for shared memory it is
+// the peel's state).
 extern "C" int repro_peel_fronts(const void* rel, void* counts, void* rank,
-                                 int p, void* stream) {
-  if (p <= 0) return cudaErrorInvalidValue;
+                                 int n_prob, int p, void* stream) {
+  if (n_prob <= 0 || p <= 0) return cudaErrorInvalidValue;
   const int words = (p + 31) / 32;
   const bool state = peel_smem(p, words, true, false) <= kSmemLimit;
   const bool in_smem = state && peel_smem(p, words, true, true) <= kSmemLimit;
@@ -261,7 +282,7 @@ extern "C" int repro_peel_fronts(const void* rel, void* counts, void* rank,
   cudaError_t err = repro::allow_dynamic_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const int threads = p < kPeelThreads ? (p + 31) / 32 * 32 : kPeelThreads;
-  kernel<<<1, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_prob, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rel), static_cast<int32_t*>(counts),
       static_cast<int32_t*>(rank), p, words);
   return cudaGetLastError();

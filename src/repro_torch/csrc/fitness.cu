@@ -45,6 +45,15 @@
 // deterministic. Every block re-reads its tiles' spans of the path from L2
 // (at most 13 x 512 blocks x 384 KB = 2.56 GB per har call).
 //
+// A problem axis. The sweep stacks a bucket's problems, padded to one
+// shape, on a leading axis of every operand (x_sel (K, B, K_pad), path
+// (K, L_pad, K_pad), spans (K, L_pad / 32, 2), target and leaf_class
+// (K, L_pad), y (K, B), shift and thr (K, P, N), vote_cap and the counts
+// (K, P)); blockIdx.z is the problem, whose block offsets every operand by
+// its problem's stride and is otherwise the single case. One launch scores
+// every chromosome of every problem of the bucket, as the JAX package's
+// vmap of the kernel does with a grid axis. A single problem is K = 1.
+//
 // Any comparator count. A leaf tile needs only the comparators its leaves'
 // paths touch: the span [lo, hi) of its tile (`spans`, multiples of 32,
 // from the nonzero columns of its 32 path rows). A forest's super-tree is
@@ -146,7 +155,8 @@ __global__ void __launch_bounds__(kThreads, 3) fitness_mma_kernel(
     const int32_t* __restrict__ y,           // (B,) labels, -1 never matches
     const int32_t* __restrict__ vote_cap,    // (P,) vote saturation
     int32_t* __restrict__ correct,           // (P,) zeroed by the caller
-    int batch, int n_comp, int k_pad, int l_pad, int n_classes, int kc) {
+    int n_pop, int batch, int n_comp, int k_pad, int l_pad, int n_classes,
+    int kc) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int rs = row_bytes(kc);
   const size_t sb = stage_bytes(kc);
@@ -162,6 +172,18 @@ __global__ void __launch_bounds__(kThreads, 3) fitness_mma_kernel(
   const int p = blockIdx.y;
   const int row0 = blockIdx.x * kRows;
   const int tiles = l_pad / kLeafTile;
+  // this block's problem: every operand at its problem's offset
+  const size_t prob = blockIdx.z;
+  x_sel += prob * batch * k_pad;
+  shift += prob * n_pop * n_comp;
+  thr += prob * n_pop * n_comp;
+  path += prob * l_pad * k_pad;
+  spans += prob * 2 * tiles;
+  target += prob * l_pad;
+  leaf_class += prob * l_pad;
+  y += prob * batch;
+  vote_cap += prob * n_pop;
+  correct += prob * n_pop;
   const int words = plane_words(kc);
   const int32_t* sh = shift + static_cast<size_t>(p) * n_comp;
   const int32_t* th = thr + static_cast<size_t>(p) * n_comp;
@@ -323,42 +345,47 @@ __global__ void __launch_bounds__(kThreads, 3) fitness_mma_kernel(
 cudaError_t launch(const void* x_sel, const void* shift, const void* thr,
                    const void* path, const void* spans, const void* target,
                    const void* leaf_class, const void* y, const void* vote_cap,
-                   void* correct, int n_pop, int batch, int n_comp, int k_pad,
-                   int l_pad, int n_classes, int kc, cudaStream_t stream) {
+                   void* correct, int n_prob, int n_pop, int batch,
+                   int n_comp, int k_pad, int l_pad, int n_classes, int kc,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes(kc, n_classes);
   if (smem > 232448) return cudaErrorInvalidValue;
   cudaError_t err =
       repro::allow_dynamic_smem(fitness_mma_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((batch + kRows - 1) / kRows, n_pop);
+  const dim3 grid((batch + kRows - 1) / kRows, n_pop, n_prob);
   fitness_mma_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(x_sel), static_cast<const int32_t*>(shift),
       static_cast<const int32_t*>(thr), static_cast<const int8_t*>(path),
       static_cast<const int32_t*>(spans), static_cast<const int32_t*>(target),
       static_cast<const int32_t*>(leaf_class), static_cast<const int32_t*>(y),
       static_cast<const int32_t*>(vote_cap), static_cast<int32_t*>(correct),
-      batch, n_comp, k_pad, l_pad, n_classes, kc);
+      n_pop, batch, n_comp, k_pad, l_pad, n_classes, kc);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x_sel (B, K_pad) uint8, path (L_pad, K_pad) int8, K_pad a multiple of 32
-// >= N, L_pad a multiple of 32, spans (L_pad / 32, 2) int32 with each
-// [lo, hi) a non-empty multiple-of-32 range within [0, K_pad) holding every
-// nonzero path column of its tile, kc a multiple of 32 in [32, 1024]; every
-// buffer 16-byte aligned.
+// K = n_prob problems of one shape, each operand stacked on a leading
+// problem axis: x_sel (K, B, K_pad) uint8, path (K, L_pad, K_pad) int8,
+// K_pad a multiple of 32 >= N, L_pad a multiple of 32, spans (K, L_pad /
+// 32, 2) int32 with each [lo, hi) a non-empty multiple-of-32 range within
+// [0, K_pad) holding every nonzero path column of its tile, kc a multiple
+// of 32 in [32, 1024] covering every problem; every buffer 16-byte aligned.
+// A single problem is K = 1.
 extern "C" int repro_fitness_correct_counts(
     const void* x_sel, const void* shift, const void* thr, const void* path,
     const void* spans, const void* target, const void* leaf_class,
-    const void* y, const void* vote_cap, void* correct, int n_pop, int batch,
-    int n_comp, int k_pad, int l_pad, int n_classes, int kc, void* stream) {
-  if (n_pop <= 0 || batch <= 0 || n_pop > 65535 || n_classes <= 0 ||
+    const void* y, const void* vote_cap, void* correct, int n_prob,
+    int n_pop, int batch, int n_comp, int k_pad, int l_pad, int n_classes,
+    int kc, void* stream) {
+  if (n_prob <= 0 || n_prob > 65535 || n_pop <= 0 || batch <= 0 ||
+      n_pop > 65535 || n_classes <= 0 ||
       k_pad % 32 != 0 || k_pad < n_comp || l_pad <= 0 ||
       l_pad % kLeafTile != 0 || kc % 32 != 0 || kc < 32 || kc > kMaxChunk)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return launch(x_sel, shift, thr, path, spans, target, leaf_class, y,
-                vote_cap, correct, n_pop, batch, n_comp, k_pad, l_pad,
+                vote_cap, correct, n_prob, n_pop, batch, n_comp, k_pad, l_pad,
                 n_classes, kc, s);
 }

@@ -1,7 +1,6 @@
 """The printed-MLP family: integer-weight MAC genes on the shared engine.
 
-The counterpart of `repro.families.printed_mlp` (without its sweep
-padding, which comes with the sweep's slice of the port):
+The counterpart of `repro.families.printed_mlp`:
 
   - **Master weights.** A bias-free one-hidden-layer ReLU MLP is trained by
     full-batch gradient descent from initial weights drawn with a
@@ -36,6 +35,13 @@ padding, which comes with the sweep's slice of the port):
   - **Verify triangle.** `write_artifact(verify_rtl=True)` requires, per
     pareto point, netlist simulation (`core.netlist.build_mlp_circuit`) ==
     integer predict (`predict_master`) == the `qmatmul` kernel route.
+  - **Sweep padding** (`pad_problem`, `padded_objectives`): dims (H, C, F,
+    B) rounded up to the bucket's; padded neurons have all-zero weights
+    AND costs for every combo, padded classes are masked out of the argmax
+    by a sentinel, padded samples carry the label -1. The padded
+    objectives follow the JAX package's operand formula (accuracy a float32
+    division by the real row count, area ``units * AREA_QUANTUM_MM2 /
+    exact_area_mm2`` in float32), with one `qmatmul` launch per member.
 """
 from __future__ import annotations
 
@@ -435,6 +441,123 @@ def make_kernel_predict(problem: MLPProblem):
 
 
 # ---------------------------------------------------------------------------
+# sweep padding: dims = (H, C, F, B)
+# ---------------------------------------------------------------------------
+
+_NEG_SENTINEL = -float(1 << 25)   # below any class sum, exact in float32
+
+
+@dataclasses.dataclass
+class PaddedMLP:
+    """An `MLPProblem`'s fitness operands padded to bucket dims (inert
+    padding, see the module doc), or a bucket of them stacked on a leading
+    problem axis (`search.sweep.stack_padded`)."""
+
+    tw1: torch.Tensor             # ([K,] 18, Fp, Hp) int8
+    tw2: torch.Tensor             # ([K,] 18, Hp, Cp) float64
+    cost1: torch.Tensor           # ([K,] 18, Hp) int64 area quanta
+    cost2: torch.Tensor           # ([K,] 18, Cp) int64
+    x8u: torch.Tensor             # ([K,] Bp, Fp) uint8 codes (code buffer)
+    y: torch.Tensor               # ([K,] Bp) int64, -1 on padded rows
+    class_valid: torch.Tensor     # ([K,] Cp) bool
+    n_valid: torch.Tensor         # ([K]) float32 real row count
+    shift_scale: torch.Tensor     # ([K]) float32 2^-shift (exact)
+    exact_accuracy: torch.Tensor  # ([K]) float32
+    exact_area_mm2: torch.Tensor  # ([K]) float32
+
+    @property
+    def stacked(self) -> bool:
+        return self.tw1.dim() == 4
+
+
+def problem_dims(problem: MLPProblem) -> tuple[int, int, int, int]:
+    return (problem.n_hidden, problem.n_classes, problem.n_features,
+            int(problem.x8.shape[0]))
+
+
+def pad_problem(problem: MLPProblem,
+                dims: tuple[int, int, int, int]) -> PaddedMLP:
+    """Zero-pad the decode tables and the test split to bucket dims on the
+    problem's device (padded neurons: zero weights and costs for every
+    combo, so their genes never move an objective bit)."""
+    hp, cp, fp, bp = dims
+    h, c, f, b = problem_dims(problem)
+    if not (hp >= h and cp >= c and fp >= f and bp >= b):
+        raise ValueError(f"padded dims {dims} smaller than problem dims "
+                         f"{(h, c, f, b)}")
+    dev = problem.device
+
+    def zeros(shape, like):
+        return torch.zeros(shape, dtype=like.dtype, device=dev)
+
+    tw1 = zeros((N_COMBOS, fp, hp), problem.tw1)
+    tw1[:, :f, :h] = problem.tw1
+    tw2 = zeros((N_COMBOS, hp, cp), problem.tw2)
+    tw2[:, :h, :c] = problem.tw2
+    cost1 = zeros((N_COMBOS, hp), problem.cost1)
+    cost1[:, :h] = problem.cost1
+    cost2 = zeros((N_COMBOS, cp), problem.cost2)
+    cost2[:, :c] = problem.cost2
+    codes = torch.zeros((bp, fp), dtype=torch.uint8, device=dev)
+    codes[:b, :f] = problem.x8
+    y = torch.full((bp,), -1, dtype=torch.int64, device=dev)
+    y[:b] = problem.y
+    class_valid = torch.zeros((cp,), dtype=torch.bool, device=dev)
+    class_valid[:c] = True
+
+    def f32(v):
+        return torch.full((), float(np.float32(v)), dtype=torch.float32,
+                          device=dev)
+
+    return PaddedMLP(
+        tw1=tw1, tw2=tw2, cost1=cost1, cost2=cost2, x8u=code_buffer(codes),
+        y=y, class_valid=class_valid, n_valid=f32(b),
+        shift_scale=f32(2.0 ** -problem.shift),
+        exact_accuracy=f32(problem.exact_accuracy),
+        exact_area_mm2=f32(problem.exact_area_mm2))
+
+
+def padded_objectives(ops: PaddedMLP, pop: torch.Tensor) -> torch.Tensor:
+    """([K,] P, 2(Hp+Cp)) -> ([K,] P, 2) on padded (stacked) operands: each
+    member's first layer one `qmatmul` launch over its uint8 codes, the
+    rest batched over the bucket, every quantity an exact integer until the
+    JAX package's float32 accuracy division and area scaling."""
+    if not ops.stacked:
+        one = PaddedMLP(**{f.name: getattr(ops, f.name)[None]
+                           for f in dataclasses.fields(PaddedMLP)})
+        return padded_objectives(one, pop[None])[0]
+    from repro_torch.kernels import ops as kops
+
+    dev = pop.device
+    k, p = pop.shape[:2]
+    fp, hp = ops.tw1.shape[-2:]
+    cp = ops.tw2.shape[-1]
+    combos = decode_combos(pop)                       # (K, P, Hp + Cp)
+    kh, ko = combos[..., :hp], combos[..., hp:]
+    ki = torch.arange(k, device=dev)[:, None, None]
+    hi = torch.arange(hp, device=dev)
+    ci = torch.arange(cp, device=dev)
+    w1 = ops.tw1[ki, kh, :, hi].permute(0, 3, 1, 2)   # (K, Fp, P, Hp)
+    w2 = ops.tw2[ki, ko, :, ci].permute(0, 1, 3, 2)   # (K, P, Hp, Cp)
+    units = ops.cost1[ki, kh, hi].sum(-1) + ops.cost2[ki, ko, ci].sum(-1)
+    ones = torch.ones((p * hp,), dtype=torch.float32, device=dev)
+    h = torch.stack([kops.qmatmul(ops.x8u[i], w1[i].reshape(fp, p * hp),
+                                  ones) for i in range(k)])
+    h = h.reshape(k, -1, p, hp)
+    hq = torch.floor(torch.clamp(h, min=0.0) * ops.shift_scale[:, None, None,
+                                                                None])
+    s = torch.einsum("kbph,kphc->kpbc", hq.to(torch.float64), w2)
+    s = torch.where(ops.class_valid[:, None, None, :], s, _NEG_SENTINEL)
+    pred = torch.argmax(s, dim=-1)                    # (K, P, Bp)
+    correct = (pred == ops.y[:, None, :]).sum(-1)
+    acc = correct.to(torch.float32) / ops.n_valid[:, None]
+    quantum = torch.full((), area_mod.AREA_QUANTUM_MM2, dtype=torch.float32,
+                         device=dev)
+    area = units.to(torch.float32) * quantum / ops.exact_area_mm2[:, None]
+    return torch.stack([ops.exact_accuracy[:, None] - acc, area], dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # artifact schema (family-tagged pareto.json) + loader
 # ---------------------------------------------------------------------------
 
@@ -673,6 +796,31 @@ class PrintedMlpFamily(ClassifierFamily):
             return make_kernel_fitness(problem)
         raise ValueError(f"unknown fitness backend {backend!r} for the "
                          f"mlp family")
+
+    def problem_dims(self, problem) -> tuple:
+        return problem_dims(problem)
+
+    def pad_problem(self, problem, dims: tuple):
+        return pad_problem(problem, dims)
+
+    def population_objectives(self, padded, pop):
+        return padded_objectives(padded, pop)
+
+    def padded_n_genes(self, dims: tuple) -> int:
+        return 2 * (dims[0] + dims[1])
+
+    def padded_exact_genes(self, dims: tuple):
+        return exact_genes(dims[0] + dims[1])
+
+    def unpad_genes(self, problem, genes, dims: tuple):
+        hp = dims[0]
+        idx = np.r_[0:2 * problem.n_hidden,
+                    2 * hp:2 * hp + 2 * problem.n_classes]
+        return genes[:, idx]
+
+    def eval_cost(self, dims: tuple) -> float:
+        hp, cp, fp, bp = dims
+        return float(bp) * (fp * hp + hp * cp)
 
     def write_artifact(self, problem, result, out_dir: str, *,
                        emit_rtl: bool = False, verify_rtl: bool = False,

@@ -3,12 +3,15 @@ protocol.
 
 The counterpart of `repro.families.tree`. Every method delegates to the
 port's tree modules (`search.problem`, `search.backends`, `search.engine`,
-`search.artifact`, `runtime.classify`, `core.netlist`) and changes none of
-their behaviour; ``n_trees > 1`` trains a bootstrap forest
-(`core.forest.train_forest`).
+`search.artifact`, `search.sweep`, `runtime.classify`, `core.netlist`)
+and changes none of their behaviour; ``n_trees > 1`` trains a bootstrap
+forest (`core.forest.train_forest`).
 """
 from __future__ import annotations
 
+import numpy as np
+
+from repro_torch.core import quant
 from repro_torch.families.base import ClassifierFamily
 from repro_torch.search.problem import SearchProblem
 
@@ -62,6 +65,36 @@ class TreeFamily(ClassifierFamily):
             return backends.make_kernel_fitness(problem)
         raise ValueError(f"unknown fitness backend {backend!r} for the "
                          f"tree family")
+
+    def problem_dims(self, problem) -> tuple:
+        from repro_torch.search import sweep
+        return sweep.problem_dims(problem)
+
+    def pad_problem(self, problem, dims: tuple):
+        from repro_torch.search import sweep
+        return sweep.pad_problem(problem, dims)
+
+    def population_objectives(self, padded, pop):
+        from repro_torch.search import sweep
+        return sweep.population_objectives(padded, pop)
+
+    def padded_n_genes(self, dims: tuple) -> int:
+        # 3 genes per padded comparator slot + the trailing vote gene
+        return 3 * dims[0] + 1
+
+    def padded_exact_genes(self, dims: tuple):
+        return quant.exact_tree_genes(dims[0])
+
+    def unpad_genes(self, problem, genes, dims: tuple):
+        # the first 3N comparator genes plus the LAST column: the vote gene
+        # sits at 3 * Np in the padded layout but at 3 * N in the real one
+        n_comp_genes = problem.n_genes - 1
+        return np.concatenate([genes[:, :n_comp_genes], genes[:, -1:]],
+                              axis=1)
+
+    def eval_cost(self, dims: tuple) -> float:
+        from repro_torch.search import sweep
+        return sweep._eval_cost(dims)
 
     def write_artifact(self, problem, result, out_dir: str, *,
                        emit_rtl: bool = False, verify_rtl: bool = False,

@@ -17,6 +17,11 @@ bounds and designs are stated:
   `domination_bits` and one peel launch, which peels every front on the card,
   so the sort makes no host round trip.
 
+The sort's two wrappers also take a leading problem axis, objs (K, P, M):
+the sweep sorts a bucket's K pools in the same two launches (one block of
+the peel a pool), as the JAX package's vmap of the kernel adds a grid
+axis; one pool is K = 1.
+
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises. The plain version of the peel is
 the host loop, one device query per front.
@@ -72,9 +77,19 @@ def relation_words(p: int) -> int:
     return -(-p // 32)
 
 
+def _per_pool(fn, objs: torch.Tensor):
+    """``fn`` of each pool of objs (K, P, M), its outputs stacked."""
+    outs = [fn(o) for o in objs]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
 def domination_bits_plain(objs: torch.Tensor):
     """Plain PyTorch version of `domination_bits`: the same bits in the same
     layout."""
+    if objs.dim() == 3:
+        return _per_pool(domination_bits_plain, objs)
     p = objs.shape[0]
     dom = domination_block_plain(objs, objs)
     words = relation_words(p)
@@ -90,20 +105,26 @@ def domination_bits_plain(objs: torch.Tensor):
 def domination_bits(objs: torch.Tensor):
     """(rel, counts) of objs (P, M) float32: rel (W, P) int32 with
     W = `relation_words(P)`, bit k of ``rel[w, j]`` set iff row 32w + k
-    dominates row j; counts (P,) int32 dominators of each row. Counts its
+    dominates row j; counts (P,) int32 dominators of each row. For K pools,
+    objs (K, P, M), rel (K, W, P) and counts (K, P), one launch. Counts its
     kernel launches in ``domination_bits.launches``."""
     if not _build.on_cuda(objs, "domination_bits"):
         return domination_bits_plain(objs)
     dev = objs.device
-    p, m = objs.shape
+    *lead, p, m = objs.shape
+    n_prob = lead[0] if lead else 1
+    if len(lead) > 1 or n_prob > 65535:
+        raise ValueError(f"objs {tuple(objs.shape)}: expected (P, M) or "
+                         f"(K, P, M) with K <= 65535")
     _build.require(objs, "objs", torch.float32, dev)
-    rel = torch.empty((relation_words(p), p), dtype=torch.int32, device=dev)
-    counts = torch.empty((p,), dtype=torch.int32, device=dev)
-    if p == 0 or m == 0:
+    rel = torch.empty((*lead, relation_words(p), p), dtype=torch.int32,
+                      device=dev)
+    counts = torch.empty((*lead, p), dtype=torch.int32, device=dev)
+    if p == 0 or m == 0 or n_prob == 0:
         return rel.zero_(), counts.zero_()
-    fn = _build.function("domination", "repro_domination_bits", 3, 2)
-    rc = fn(_build.ptr(objs), _build.ptr(rel), _build.ptr(counts), p, m,
-            _build.stream(dev))
+    fn = _build.function("domination", "repro_domination_bits", 3, 3)
+    rc = fn(_build.ptr(objs), _build.ptr(rel), _build.ptr(counts), n_prob,
+            p, m, _build.stream(dev))
     _build.check_launch(rc, "domination_bits")
     domination_bits.launches += 1
     return rel, counts
@@ -114,7 +135,10 @@ domination_bits.launches = 0
 
 def non_dominated_rank_plain(objs: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of `non_dominated_rank`: the host loop, which
-    asks the device once per front whether any row is unranked."""
+    asks the device once per front whether any row is unranked (pool by
+    pool for K pools)."""
+    if objs.dim() == 3:
+        return _per_pool(non_dominated_rank_plain, objs)
     dom = domination_block_plain(objs, objs)
     p = dom.shape[0]
     counts = dom.sum(0, dtype=torch.int32)        # how many dominate j
@@ -131,21 +155,23 @@ def non_dominated_rank_plain(objs: torch.Tensor) -> torch.Tensor:
 
 
 def non_dominated_rank(objs: torch.Tensor) -> torch.Tensor:
-    """(P,) int32 rank of each row of objs (P, M) float32, 0 = first front.
-    On the card: `domination_bits`, then one launch that peels every front,
+    """(P,) int32 rank of each row of objs (P, M) float32, 0 = first front;
+    (K, P) for K pools, objs (K, P, M). On the card: `domination_bits`,
+    then one launch that peels every front of every pool (a block a pool),
     and no host sync. Counts the peel's launches in
     ``non_dominated_rank.launches``."""
     if not _build.on_cuda(objs, "non_dominated_rank"):
         return non_dominated_rank_plain(objs)
     dev = objs.device
-    p, m = objs.shape
+    *lead, p, m = objs.shape
+    n_prob = lead[0] if lead else 1
     _build.require(objs, "objs", torch.float32, dev)
-    if p == 0 or m == 0:   # no row dominates another: one front
-        return torch.zeros((p,), dtype=torch.int32, device=dev)
+    if p == 0 or m == 0 or n_prob == 0:   # no row dominates another
+        return torch.zeros((*lead, p), dtype=torch.int32, device=dev)
     rel, counts = domination_bits(objs)
-    rank = torch.empty((p,), dtype=torch.int32, device=dev)
-    fn = _build.function("domination", "repro_peel_fronts", 3, 1)
-    rc = fn(_build.ptr(rel), _build.ptr(counts), _build.ptr(rank), p,
+    rank = torch.empty((*lead, p), dtype=torch.int32, device=dev)
+    fn = _build.function("domination", "repro_peel_fronts", 3, 2)
+    rc = fn(_build.ptr(rel), _build.ptr(counts), _build.ptr(rank), n_prob, p,
             _build.stream(dev))
     _build.check_launch(rc, "non_dominated_rank")
     non_dominated_rank.launches += 1

@@ -20,6 +20,11 @@ kernel is ``x >> (8 - p)`` on integer codes, and ``vote_cap`` is an int32
 (1 for the approximate vote adder, `repro_torch.core.quant.NO_VOTE_CAP` for
 the exact one). On a CPU tensor the wrapper runs the plain PyTorch
 version; on a CUDA tensor it launches the kernel or raises.
+
+A sweep bucket's problems, padded to one shape, stack on a leading problem
+axis (`stack_operands`): shift and thr (K, P, N), vote_cap (K, P), counts
+(K, P), one launch for the whole bucket (the kernel's ``blockIdx.z``). A
+single problem is the same launch with K = 1.
 """
 from __future__ import annotations
 
@@ -82,18 +87,61 @@ class FitnessOperands:
     leaf_class: torch.Tensor  # (L_pad,) int32 in [0, n_classes)
     n_comparators: int        # N
     n_classes: int
-    n_valid: int              # rows with a label >= 0
+    n_valid: int | tuple      # rows with a label >= 0 (per problem, stacked)
     chunk: int                # comparators the kernel holds at a time
 
     @property
     def device(self) -> torch.device:
         return self.path.device
 
+    @property
+    def stacked(self) -> bool:
+        """True for a bucket's operands on a leading problem axis."""
+        return self.path.dim() == 3
+
+    def member(self, i: int) -> "FitnessOperands":
+        """Problem ``i`` of stacked operands, as single-problem operands."""
+        return dataclasses.replace(
+            self, x_sel=self.x_sel[i], y=self.y[i], path=self.path[i],
+            spans=self.spans[i], target=self.target[i],
+            leaf_class=self.leaf_class[i], n_valid=self.n_valid[i])
+
+
+def stack_operands(members) -> FitnessOperands:
+    """One bucket's operands: same-shape single-problem operands (one N,
+    n_classes, B and L_pad) stacked on a leading problem axis, with the
+    widest member's chunk."""
+    members = list(members)
+    first = members[0]
+    for m in members[1:]:
+        if (m.n_comparators != first.n_comparators
+                or m.n_classes != first.n_classes
+                or m.x_sel.shape != first.x_sel.shape
+                or m.path.shape != first.path.shape):
+            raise ValueError("a bucket's operands must share one shape")
+
+    def stack(name):
+        return torch.stack([getattr(m, name) for m in members]).contiguous()
+
+    return FitnessOperands(
+        x_sel=stack("x_sel"), y=stack("y"), path=stack("path"),
+        spans=stack("spans"), target=stack("target"),
+        leaf_class=stack("leaf_class"), n_comparators=first.n_comparators,
+        n_classes=first.n_classes,
+        n_valid=tuple(m.n_valid for m in members),
+        chunk=max(m.chunk for m in members))
+
 
 def fitness_correct_counts_plain(ops: FitnessOperands, shift: torch.Tensor,
                                  thr: torch.Tensor,
                                  vote_cap: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of `fitness_correct_counts`."""
+    """Plain PyTorch version of `fitness_correct_counts`; stacked operands
+    loop over their problems."""
+    if ops.stacked:
+        return torch.stack([
+            fitness_correct_counts_plain(ops.member(i), shift[i], thr[i],
+                                         vote_cap[i])
+            for i in range(ops.path.shape[0])])
     n = ops.n_comparators
     x_sel, path = ops.x_sel[:, :n], ops.path[:, :n]
     counts = []
@@ -113,39 +161,48 @@ def fitness_correct_counts(ops: FitnessOperands, shift: torch.Tensor,
                            thr: torch.Tensor,
                            vote_cap: torch.Tensor) -> torch.Tensor:
     """(P,) int32 correct-sample counts; shift/thr (P, N) int32, vote_cap
-    (P,) int32. Counts its kernel launches in
-    ``fitness_correct_counts.launches``."""
+    (P,) int32. With stacked operands (K problems) shift/thr are (K, P, N),
+    vote_cap (K, P) and the counts (K, P), still one launch. Counts its
+    kernel launches in ``fitness_correct_counts.launches``."""
     if not _build.on_cuda(shift, "fitness_correct_counts"):
         return fitness_correct_counts_plain(ops, shift, thr, vote_cap)
     dev = shift.device
-    n_pop, n = shift.shape
-    batch, k_pad = ops.x_sel.shape
-    l_pad = ops.path.shape[0]
+    lead = ops.path.shape[:-2]          # (K,) stacked, () single
+    n_prob = ops.path.shape[0] if ops.stacked else 1
+    if shift.dim() != len(lead) + 2 or tuple(shift.shape[:-2]) != tuple(lead):
+        raise ValueError(f"shift {tuple(shift.shape)} does not fit operands "
+                         f"of {n_prob} problem(s)")
+    n_pop, n = shift.shape[-2:]
+    batch, k_pad = ops.x_sel.shape[-2:]
+    l_pad = ops.path.shape[-2]
     if n != ops.n_comparators or k_pad != k_padded(n) or l_pad % LEAF_TILE:
         raise ValueError(f"operands for {ops.n_comparators} comparators "
                          f"(K_pad {k_pad}, L_pad {l_pad}) do not fit {n}")
-    _build.require(ops.x_sel, "x_sel", torch.uint8, dev, (batch, k_pad))
-    _build.require(ops.path, "path", torch.int8, dev, (l_pad, k_pad))
+    if n_prob > 65535:
+        raise ValueError(f"{n_prob} problems exceed the grid's 65535")
+    _build.require(ops.x_sel, "x_sel", torch.uint8, dev, (*lead, batch, k_pad))
+    _build.require(ops.path, "path", torch.int8, dev, (*lead, l_pad, k_pad))
     _build.require(ops.spans, "spans", torch.int32, dev,
-                   (l_pad // LEAF_TILE, 2))
+                   (*lead, l_pad // LEAF_TILE, 2))
     if ops.chunk % K_ALIGN or not K_ALIGN <= ops.chunk <= MAX_CHUNK:
         raise ValueError(f"chunk {ops.chunk} is not a multiple of {K_ALIGN} "
                          f"in [{K_ALIGN}, {MAX_CHUNK}]")
     for name in ("target", "leaf_class"):
-        _build.require(getattr(ops, name), name, torch.int32, dev, (l_pad,))
+        _build.require(getattr(ops, name), name, torch.int32, dev,
+                       (*lead, l_pad))
     _build.require(shift, "shift", torch.int32, dev)
-    _build.require(thr, "thr", torch.int32, dev, (n_pop, n))
-    _build.require(vote_cap, "vote_cap", torch.int32, dev, (n_pop,))
-    _build.require(ops.y, "y", torch.int32, dev, (batch,))
-    correct = torch.zeros((n_pop,), dtype=torch.int32, device=dev)
-    if n_pop == 0 or batch == 0:
+    _build.require(thr, "thr", torch.int32, dev, (*lead, n_pop, n))
+    _build.require(vote_cap, "vote_cap", torch.int32, dev, (*lead, n_pop))
+    _build.require(ops.y, "y", torch.int32, dev, (*lead, batch))
+    correct = torch.zeros((*lead, n_pop), dtype=torch.int32, device=dev)
+    if n_pop == 0 or batch == 0 or n_prob == 0:
         return correct
-    fn = _build.function("fitness", "repro_fitness_correct_counts", 10, 7)
+    fn = _build.function("fitness", "repro_fitness_correct_counts", 10, 8)
     rc = fn(_build.ptr(ops.x_sel), _build.ptr(shift), _build.ptr(thr),
             _build.ptr(ops.path), _build.ptr(ops.spans),
             _build.ptr(ops.target), _build.ptr(ops.leaf_class),
             _build.ptr(ops.y), _build.ptr(vote_cap), _build.ptr(correct),
-            n_pop, batch, n, k_pad, l_pad, ops.n_classes, ops.chunk,
+            n_prob, n_pop, batch, n, k_pad, l_pad, ops.n_classes, ops.chunk,
             _build.stream(dev))
     _build.check_launch(rc, "fitness_correct_counts")
     fitness_correct_counts.launches += 1

@@ -36,15 +36,16 @@ ROW_ALIGN = 16  # bytes: rows of a `code_buffer` start on this boundary
 
 
 def code_buffer(codes: torch.Tensor) -> torch.Tensor:
-    """(M, K) uint8 copy of integer ``codes`` (values in 0..255) whose rows
-    start on 16-byte boundaries: a column slice of an (M, K rounded up to
-    16) buffer, which the uint8 kernel reads in 16-byte copies. The
-    padding bytes are never read."""
-    m, k = codes.shape
+    """(..., M, K) uint8 copy of integer ``codes`` (values in 0..255) whose
+    rows start on 16-byte boundaries: a column slice of an (..., M, K
+    rounded up to 16) buffer, which the uint8 kernel reads in 16-byte
+    copies. The padding bytes are never read."""
+    *lead, m, k = codes.shape
     k_pad = max(ROW_ALIGN, -(-k // ROW_ALIGN) * ROW_ALIGN)
-    buf = torch.empty((m, k_pad), dtype=torch.uint8, device=codes.device)
-    buf[:, :k] = codes
-    return buf[:, :k]
+    buf = torch.empty((*lead, m, k_pad), dtype=torch.uint8,
+                      device=codes.device)
+    buf[..., :k] = codes
+    return buf[..., :k]
 
 
 def _scale_vector(scale: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,7 +1,10 @@
 """Design-space search of trees and forests: `SearchProblem`, the
 reference and kernel fitness backends, `run_search` (chunked generations,
-checkpoint/resume) and the `pareto.json` artifact. CLI: ``python -m repro_torch.search --dataset seeds --backend
-kernel`` and ``python -m repro_torch.search serve --pareto OUT/pareto.json``.
+checkpoint/resume), the `pareto.json` artifact and the full-suite campaign
+(`run_sweep`). CLI: ``python -m repro_torch.search --dataset seeds
+--backend kernel``, ``python -m repro_torch.search sweep --datasets all
+--report`` and ``python -m repro_torch.search serve --pareto
+OUT/pareto.json``.
 """
 from repro_torch.search.problem import (
     SearchProblem,
@@ -28,6 +31,16 @@ from repro_torch.search.engine import (
     run_search,
     write_pareto_artifact,
 )
+from repro_torch.search.sweep import (
+    SweepConfig,
+    SweepResult,
+    build_problems,
+    pad_problem,
+    plan_buckets,
+    round_up_pow2,
+    run_sweep,
+    write_sweep_report,
+)
 from repro_torch.search.artifact import (
     ParetoArtifact,
     load_pareto_artifact,
@@ -53,6 +66,14 @@ __all__ = [
     "netlist_area_ratios",
     "run_search",
     "write_pareto_artifact",
+    "SweepConfig",
+    "SweepResult",
+    "build_problems",
+    "pad_problem",
+    "plan_buckets",
+    "round_up_pow2",
+    "run_sweep",
+    "write_sweep_report",
     "ParetoArtifact",
     "load_pareto_artifact",
 ]

@@ -9,6 +9,9 @@
         --dataset seeds --backend kernel --out runs/seeds_mlp
     PYTHONPATH=src python -m repro_torch.search serve \
         --pareto runs/seeds/pareto.json [--verify-netlist] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.search sweep --datasets all \
+        --report [--verify-rtl] [--trees K] [--mlp-datasets seeds,...] \
+        [--serial] [--device cuda]
 
 The run command trains the exact design (a bespoke tree, with `--trees K` a
 bootstrap forest, or with `--family mlp` a printed integer-weight MLP), runs
@@ -19,8 +22,14 @@ accuracy-loss budget, and with --out writes pareto.json plus the Verilog of
 the selected design (`--emit-rtl`: every point's; `--verify-rtl`: simulate
 every point's netlist and require it to equal the tensor program and the
 kernel). `serve` serves a pareto.json point over its dataset's test split
-and requires the served accuracy to reproduce the recorded one. Both take
-``--device`` (default cuda; cpu runs the plain versions of the kernels).
+and requires the served accuracy to reproduce the recorded one. `sweep`
+runs the paper's whole campaign: every dataset's problem padded to its
+bucket's shape, a bucket's problems stacked and advanced together (one
+fitness launch and one sort a generation for the bucket), each dataset's
+pareto.json under OUT/<dataset>/ and, with `--report`, the campaign scored
+against the paper's Tables I/II (OUT/sweep_report.json, OUT/REPORT.md).
+All take ``--device`` (default cuda; cpu runs the plain versions of the
+kernels).
 What the port does not cover yet exits with status 2 and names the
 ROADMAP.md queue item that will port it.
 """
@@ -39,8 +48,12 @@ from repro_torch.datasets import DATASET_SPECS, load_dataset
 NOT_PORTED = {
     "islands": "--backend islands: ROADMAP.md Queue 1 item 12",
     "mesh": "--mesh (multi-device search): ROADMAP.md Queue 1 item 12",
-    "sweep": "the sweep subcommand: ROADMAP.md Queue 1 item 9",
+    "compilation_cache": "--compilation-cache (a persistent compile cache "
+                         "for the multi-device sweep): ROADMAP.md Queue 1 "
+                         "item 12",
     "faults": "the faults subcommand: ROADMAP.md Queue 1 item 11",
+    "fault_report": "sweep --fault-report (the stuck-at robustness "
+                    "campaign): ROADMAP.md Queue 1 item 11",
 }
 
 
@@ -182,10 +195,137 @@ def serve_main(argv=None) -> None:
               f"the gate-level simulation")
 
 
+def sweep_main(argv=None) -> None:
+    """`python -m repro_torch.search sweep`: the batched full-suite
+    campaign."""
+    from repro_torch.search import sweep as sweep_mod
+
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.search sweep")
+    ap.add_argument("--datasets", default="all",
+                    help="comma-separated dataset names, or 'all' for the "
+                         "paper's full 10-dataset suite")
+    ap.add_argument("--trees", type=int, default=1,
+                    help="1 = single bespoke DT per dataset; K>1 = bootstrap "
+                         "forest per dataset (joint chromosome)")
+    ap.add_argument("--mlp-datasets", default="",
+                    help="comma-separated datasets to ALSO search as printed "
+                         "MLPs (campaign keys suffixed _mlp); the bucket "
+                         "planner keeps families in separate buckets")
+    ap.add_argument("--hidden", type=int, default=16,
+                    help="printed-MLP hidden-layer width for --mlp-datasets")
+    ap.add_argument("--pop", type=int, default=64)
+    ap.add_argument("--gens", type=int, default=40)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="runs/sweep",
+                    help="artifact root: per-dataset pareto.json under "
+                         "OUT/<dataset>/, report at OUT/sweep_report.json")
+    ap.add_argument("--max-buckets", type=int,
+                    default=sweep_mod.DEFAULT_MAX_BUCKETS,
+                    help="merge shape buckets down to at most this many "
+                         "batched programs")
+    ap.add_argument("--serial", action="store_true",
+                    help="run the per-problem serial loop (the oracle the "
+                         "batched path is held to)")
+    ap.add_argument("--mesh", default=None,
+                    help="device mesh spec (not ported)")
+    ap.add_argument("--compilation-cache", default=None, metavar="DIR",
+                    help="persistent compilation cache (not ported)")
+    ap.add_argument("--emit-rtl", action="store_true",
+                    help="write every pareto point's Verilog under "
+                         "OUT/<dataset>/rtl/")
+    ap.add_argument("--verify-rtl", action="store_true",
+                    help="netlist-simulate every pareto point of every "
+                         "dataset and require it to equal the tensor "
+                         "program and the kernel")
+    ap.add_argument("--report", action="store_true",
+                    help="score the campaign against paper Tables I/II "
+                         "(OUT/sweep_report.json + OUT/REPORT.md)")
+    ap.add_argument("--fault-report", action="store_true",
+                    help="the stuck-at robustness campaign (not ported)")
+    ap.add_argument("--max-loss", type=float, default=0.01)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "versions of the kernels)")
+    args = ap.parse_args(argv)
+    if args.mesh is not None:
+        _not_ported("mesh")
+    if args.compilation_cache is not None:
+        _not_ported("compilation_cache")
+    if args.fault_report:
+        _not_ported("fault_report")
+
+    names = (sorted(DATASET_SPECS) if args.datasets == "all"
+             else [n.strip() for n in args.datasets.split(",") if n.strip()])
+    mlp_names = [n.strip() for n in args.mlp_datasets.split(",") if n.strip()]
+    unknown = [n for n in names + mlp_names if n not in DATASET_SPECS]
+    if unknown:
+        ap.error(f"unknown datasets: {unknown}; options: "
+                 f"{sorted(DATASET_SPECS)}")
+    device = _device_or_exit(args.device)
+
+    kind = "tree" if args.trees <= 1 else f"forest[{args.trees}]"
+    extra = (f" + {len(mlp_names)} printed-MLP datasets" if mlp_names else "")
+    print(f"== sweep: {len(names)} datasets, {kind} per dataset{extra}, "
+          f"pop={args.pop} gens={args.gens} device={device} ==")
+    problems = sweep_mod.build_problems(names, n_trees=args.trees,
+                                        verbose=True, mlp_datasets=mlp_names,
+                                        n_hidden=args.hidden, device=device)
+    cfg = sweep_mod.SweepConfig(
+        pop_size=args.pop, n_generations=args.gens, seed=args.seed,
+        vmapped=not args.serial, max_buckets=args.max_buckets,
+        out_dir=args.out, emit_rtl=args.emit_rtl, verify_rtl=args.verify_rtl)
+    sweep = sweep_mod.run_sweep(problems, cfg)
+
+    for i, run in enumerate(sweep.bucket_runs):
+        d = run.bucket.dims
+        if run.bucket.family == "tree":
+            dims_s = f"(N={d[0]}, L={d[1]}, C={d[2]}, F={d[3]}, B={d[4]})"
+        else:
+            dims_s = f"(H={d[0]}, C={d[1]}, F={d[2]}, B={d[3]})"
+        print(f"bucket {i}: [{run.bucket.family}] "
+              f"{', '.join(run.bucket.names)} -> padded {dims_s}, "
+              f"{run.n_dispatches} dispatches, {run.wall_s:.1f}s")
+    print(f"campaign: {sweep.n_dispatches} dispatches over "
+          f"{len(sweep.bucket_runs)} buckets (serial per-dataset baseline: "
+          f"{sweep.serial_baseline_dispatches()}), wall {sweep.wall_s:.1f}s")
+
+    for name in sorted(sweep.results):
+        result = sweep.results[name]
+        problem = problems[name]
+        best = result.best_under_loss(args.max_loss)
+        if best is None:
+            line = f"no design within {args.max_loss:.0%} loss"
+        else:
+            o, _ = best
+            a_mm2 = float(o[1]) * problem.exact_area_mm2
+            line = (f"@<={args.max_loss:.0%} loss: "
+                    f"{1 / max(float(o[1]), 1e-9):.2f}x smaller, "
+                    f"{a_mm2:.1f}mm^2, {area.power_mw(a_mm2):.2f}mW")
+        print(f"  {name}: exact_acc={problem.exact_accuracy:.3f} "
+              f"pareto={len(result.pareto_objs)} pts; {line}")
+    if args.verify_rtl:
+        n_pts = sum(len(r.pareto_objs) for r in sweep.results.values())
+        print(f"RTL verified: {n_pts} pareto points across {len(problems)} "
+              f"problems (netlist sim == tensor predict == kernel route)")
+    if args.report:
+        meta = {"datasets": args.datasets, "trees": args.trees,
+                "pop": args.pop, "gens": args.gens, "seed": args.seed,
+                "mode": "serial" if args.serial else "vmapped"}
+        if mlp_names:
+            meta["mlp_datasets"] = args.mlp_datasets
+            meta["hidden"] = args.hidden
+        json_path, md_path = sweep_mod.write_sweep_report(
+            sweep, problems, args.out, meta=meta, max_loss=args.max_loss)
+        print(f"report: {json_path} + {md_path}")
+    print(f"artifacts: {args.out}/<dataset>/pareto.json")
+
+
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in ("sweep", "faults"):
+    if argv and argv[0] == "faults":
         _not_ported(argv[0])
+    if argv and argv[0] == "sweep":
+        return sweep_main(argv[1:])
     if argv and argv[0] == "serve":
         return serve_main(argv[1:])
     ap = argparse.ArgumentParser(prog="python -m repro_torch.search")

@@ -201,6 +201,76 @@ def test_fitness_layout_matches_the_cuda_source():
             == t_fit.BLOCK_ROWS)
     # no comparator cap: the kernel walks each tile's span in chunks
     assert t_fit.k_padded(2049) == 2080 and t_fit.k_padded(40000) == 40000
+    # the C entry point's arguments, in the order the wrapper passes them:
+    # ten pointers, then the problem count and seven sizes, then the stream
+    sig = re.search(r'extern "C" int repro_fitness_correct_counts\((.*?)\)',
+                    src, re.S)
+    assert sig is not None
+    args = [a.split()[-1].lstrip("*") for a in sig.group(1).split(",")]
+    assert args == ["x_sel", "shift", "thr", "path", "spans", "target",
+                    "leaf_class", "y", "vote_cap", "correct", "n_prob",
+                    "n_pop", "batch", "n_comp", "k_pad", "l_pad",
+                    "n_classes", "kc", "stream"]
+    assert "n_prob > 65535" in src and "blockIdx.z" in src
+    wrapper = (_build.CSRC.parent / "kernels" / "fitness.py").read_text()
+    assert ('_build.function("fitness", "repro_fitness_correct_counts", '
+            '10, 8)') in wrapper
+
+
+@pytest.mark.parametrize("widths", [((20, 21), (33, 34), (5, 6)),
+                                    ((70, 71), (70, 71))])
+def test_stacked_fitness_operands_layout(widths):
+    """A bucket's operands: each member padded to the shared shape keeps
+    its own spans, the stack shares the widest member's chunk, a member
+    reads back as its single-problem operands, and the plain counts of the
+    stack equal each member's alone."""
+    n = max(w[0] for w in widths) + 3        # one padded comparator count
+    l = max(w[1] for w in widths) + 1
+    singles, cases = [], []
+    for seed, (n_i, l_i) in enumerate(widths):
+        case = _random_case(seed, 4, 50, n_i, l_i, 3, n_features=n + 3)
+        path = np.zeros((l, n), np.int8)
+        path[:l_i, :n_i] = case["path"]
+        target = np.full(l, 1, np.int32)     # padded leaves never satisfy
+        target[:l_i] = case["target"]
+        cls = np.zeros(l, np.int32)
+        cls[:l_i] = case["leaf_class"]
+        feature = np.zeros(n, np.int32)
+        feature[:n_i] = case["feature"]
+        singles.append(t_ops.prepare_fitness_operands(
+            torch.as_tensor(case["x8"][:, feature]), case["y"], path, target,
+            np.zeros(l, np.int32), cls, 3))
+        cases.append(case)
+    stacked = t_fit.stack_operands(singles)
+    k = len(widths)
+    assert stacked.stacked and stacked.x_sel.shape == (k, 50, t_fit.k_padded(n))
+    assert stacked.path.shape[0] == k and stacked.spans.shape[0] == k
+    assert stacked.chunk == max(m.chunk for m in singles)
+    assert stacked.n_valid == tuple(m.n_valid for m in singles)
+    for i, single in enumerate(singles):
+        member = stacked.member(i)
+        for f in ("x_sel", "y", "path", "spans", "target", "leaf_class"):
+            assert torch.equal(getattr(member, f), getattr(single, f)), f
+        # a member's spans cover only its own comparators
+        assert int(single.spans[:, 1].max()) <= t_fit.k_padded(widths[i][0])
+    shift = torch.stack([torch.as_tensor(
+        np.pad(8 - c["bits"], ((0, 0), (0, n - c["bits"].shape[1])),
+               constant_values=8)) for c in cases]).to(torch.int32)
+    thr = torch.stack([torch.as_tensor(
+        np.pad(c["thr"], ((0, 0), (0, n - c["thr"].shape[1])))) for c in cases]
+    ).to(torch.int32)
+    cap = torch.stack([torch.as_tensor(np.where(
+        c["approx"], 1, t_quant.NO_VOTE_CAP).astype(np.int32)) for c in cases])
+    both = t_fit.fitness_correct_counts(stacked, shift, thr, cap)
+    assert both.shape == (k, 4)
+    for i, single in enumerate(singles):
+        assert torch.equal(both[i], t_fit.fitness_correct_counts_plain(
+            single, shift[i], thr[i], cap[i]))
+    with pytest.raises(ValueError, match="one shape"):
+        t_fit.stack_operands([singles[0], t_ops.prepare_fitness_operands(
+            torch.zeros((50, 4), dtype=torch.int32), np.zeros(50),
+            np.zeros((3, 4), np.int8), np.ones(3), np.zeros(3), np.zeros(3),
+            3)])
 
 
 @pytest.mark.parametrize("seed,pi,pj,m", [(0, 40, 40, 2), (1, 17, 53, 2),
