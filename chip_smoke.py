@@ -99,7 +99,27 @@ Phases, each of which stops the script with a non-zero exit on failure:
    beside their bounds; then a mixed campaign (seeds and vertebral
    two-tree forests in one bucket, seeds and pendigits MLPs in another,
    pop 16, 4 generations), batched == serial.
-12. The kernel list, the card's name and power limit, one JSON line of
+12. `[faults]`: the stuck-at campaign (`core.faults`, `search.robustness`,
+   plain PyTorch on the card). The har tree's best point over all 3090
+   test rows: its zero-fault lane == `netlist.simulate` == the argmax of
+   `tree_infer_scores`' votes (`ops.classify`, the `--verify-rtl` leg);
+   16 single-fault lanes spread over the campaign == the numpy oracle
+   `simulate_faulty_serial`; the exhaustive single stuck-at campaign at
+   the default chunk and at `--chunk 64`, equal, each with its lanes,
+   chunks, wall s and device busy s (busy and idle share from a profiled
+   window of its first chunks). The pendigits MLP's best point the same
+   way (its zero-fault lane == the `qmatmul` server) at chunk 256, its
+   default chunk reckoned from a window; every campaign run holds its
+   rows at the 16 spread lanes to the oracle. The har forest's
+   campaign reckoned, not run. Point reports on the card == the CPU's,
+   floats included, for a seeds tree and a vertebral three-tree forest
+   under both vote adders, and their Monte-Carlo draws reproduce under a
+   seed. Then `sweep --fault-report` (with `--verify-rtl` and `--report`)
+   on the mixed campaign: a robustness row per dataset in the report, and
+   each `fault_report.json` == the CPU's but the pendigits MLP's. Its
+   launches alone are the phase's count: the checks above launch kernels
+   too, outside that window.
+13. The kernel list, the card's name and power limit, one JSON line of
    per-kernel results (each row names what it times in `what`; the rows
    `fitness_errors[bucket]` and `domination_block[bucket]` are the batched
    launches), and last `{"ok": true, "device": {...}}`.
@@ -609,6 +629,15 @@ def serve_latency(server, codes, oracle, what: str) -> dict:
     return latency, served
 
 
+def best_point(art) -> int:
+    """The served point: smallest area within 1% loss, else least loss."""
+    idx = art.best_under_loss(0.01)
+    if idx is None:
+        idx = min(range(len(art.points)),
+                  key=lambda i: art.points[i]["acc_loss"])
+    return idx
+
+
 def phase_main_path(problem, out_dir: str) -> dict:
     """The tree path: search -> pareto.json (netlists verified) -> serve,
     counted."""
@@ -650,10 +679,7 @@ def phase_main_path(problem, out_dir: str) -> dict:
     check(art.payload["rtl_verified"] and all(
         p.get("verified") for p in art.points),
         "pareto.json does not record every point as verified")
-    idx = art.best_under_loss(0.01)
-    if idx is None:
-        idx = min(range(len(art.points)),
-                  key=lambda i: art.points[i]["acc_loss"])
+    idx = best_point(art)
     server = ClassifyServer.from_artifact(art, point=idx, backend="kernel",
                                           device=problem.device)
     bits, t_int, trunc, vote_adder = art.point_design(idx)
@@ -677,7 +703,7 @@ def phase_main_path(problem, out_dir: str) -> dict:
         f"== recorded; latency ms {json.dumps({k: round(v, 3) for k, v in latency.items()})}; "
         f"buckets {server.compiled_buckets()}")
     log(f"[main] launches over search + serve: {counts}")
-    return dict(counts=counts, state=result.state)
+    return dict(counts=counts, state=result.state, art=art)
 
 
 def phase_qmatmul(problem, rng) -> dict:
@@ -825,10 +851,7 @@ def phase_mlp_path(problem, dataset: str, pop: int, out_dir: str) -> dict:
     check(art.family == "mlp" and art.payload["rtl_verified"] and all(
         p.get("verified") for p in art.points),
         "pareto.json does not record every point as verified")
-    idx = art.best_under_loss(0.01)
-    if idx is None:
-        idx = min(range(len(art.points)),
-                  key=lambda i: art.points[i]["acc_loss"])
+    idx = best_point(art)
     server = ClassifyServer.from_artifact(art, point=idx, backend="kernel",
                                           device=problem.device)
     w1, w2 = art.point_design(idx)
@@ -866,7 +889,7 @@ def phase_mlp_path(problem, dataset: str, pop: int, out_dir: str) -> dict:
           "reference fitness on the final population")
     log(f"{tag} kernel fitness == reference fitness on the final "
         f"population ({genes.shape[0]} chromosomes)")
-    return dict(counts=counts, state=result.state)
+    return dict(counts=counts, state=result.state, art=art)
 
 
 def phase_breakdown(what: str, fitness, state, n_genes: int, device,
@@ -1095,10 +1118,7 @@ def phase_forest(rng, out_dir: str, device="cuda") -> dict:
         f"[{objs[:, 1].min():.4f}, {objs[:, 1].max():.4f}]; every point's "
         f"netlist == predict_votes == tree_infer_scores over "
         f"{problem.x8.shape[0]} rows")
-    idx = art.best_under_loss(0.01)
-    if idx is None:
-        idx = min(range(len(art.points)),
-                  key=lambda i: art.points[i]["acc_loss"])
+    idx = best_point(art)
     server = ClassifyServer.from_artifact(art, point=idx, backend="kernel",
                                           device=device)
     bits, t_int, trunc, vote_adder = art.point_design(idx)
@@ -1122,7 +1142,7 @@ def phase_forest(rng, out_dir: str, device="cuda") -> dict:
         f"== recorded; latency ms "
         f"{json.dumps({k: round(v, 3) for k, v in latency.items()})}")
     log(f"[forest] launches over search + serve: {counts}")
-    return dict(counts=counts)
+    return dict(counts=counts, art=art)
 
 
 def eager_run(problem, fitness, pop: int, gens: int, seed: int):
@@ -1554,6 +1574,322 @@ def phase_sweep(rng, root: str) -> dict:
     return dict(counts=counts, rows=rows)
 
 
+FAULT_SPREAD = 16       # [faults]: single-fault lanes held to the numpy oracle
+FAULT_CHUNK = 64        # [faults]: the har campaign's second run, --chunk 64
+FAULT_WIDE_CHUNK = 256  # MAX_CHUNK: the MLP campaigns (default: 8 lanes)
+FAULT_WINDOW_MS = 50    # device ms of the smaller traced window, at least
+FAULT_TRACE = 25000     # kernels in the smaller traced window, at most
+
+
+def fault_window(timer, sim, x8, gates, values, chunk: int, k: int):
+    """``(ms per chunk, k, ms of k chunks, ms of 2k)`` of ``chunk`` lanes by
+    ``timer(fn) -> ms``: the difference between a campaign's first 2k
+    chunks and its first k, which cancels each run's set-up and graph
+    capture."""
+    k = max(1, min(k, len(gates) // (2 * chunk)))
+    big = timer(fault_run(sim, x8, gates, values, chunk, 2 * k))
+    small = timer(fault_run(sim, x8, gates, values, chunk, k))
+    return (big - small) / k, k, small, big
+
+
+def busy_ms(fn) -> float:
+    """Device time of one call of ``fn``: the summed device activities of a
+    `torch.profiler` trace of the device alone (a deep circuit's chunk is
+    thousands of kernels, and host events double the trace's parse time),
+    with no warm-up call: `fault_window` differences two such calls."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def fault_run(sim, x8, gates, values, chunk: int, n: int):
+    """A call of the campaign's first ``n`` chunks of ``chunk`` lanes."""
+    return lambda: sim.run_sites(x8, gates[:n * chunk], values[:n * chunk],
+                                 chunk=chunk)
+
+
+def fault_campaign(what: str, sim, x8, gates, values, chunk, run=True):
+    """The exhaustive single stuck-at campaign over ``gates``/``values`` at
+    ``chunk`` (None: the default, `packed_chunk`): its predictions and
+    wall s, with its lanes, chunks, and device busy s scaled from a traced
+    window (`busy_ms`). With ``run=False`` it is
+    reckoned instead, not run: chunks x the larger of a chunk's busy time
+    and its host time (median host clock over a window of ~100 ms)."""
+    from repro_torch.core import faults, netlist
+
+    per = chunk or faults.packed_chunk(sim.circuit, x8.shape[0])
+    per = max(1, min(per, len(gates)))
+    n_chunks = -(-len(gates) // per)
+    # the smaller window holds >= FAULT_WINDOW_MS of device time and, at ~9
+    # kernels a logic level a chunk, <= FAULT_TRACE kernels; the pilot, a
+    # one-chunk run, is its capture's warm-up chunk and one replay
+    pilot = busy_ms(fault_run(sim, x8, gates, values, per, 1)) / 2
+    kernels = 9 * len(netlist.level_gates(sim.circuit)[1])
+    busy, k, small, big = fault_window(
+        busy_ms, sim, x8, gates, values, per,
+        min(int(np.ceil(FAULT_WINDOW_MS / pilot)),
+            max(1, FAULT_TRACE // kernels)))
+    busy_s = busy * n_chunks / 1e3
+    head = (f"[faults] {what}: {len(gates)} lanes over {x8.shape[0]} rows, "
+            f"G={sim.circuit.n_gates}, chunk {per} "
+            f"({'default' if chunk is None else '--chunk'}): {n_chunks} "
+            f"chunks")
+    tail = (f"a chunk {busy:.3f} ms busy (traced runs of {k} and {2 * k} "
+            f"chunks, {small:.1f} and {big:.1f} ms busy)")
+    if not run:
+        host, kh, _, _ = fault_window(host_ms, sim, x8, gates, values, per,
+                                      int(np.ceil(100 / max(busy, 0.1))))
+        log(f"{head}, NOT RUN: reckoned {max(busy, host) * n_chunks / 1e3:.1f}"
+            f" s, device busy {busy_s:.1f} s; {tail}, {host:.3f} ms on the "
+            f"host clock (runs of {kh} and {2 * kh})")
+        return None, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds = sim.run_sites(x8, gates, values, chunk=chunk)
+    wall = time.perf_counter() - t0
+    log(f"{head}, wall {wall:.2f} s, device busy {busy_s:.2f} s, idle share "
+        f"{1 - busy_s / wall:.3f}; {tail}")
+    return preds, wall
+
+
+def fault_spread(what: str, sim, x8, gates, values):
+    """FAULT_SPREAD single-fault lanes spread over the campaign, run alone
+    at the default chunk, against the numpy per-gate oracle: ``(lanes,
+    oracle rows)``, which `check_lanes` holds each campaign's rows to."""
+    from repro_torch.core import faults
+
+    sel = np.unique(np.linspace(0, len(gates) - 1, FAULT_SPREAD).astype(int))
+    want = np.stack([faults.simulate_faulty_serial(
+        sim.circuit, x8, [(gates[lane], values[lane])]) for lane in sel])
+    check_lanes(what, sim.run_sites(x8, gates[sel], values[sel]), want, sel,
+                gates, values)
+    log(f"[faults] {what}: {len(sel)} single-fault lanes spread over the "
+        f"{len(gates)} == simulate_faulty_serial")
+    return sel, want
+
+
+def check_lanes(what: str, got, want, sel, gates, values) -> None:
+    """``got`` (a row for each lane of ``sel``) == the oracle's ``want``."""
+    for lane, g, w in zip(sel, got, want):
+        check(np.array_equal(g, w),
+              f"{what}: fault lane {lane} (gate {gates[lane]} stuck-at-"
+              f"{values[lane]}) differs from the numpy oracle on "
+              f"{int((g != w).sum())} rows")
+
+
+def phase_faults(tree_art, mlp_art, forest_art, root: str) -> dict:
+    """`[faults]`: the stuck-at campaign on the card. The har tree's best
+    point over its whole test split: zero-fault lane == `netlist.simulate`
+    == the `tree_infer_scores` leg (`ops.classify`), a spread of lanes ==
+    the numpy oracle, the exhaustive campaign at the default chunk and at
+    --chunk 64 (equal, and equal to the oracle at the spread lanes); the
+    pendigits MLP's best point the same way (its zero-fault lane == the
+    `qmatmul` server), at chunk 256 (equal to the oracle at the spread
+    lanes), its default chunk reckoned; the har forest's campaign reckoned
+    from a window, not run; the card's reports == the CPU's on a seeds
+    tree and a vertebral three-tree forest under both vote adders,
+    Monte-Carlo draws reproducible; then `sweep --fault-report` on the
+    mixed campaign, a robustness row per dataset, each report == the
+    CPU's. The phase's launch count is that sweep's alone."""
+    from repro_torch import kernels
+    from repro_torch.core import faults, netlist, quant
+    from repro_torch.core.forest import train_forest
+    from repro_torch.core.train import train_tree
+    from repro_torch.core.tree import concatenate_ptrees, to_parallel
+    from repro_torch.datasets import load_dataset, quantize_u8
+    from repro_torch.families import get_family
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime.classify import ClassifyServer
+    from repro_torch.search import load_pareto_artifact, robustness
+    from repro_torch.search.__main__ import sweep_main
+
+    t_start = time.perf_counter()
+    marks = {}
+
+    # the har tree's best point, every row of the test split
+    ds = load_dataset(DATASET)
+    x8 = quantize_u8(ds.x_test)
+    x8_t = torch.as_tensor(x8, dtype=torch.int32, device="cuda")
+    idx = best_point(tree_art)
+    circuit = get_family("tree").build_point_circuit(tree_art, idx)
+    sim = faults.FaultSimulator(circuit, device="cuda")
+    zero = sim.run_zero_fault(x8)
+    simulated = netlist.simulate(circuit, x8_t).cpu().numpy()
+    bits, t_int, trunc, vote_adder = tree_art.point_design(idx)
+    arrays = concatenate_ptrees(tree_art.ptrees())
+    operands = kops.prepare_operands(
+        arrays["feature"], arrays["path"], arrays["path_len"],
+        arrays["n_neg"], arrays["leaf_class"], tree_art.n_classes,
+        x8.shape[1], device="cuda")
+    design = kops.prepare_design(bits, t_int, trunc=trunc,
+                                 vote_adder=vote_adder, device="cuda")
+    voted = kops.classify(x8_t, operands, design).cpu().numpy()
+    check(np.array_equal(zero, simulated) and np.array_equal(zero, voted),
+          f"har tree point {idx}: the zero-fault lane, netlist.simulate and "
+          f"tree_infer_scores differ on "
+          f"{int((zero != simulated).sum())} / {int((zero != voted).sum())} "
+          f"rows")
+    log(f"[faults] har tree point {idx} (G={circuit.n_gates}, "
+        f"{len(netlist.level_gates(circuit)[1])} levels): zero-fault lane == "
+        f"netlist.simulate == tree_infer_scores over {x8.shape[0]} rows")
+    gates, values = faults.single_fault_lanes(circuit)
+    sel, want = fault_spread("har tree", sim, x8, gates, values)
+    marks["har tree checks"] = time.perf_counter()
+    auto, t_auto = fault_campaign("har tree", sim, x8, gates, values, None)
+    check_lanes("har tree, default chunk", auto[sel], want, sel, gates,
+                values)
+    at64, t_64 = fault_campaign("har tree", sim, x8, gates, values,
+                                FAULT_CHUNK)
+    check(np.array_equal(auto, at64),
+          "the har campaign at --chunk 64 differs from the default chunk")
+    accs = (auto == ds.y_test[None, :]).mean(axis=1)
+    log(f"[faults] har tree: default chunk == --chunk {FAULT_CHUNK}; "
+        f"baseline {(zero == ds.y_test).mean():.4f}, single-fault mean "
+        f"{accs.mean():.4f} / worst {accs.min():.4f}")
+    marks["har tree campaigns"] = time.perf_counter()
+
+    # the pendigits MLP's best point
+    name = MLP_RUNS[1][0]
+    mds = load_dataset(name)
+    mx8 = quantize_u8(mds.x_test)
+    idx = best_point(mlp_art)
+    circuit = get_family("mlp").build_point_circuit(mlp_art, idx)
+    sim = faults.FaultSimulator(circuit, device="cuda")
+    zero = sim.run_zero_fault(mx8)
+    simulated = netlist.simulate(
+        circuit, torch.as_tensor(mx8, device="cuda")).cpu().numpy()
+    served = ClassifyServer.from_artifact(
+        mlp_art, point=idx, backend="kernel", device="cuda").classify_codes(
+        mx8)
+    check(np.array_equal(zero, simulated) and np.array_equal(zero, served),
+          f"{name} mlp point {idx}: the zero-fault lane, netlist.simulate "
+          f"and the qmatmul server differ")
+    log(f"[faults] {name} mlp point {idx} (G={circuit.n_gates}, "
+        f"{len(netlist.level_gates(circuit)[1])} levels): zero-fault lane "
+        f"== netlist.simulate == qmatmul server over {mx8.shape[0]} rows")
+    gates, values = faults.single_fault_lanes(circuit)
+    sel, want = fault_spread(f"{name} mlp", sim, mx8, gates, values)
+    marks[f"{name} mlp checks"] = time.perf_counter()
+    fault_campaign(f"{name} mlp", sim, mx8, gates, values, None, run=False)
+    marks[f"{name} mlp reckoned"] = time.perf_counter()
+    wide, t_mlp = fault_campaign(f"{name} mlp", sim, mx8, gates, values,
+                                 FAULT_WIDE_CHUNK)
+    check_lanes(f"{name} mlp, chunk {FAULT_WIDE_CHUNK}", wide[sel], want,
+                sel, gates, values)
+    log(f"[faults] {name} mlp: the campaign at chunk {FAULT_WIDE_CHUNK} == "
+        f"simulate_faulty_serial at the {len(sel)} spread lanes")
+    marks[f"{name} mlp campaign"] = time.perf_counter()
+
+    # the har forest's campaign: reckoned, not run
+    idx = best_point(forest_art)
+    circuit = get_family("tree").build_point_circuit(forest_art, idx)
+    sim = faults.FaultSimulator(circuit, device="cuda")
+    gates, values = faults.single_fault_lanes(circuit)
+    for chunk in (None, FAULT_CHUNK):
+        fault_campaign(f"har forest[{forest_art.n_trees}] point {idx}", sim,
+                       x8, gates, values, chunk, run=False)
+    marks["har forest reckoned"] = time.perf_counter()
+
+    # the card's reports against the CPU's on small circuits
+    small = {}
+    sds = load_dataset("seeds")
+    pt = to_parallel(train_tree(sds.x_train, sds.y_train, sds.n_classes))
+    small["seeds tree"] = ([pt], sds, "exact")
+    vds = load_dataset("vertebral")
+    forest = train_forest(vds.x_train, vds.y_train, vds.n_classes, n_trees=3)
+    for adder in ("exact", "approx"):
+        small[f"vertebral forest[3] {adder}"] = (forest.ptrees, vds, adder)
+    rng = np.random.default_rng(SEED)
+    for what, (ptrees, d, adder) in small.items():
+        thr = np.concatenate([p.threshold for p in ptrees])
+        bits = rng.integers(quant.MIN_BITS, quant.MAX_BITS + 1, len(thr))
+        t_int = quant.threshold_to_int(torch.as_tensor(thr),
+                                       torch.as_tensor(bits)).numpy()
+        circuit = netlist.build_circuit(ptrees, bits, t_int, d.n_classes,
+                                        vote_adder=adder)
+        sx8 = quantize_u8(d.x_test)
+        card, cpu = (robustness.point_robustness(circuit, sx8, d.y_test,
+                                                 device=dev)
+                     for dev in ("cuda", "cpu"))
+        check(card == cpu, f"{what}: the card's report differs from the "
+              f"CPU's: {card} != {cpu}")
+        sim = faults.FaultSimulator(circuit, device="cuda")
+        mc = [robustness.monte_carlo(sim, sx8, d.y_test, seed=7,
+                                     defect_rate=0.1) for _ in range(2)]
+        check(np.array_equal(mc[0].pop("_accuracies"),
+                             mc[1].pop("_accuracies")) and mc[0] == mc[1],
+              f"{what}: Monte-Carlo under one seed did not reproduce")
+        draws = [robustness.draw_defects(card["n_sites"], seed=s)
+                 for s in (7, 8)]
+        check(not np.array_equal(draws[0][0], draws[1][0]),
+              f"{what}: Monte-Carlo under another seed drew the same masks")
+        log(f"[faults] {what} (G={circuit.n_gates}, {card['n_sites']} "
+            f"sites, {d.x_test.shape[0]} rows): card report == CPU report "
+            f"(baseline {card['baseline_accuracy']:.4f}, 1-fault worst "
+            f"{card['single_fault']['worst_accuracy']:.4f}, MC "
+            f"{card['monte_carlo']['expected_accuracy']:.4f}); Monte-Carlo "
+            f"reproduces under seed 7, moves under 8")
+    marks["card == CPU"] = time.perf_counter()
+
+    # sweep --fault-report on the mixed campaign
+    out = str(pathlib.Path(root) / "fault_sweep")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sweep_main(["--datasets", ",".join(SWEEP_MIXED["datasets"]),
+                "--trees", str(SWEEP_MIXED["n_trees"]),
+                "--mlp-datasets", ",".join(SWEEP_MIXED["mlp_datasets"]),
+                "--pop", str(SWEEP_MIXED["pop"]),
+                "--gens", str(SWEEP_MIXED["gens"]),
+                "--max-buckets", str(SWEEP_MIXED["max_buckets"]),
+                "--out", out, "--verify-rtl", "--report", "--fault-report",
+                "--fault-chunk", str(FAULT_WIDE_CHUNK), "--device", "cuda"])
+    torch.cuda.synchronize()
+    t_sweep = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    report = json.load(open(pathlib.Path(out) / "sweep_report.json"))
+    rows = {n: r.get("robustness") for n, r in report["datasets"].items()}
+    check(len(rows) == len(SWEEP_MIXED["datasets"]) + len(
+        SWEEP_MIXED["mlp_datasets"]) and all(rows.values()),
+          f"sweep --fault-report: a dataset has no robustness row: {rows}")
+    check("## Robustness vs area" in open(pathlib.Path(out) /
+                                          "REPORT.md").read(),
+          "REPORT.md has no robustness table")
+    for n in rows:
+        if n == f"{MLP_RUNS[1][0]}_mlp":
+            continue   # the card's campaign above; on the CPU too slow
+        path = str(pathlib.Path(out) / n / "fault_report.json")
+        card = robustness.load_fault_report(path)
+        d = load_dataset(n.removesuffix("_mlp"))
+        cpu = robustness.run_campaign(
+            load_pareto_artifact(str(pathlib.Path(out) / n / "pareto.json")),
+            quantize_u8(d.x_test), d.y_test, source=path, dataset=n,
+            point="best", chunk=FAULT_WIDE_CHUNK, device="cpu")
+        check(json.loads(json.dumps(cpu)) == {**card, "source": path},
+              f"sweep --fault-report {n}: the card's report differs from "
+              f"the CPU's")
+    marks["sweep --fault-report"] = time.perf_counter()
+    log(f"[faults] sweep --fault-report on the mixed campaign "
+        f"{sorted(rows)}: {t_sweep:.1f} s with search, verify_rtl and the "
+        f"report; robustness rows {json.dumps(rows)}; every report but "
+        f"{MLP_RUNS[1][0]}_mlp's == the CPU's")
+    check(all(counts[k] > 0 for k in (*TREE_KERNELS, "qmatmul")),
+          f"a kernel of the fault path never launched: {counts}")
+    steps, last = [], t_start
+    for step, t in marks.items():
+        steps.append(f"{step} {t - last:.1f} s")
+        last = t
+    log(f"[faults] launches of sweep --fault-report: {counts}; phase "
+        f"{time.perf_counter() - t_start:.1f} s: {', '.join(steps)} (har "
+        f"tree campaign {t_auto:.1f} s at the default chunk, {t_64:.1f} s "
+        f"at --chunk {FAULT_CHUNK}; {name} mlp {t_mlp:.1f} s at chunk "
+        f"{FAULT_WIDE_CHUNK})")
+    return dict(counts=counts)
+
+
 def attention_pairs(sq: int, skv: int) -> int:
     """(query, key) pairs a causal mask keeps: query i sees keys 0..i."""
     i = np.arange(sq)
@@ -1905,8 +2241,12 @@ def main() -> None:
     lm_path = phase_lm()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as d:
         sweep_path = phase_sweep(rng, d)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as d:
+        faults_path = phase_faults(tree_path["art"],
+                                   mlp_paths[MLP_RUNS[1][0]]["art"],
+                                   forest_path["art"], d)
     for path in (tree_path, *mlp_paths.values(), forest_path, lm_path,
-                 sweep_path):
+                 sweep_path, faults_path):
         for name, count in path["counts"].items():
             launches[name] += count
     check(all(v > 0 for v in launches.values()),

@@ -519,6 +519,16 @@ def levelize(circuit: Circuit) -> np.ndarray:
     return level
 
 
+def level_gates(circuit: Circuit) -> tuple[np.ndarray, list]:
+    """(base, levels): the ids of the gates at logic level 0 (inputs and
+    constants) and, for each logic level 1, 2, ..., the ids of its gates,
+    each in gate-id order."""
+    level = levelize(circuit)
+    top = int(level.max()) if (circuit.op >= NOT).any() else 0
+    return (np.flatnonzero(level == 0),
+            [np.flatnonzero(level == lvl) for lvl in range(1, top + 1)])
+
+
 def simulate(circuit: Circuit, x8) -> torch.Tensor:
     """(B,) int32 predicted class over (B, F) integer master codes, on the
     device of ``x8`` (a numpy array runs on the CPU).
@@ -527,7 +537,7 @@ def simulate(circuit: Circuit, x8) -> torch.Tensor:
     boolean op over all its gates at once.
     """
     op, a, b = circuit.op, circuit.a, circuit.b
-    level = levelize(circuit)
+    base, levels = level_gates(circuit)
     x8 = torch.as_tensor(x8).to(torch.int32)
     dev = x8.device
     n_b = x8.shape[0]
@@ -537,7 +547,6 @@ def simulate(circuit: Circuit, x8) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(arr), dtype=torch.int64,
                                device=dev)
 
-    base = np.flatnonzero(level == 0)
     feat = idx(np.maximum(a[base], 0))
     bit = idx(np.maximum(b[base], 0)).to(torch.int32)
     in_vals = ((x8[:, feat] >> bit[None, :]) & 1).to(torch.bool)
@@ -545,8 +554,7 @@ def simulate(circuit: Circuit, x8) -> torch.Tensor:
     vals[:, idx(base)] = torch.where(base_ops == INPUT, in_vals,
                                      base_ops == CONST1)
 
-    for lvl in range(1, int(level.max()) + 1 if (op >= NOT).any() else 1):
-        gates = np.flatnonzero(level == lvl)
+    for gates in levels:
         if gates.size == 0:
             continue
         av = vals[:, idx(a[gates])]

@@ -41,6 +41,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime import graphs
 
 _BIG = 1e9
 
@@ -375,25 +376,16 @@ class _GraphChunk:
                                    for f in _STATE_TENSORS), 0)
         draws = empty_step_draws((chunk_len, *lead), p, g, dev)
         self.draws = [draws.member(i) for i in range(chunk_len)]
-        # warm-up on a side stream, as graph capture wants: every kernel is
-        # built and its libraries' handles made before the capture
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                step(self.inputs, self.draws[0])
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = kernels.launch_snapshot()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+
+        def chunk():
+            before = kernels.launch_snapshot()
             out = self.inputs
             for d in self.draws:
                 out = step(out, d)
-        self.outputs = out
+            return out, before
+
+        self.graph, (self.outputs, before) = graphs.capture(
+            lambda: step(self.inputs, self.draws[0]), chunk, dev)
         self.launches = kernels.rewind_launches(before)
         make_chunk.captures += 1
 

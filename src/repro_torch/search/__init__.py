@@ -1,9 +1,11 @@
 """Design-space search of trees and forests: `SearchProblem`, the
 reference and kernel fitness backends, `run_search` (chunked generations,
-checkpoint/resume), the `pareto.json` artifact and the full-suite campaign
-(`run_sweep`). CLI: ``python -m repro_torch.search --dataset seeds
+checkpoint/resume), the `pareto.json` artifact, the full-suite campaign
+(`run_sweep`) and the stuck-at robustness campaign (`robustness`,
+`fault_report.json`). CLI: ``python -m repro_torch.search --dataset seeds
 --backend kernel``, ``python -m repro_torch.search sweep --datasets all
---report`` and ``python -m repro_torch.search serve --pareto
+--report``, ``python -m repro_torch.search serve --pareto
+OUT/pareto.json`` and ``python -m repro_torch.search faults --pareto
 OUT/pareto.json``.
 """
 from repro_torch.search.problem import (
@@ -45,6 +47,12 @@ from repro_torch.search.artifact import (
     ParetoArtifact,
     load_pareto_artifact,
 )
+from repro_torch.search.robustness import (
+    load_fault_report,
+    run_campaign,
+    validate_fault_report,
+    write_fault_report,
+)
 
 __all__ = [
     "SearchProblem",
@@ -76,4 +84,8 @@ __all__ = [
     "write_sweep_report",
     "ParetoArtifact",
     "load_pareto_artifact",
+    "load_fault_report",
+    "run_campaign",
+    "validate_fault_report",
+    "write_fault_report",
 ]

@@ -11,7 +11,9 @@
         --pareto runs/seeds/pareto.json [--verify-netlist] [--device cuda]
     PYTHONPATH=src python -m repro_torch.search sweep --datasets all \
         --report [--verify-rtl] [--trees K] [--mlp-datasets seeds,...] \
-        [--serial] [--device cuda]
+        [--serial] [--fault-report] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.search faults \
+        --pareto runs/seeds/pareto.json [--point best] [--device cuda]
 
 The run command trains the exact design (a bespoke tree, with `--trees K` a
 bootstrap forest, or with `--family mlp` a printed integer-weight MLP), runs
@@ -27,7 +29,12 @@ runs the paper's whole campaign: every dataset's problem padded to its
 bucket's shape, a bucket's problems stacked and advanced together (one
 fitness launch and one sort a generation for the bucket), each dataset's
 pareto.json under OUT/<dataset>/ and, with `--report`, the campaign scored
-against the paper's Tables I/II (OUT/sweep_report.json, OUT/REPORT.md).
+against the paper's Tables I/II (OUT/sweep_report.json, OUT/REPORT.md);
+with `--fault-report` it also runs the stuck-at campaign on each dataset's
+best point (OUT/<dataset>/fault_report.json and a robustness table in
+REPORT.md). `faults` runs that campaign on a pareto.json's points: every
+single stuck-at fault over the test split, Monte-Carlo defect draws under
+a seed and the critical gates, into a validated fault_report.json.
 All take ``--device`` (default cuda; cpu runs the plain versions of the
 kernels).
 What the port does not cover yet exits with status 2 and names the
@@ -51,9 +58,6 @@ NOT_PORTED = {
     "compilation_cache": "--compilation-cache (a persistent compile cache "
                          "for the multi-device sweep): ROADMAP.md Queue 1 "
                          "item 12",
-    "faults": "the faults subcommand: ROADMAP.md Queue 1 item 11",
-    "fault_report": "sweep --fault-report (the stuck-at robustness "
-                    "campaign): ROADMAP.md Queue 1 item 11",
 }
 
 
@@ -241,7 +245,14 @@ def sweep_main(argv=None) -> None:
                     help="score the campaign against paper Tables I/II "
                          "(OUT/sweep_report.json + OUT/REPORT.md)")
     ap.add_argument("--fault-report", action="store_true",
-                    help="the stuck-at robustness campaign (not ported)")
+                    help="run the stuck-at robustness campaign on every "
+                         "dataset's best-under-loss point (DESIGN.md §17): "
+                         "OUT/<dataset>/fault_report.json + a robustness-"
+                         "vs-area section in REPORT.md")
+    ap.add_argument("--fault-chunk", type=int, default=None,
+                    help="fault lanes per dispatch of --fault-report, as "
+                         "faults --chunk (default: auto-sized to the "
+                         "memory budget)")
     ap.add_argument("--max-loss", type=float, default=0.01)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
@@ -251,8 +262,6 @@ def sweep_main(argv=None) -> None:
         _not_ported("mesh")
     if args.compilation_cache is not None:
         _not_ported("compilation_cache")
-    if args.fault_report:
-        _not_ported("fault_report")
 
     names = (sorted(DATASET_SPECS) if args.datasets == "all"
              else [n.strip() for n in args.datasets.split(",") if n.strip()])
@@ -307,6 +316,45 @@ def sweep_main(argv=None) -> None:
         n_pts = sum(len(r.pareto_objs) for r in sweep.results.values())
         print(f"RTL verified: {n_pts} pareto points across {len(problems)} "
               f"problems (netlist sim == tensor predict == kernel route)")
+
+    if args.fault_report:
+        import os
+        import time
+
+        from repro_torch.search import load_pareto_artifact, robustness
+
+        print(f"== fault campaign: best point per dataset, defect_rate="
+              f"{robustness.DEFAULT_DEFECT_RATE:.0%}, "
+              f"{robustness.DEFAULT_TRIALS} MC trials ==")
+        t0 = time.perf_counter()
+        n_reports = 0
+        for name in sorted(sweep.results):
+            pareto_path = os.path.join(args.out, name, "pareto.json")
+            if not os.path.exists(pareto_path):
+                continue
+            artifact = load_pareto_artifact(pareto_path)
+            problem = problems[name]
+            try:
+                payload = robustness.run_campaign(
+                    artifact, problem.x8, problem.y, source=pareto_path,
+                    dataset=name, point="best", max_loss=args.max_loss,
+                    chunk=args.fault_chunk, device=device)
+            except ValueError as e:   # e.g. no point within the budget
+                print(f"  {name}: skipped ({e})")
+                continue
+            out_path = robustness.write_fault_report(
+                payload, os.path.join(args.out, name, "fault_report.json"))
+            n_reports += 1
+            row = payload["points"][0]
+            print(f"  {name}: point {row['point']} "
+                  f"({row['n_sites']} sites) baseline "
+                  f"{row['baseline_accuracy']:.4f} -> 1-fault worst "
+                  f"{row['single_fault']['worst_accuracy']:.4f}, "
+                  f"MC {row['monte_carlo']['expected_accuracy']:.4f} "
+                  f"-> {out_path}")
+        print(f"fault campaign: {n_reports} reports in "
+              f"{time.perf_counter() - t0:.1f} s")
+
     if args.report:
         meta = {"datasets": args.datasets, "trees": args.trees,
                 "pop": args.pop, "gens": args.gens, "seed": args.seed,
@@ -320,14 +368,95 @@ def sweep_main(argv=None) -> None:
     print(f"artifacts: {args.out}/<dataset>/pareto.json")
 
 
+def faults_main(argv=None) -> None:
+    """`python -m repro_torch.search faults`: stuck-at robustness campaign.
+
+    Loads a `pareto.json`, rebuilds the selected point(s)' gate-level
+    circuits through the family registry, and runs the DESIGN.md §17
+    campaign on ``--device``: exhaustive single stuck-at over every fault
+    site, Monte-Carlo defect draws under a fixed seed, and the
+    critical-gate ranking, writing a validated `fault_report.json` next to
+    the artifact (or to --out).
+    """
+    import os
+
+    from repro_torch.datasets import quantize_u8
+    from repro_torch.search import robustness
+
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.search faults")
+    ap.add_argument("--pareto", required=True,
+                    help="path to a pareto.json written by run_search/sweep")
+    ap.add_argument("--point", default="all",
+                    help="pareto point index, 'best' = smallest area within "
+                         "--max-loss, or 'all' (default)")
+    ap.add_argument("--max-loss", type=float, default=0.01)
+    ap.add_argument("--dataset", default=None,
+                    help="dataset whose test split drives the campaign "
+                         "(default: the artifact's recorded dataset)")
+    ap.add_argument("--defect-rate", type=float,
+                    default=robustness.DEFAULT_DEFECT_RATE,
+                    help="Monte-Carlo iid per-site defect probability")
+    ap.add_argument("--trials", type=int, default=robustness.DEFAULT_TRIALS,
+                    help="Monte-Carlo defect draws per point")
+    ap.add_argument("--mc-seed", type=int,
+                    default=robustness.DEFAULT_MC_SEED,
+                    help="seed of the Monte-Carlo masks (fixed seed -> the "
+                         "same report on any device)")
+    ap.add_argument("--top-k", type=int, default=robustness.DEFAULT_TOP_K,
+                    help="critical gates reported per point")
+    ap.add_argument("--chunk", type=int, default=None,
+                    help="fault lanes per dispatch (default: auto-sized to "
+                         "the memory budget)")
+    ap.add_argument("--out", default=None,
+                    help="fault_report.json path (default: next to --pareto)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs on the CPU)")
+    args = ap.parse_args(argv)
+
+    device = _device_or_exit(args.device)
+    artifact = _load_artifact_or_exit(args.pareto)
+    dataset = args.dataset or artifact.dataset
+    if dataset is None:
+        ap.error("--dataset required: this artifact has no 'dataset' label")
+    ds_name = dataset.removesuffix("_mlp")
+    if ds_name not in DATASET_SPECS:
+        ap.error(f"unknown dataset {ds_name!r}; options: "
+                 f"{sorted(DATASET_SPECS)}")
+    ds = load_dataset(ds_name)
+    x8 = quantize_u8(ds.x_test)
+    y = np.asarray(ds.y_test, np.int64)
+
+    print(f"== fault campaign: {args.pareto} [{artifact.family}] on "
+          f"{ds_name} ({x8.shape[0]} test vectors), point={args.point}, "
+          f"defect_rate={args.defect_rate:.2%}, {args.trials} MC trials, "
+          f"seed={args.mc_seed}, device={device} ==")
+    try:
+        payload = robustness.run_campaign(
+            artifact, x8, y, source=args.pareto, dataset=dataset,
+            point=args.point, max_loss=args.max_loss,
+            defect_rate=args.defect_rate, n_trials=args.trials,
+            seed=args.mc_seed, top_k=args.top_k, chunk=args.chunk,
+            verbose=True, device=device)
+    except ValueError as e:
+        print(f"error: fault campaign: {e}", file=sys.stderr)
+        raise SystemExit(2)
+    out = args.out or os.path.join(
+        os.path.dirname(args.pareto) or ".", "fault_report.json")
+    robustness.write_fault_report(payload, out)
+    worst = min(p["single_fault"]["worst_accuracy"]
+                for p in payload["points"])
+    print(f"campaign: {len(payload['points'])} point(s), worst single-fault "
+          f"accuracy {worst:.4f}; report: {out}")
+
+
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] == "faults":
-        _not_ported(argv[0])
     if argv and argv[0] == "sweep":
         return sweep_main(argv[1:])
     if argv and argv[0] == "serve":
         return serve_main(argv[1:])
+    if argv and argv[0] == "faults":
+        return faults_main(argv[1:])
     ap = argparse.ArgumentParser(prog="python -m repro_torch.search")
     ap.add_argument("--dataset", default="seeds",
                     choices=sorted(DATASET_SPECS))

@@ -634,6 +634,39 @@ def _netlist_ratios(pareto_path: str) -> dict | None:
             "n_points": len(ratios)}
 
 
+def _robustness_summary(report_path: str) -> dict | None:
+    """Condensed robustness metrics from a written fault_report.json.
+
+    Loose by design (like `_netlist_ratios`): a dataset without a fault
+    campaign — or with an invalid report — simply contributes no
+    robustness row rather than failing the sweep report.
+    """
+    from repro_torch.search import robustness
+
+    if not os.path.exists(report_path):
+        return None
+    try:
+        report = robustness.load_fault_report(report_path)
+    except (OSError, ValueError):
+        return None
+    if not report["points"]:
+        return None
+    pt = report["points"][0]    # --fault-report runs the best point
+    return {
+        "point": pt["point"],
+        "norm_area": round(pt["norm_area"], 4),
+        "n_sites": pt["n_sites"],
+        "baseline_accuracy": round(pt["baseline_accuracy"], 4),
+        "single_fault_mean_accuracy":
+            round(pt["single_fault"]["mean_accuracy"], 4),
+        "single_fault_worst_accuracy":
+            round(pt["single_fault"]["worst_accuracy"], 4),
+        "mc_expected_accuracy":
+            round(pt["monte_carlo"]["expected_accuracy"], 4),
+        "defect_rate": report["defect_rate"],
+    }
+
+
 def write_sweep_report(sweep: SweepResult, problems: dict, out_dir: str, *,
                        meta: dict | None = None,
                        max_loss: float = 0.01) -> tuple[str, str]:
@@ -642,11 +675,10 @@ def write_sweep_report(sweep: SweepResult, problems: dict, out_dir: str, *,
     Emits `out_dir/sweep_report.json` (per-dataset accuracy deltas vs
     Table I, normalized area at the loss budget vs Table II,
     estimated-vs-netlist spreads from each dataset's pareto.json,
-    bucket/dispatch accounting), with the JAX package's keys, and
-    `out_dir/REPORT.md` (the same as one table). Returns (json_path,
-    md_path). The stuck-at robustness rows of the JAX report need the
-    fault campaign (`search/robustness.py`, ROADMAP.md Queue 1 item 11),
-    which is not ported: no dataset has a robustness row until it is.
+    bucket/dispatch accounting, and the robustness summary of each
+    dataset's fault_report.json where `sweep --fault-report` wrote one),
+    with the JAX package's keys, and `out_dir/REPORT.md` (the same as
+    tables). Returns (json_path, md_path).
     """
     from repro_torch.datasets.paper_refs import (
         PAPER_MEAN_AREA_REDUCTION_1PCT,
@@ -711,6 +743,10 @@ def write_sweep_report(sweep: SweepResult, problems: dict, out_dir: str, *,
         ratios = _netlist_ratios(os.path.join(out_dir, name, "pareto.json"))
         if ratios:
             row["netlist_vs_estimated_area"] = ratios
+        robust = _robustness_summary(
+            os.path.join(out_dir, name, "fault_report.json"))
+        if robust:
+            row["robustness"] = robust
         rows[name] = row
 
     payload = {
@@ -812,4 +848,28 @@ def _report_markdown(payload: dict, max_loss: float) -> str:
         f"{s['mean_abs_accuracy_delta_vs_paper']}.",
         "",
     ]
+    robust = {name: row["robustness"]
+              for name, row in payload["datasets"].items()
+              if row.get("robustness")}
+    if robust:
+        rate = next(iter(robust.values()))["defect_rate"]
+        lines += [
+            "## Robustness vs area (stuck-at campaign, DESIGN.md §17)",
+            "",
+            f"Best-under-budget point per dataset: exhaustive single "
+            f"stuck-at over every fault site + Monte-Carlo expected "
+            f"accuracy at a {rate:.0%} iid defect rate.",
+            "",
+            "| dataset | point | norm area | sites | baseline acc "
+            "| 1-fault mean | 1-fault worst | MC expected |",
+            "|---|---|---|---|---|---|---|---|",
+        ]
+        for name, r in robust.items():
+            lines.append(
+                f"| {name} | {r['point']} | {r['norm_area']:.3f} "
+                f"| {r['n_sites']} | {r['baseline_accuracy']:.3f} "
+                f"| {r['single_fault_mean_accuracy']:.3f} "
+                f"| {r['single_fault_worst_accuracy']:.3f} "
+                f"| {r['mc_expected_accuracy']:.3f} |")
+        lines.append("")
     return "\n".join(lines)

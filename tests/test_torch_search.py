@@ -394,13 +394,10 @@ def test_default_device_entry_points_raise_without_gpu(monkeypatch, seeds):
 @pytest.mark.parametrize("argv", [
     ["--backend", "islands"], ["--mesh", "4"],
     ["sweep", "--mesh", "2x4"], ["sweep", "--compilation-cache", "d"],
-    ["sweep", "--fault-report"], ["faults", "--pareto", "x.json"],
 ])
 def test_cli_refuses_unported_surfaces(argv):
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.search", *argv, "--device", "cpu"]
-        if argv[0] != "faults" else
-        [sys.executable, "-m", "repro_torch.search", *argv],
+        [sys.executable, "-m", "repro_torch.search", *argv, "--device", "cpu"],
         capture_output=True, text=True, cwd=REPO,
         env={**os.environ, "PYTHONPATH": str(REPO / "src")}, timeout=120)
     assert proc.returncode == 2, proc.stderr
