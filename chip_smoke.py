@@ -119,13 +119,31 @@ Phases, each of which stops the script with a non-zero exit on failure:
    each `fault_report.json` == the CPU's but the pendigits MLP's. Its
    launches alone are the phase's count: the checks above launch kernels
    too, outside that window.
-13. The kernel list, the card's name and power limit, one JSON line of
+13. `[mesh]`: the multi-device search (`core.dist`, `launch.mesh`), two
+   ranks spawned on the one card over gloo (NCCL refuses two ranks on one
+   GPU; this checks the code and its arithmetic, not NVLink): (a) the har
+   tree, kernel backend, pop 512, `mesh="2"`, 8 generations with
+   verify_rtl == the single-card run of phase 3 (state and `pareto.json`);
+   (b) the same run saved at generation 4 under the mesh and resumed on
+   one card with no mesh == it; (c) islands on a 2-ring (256 an island,
+   migrate_every 4) == the same islands run one after another in this
+   process; (d) the mixed sweep campaign of phase 11 on a 2x1 mesh == its
+   batched single-card run. Each rank returns its launch counts (they are
+   per process); the bool `domination_block` slab, each rank's (512,
+   1024) rows of the sharded sort, must have launched. A sharded
+   generation's host ms beside a captured single-card chunk's, the
+   collectives a generation, one `all_reduce` alone, spawn and rendezvous
+   s; the slab and `fitness_errors` at a rank's shapes timed beside their
+   bounds (rows `domination_block[shard]`, `fitness_errors[shard]`).
+14. The kernel list, the card's name and power limit, one JSON line of
    per-kernel results (each row names what it times in `what`; the rows
    `fitness_errors[bucket]` and `domination_block[bucket]` are the batched
-   launches), and last `{"ok": true, "device": {...}}`.
+   launches, the `[shard]` rows a mesh rank's), and last `{"ok": true,
+   "device": {...}}`.
 
 The search paths run through `run_search`, whose generations are chunks
-of captured CUDA graphs; a launch inside a graph counts at every replay.
+of captured CUDA graphs (on one card; a mesh's sharded generations run
+one by one); a launch inside a graph counts at every replay.
 
 Without a CUDA device, or without the repository's `src/` beside it, the
 script exits non-zero and prints no result.
@@ -1571,7 +1589,7 @@ def phase_sweep(rng, root: str) -> dict:
     log(f"[sweep] launches over both campaigns (batched, verify included): "
         f"{counts}; phase {time.perf_counter() - t_start:.1f} s, of which "
         f"{t_build:.1f} s the ten trees' host training")
-    return dict(counts=counts, rows=rows)
+    return dict(counts=counts, rows=rows, mixed=mixed, mixed_result=mb)
 
 
 FAULT_SPREAD = 16       # [faults]: single-fault lanes held to the numpy oracle
@@ -2173,6 +2191,293 @@ def phase_lm() -> dict:
 
 
 # substrings of the cuBLAS / CUTLASS GEMM kernels' names in a trace
+MESH_RANKS = 2          # [mesh]: ranks sharing the one card over gloo
+MESH_MIGRATE = 4        # [mesh]: --migrate-every of the islands run
+
+
+def _cpu_state(state) -> dict:
+    return {f: getattr(state, f).cpu() for f in ("genes", "objs", "rank",
+                                                 "crowd")}
+
+
+def mesh_rank(problems_path: str, dirs: dict, n_ranks: int) -> dict:
+    """One rank of `[mesh]` on ``n_ranks``: (a) the har tree on
+    ``--mesh n_ranks`` with verify_rtl, (b) the same run saved at
+    generation 4, (c) islands on an ``n_ranks``-ring, (d) the mixed sweep
+    on an ``n_ranks``x1 mesh, all through `run_search` / `run_sweep` with
+    the kernels' counters set to 0 just before and read just after; then
+    one sharded generation and one all_reduce timed. Returns the states,
+    counts and times to the parent (the counters are per process)."""
+    t_enter = time.time()
+    from repro_torch import kernels, search
+    from repro_torch.core import dist, nsga2
+    from repro_torch.kernels import domination
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.search import make_kernel_fitness, sweep
+    from repro_torch.sharding import search as layout
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = launch_mesh.rank_device("cuda")
+    loaded = torch.load(problems_path, map_location=dev, weights_only=False)
+    problem, mixed = loaded["tree"], loaded["mixed"]
+    out = {"t_enter": t_enter, "device": str(dev)}
+    kernels.reset_launch_counts()
+    dist.reset_collectives()
+    t0 = time.perf_counter()
+    res = search.run_search(problem, backend="kernel", pop_size=POP,
+                            n_generations=GENS, seed=SEED, dataset=DATASET,
+                            out_dir=dirs["a"], verify_rtl=True,
+                            mesh=str(n_ranks))
+    torch.cuda.synchronize()
+    out["a"] = _cpu_state(res.state)
+    out["a_s"] = (time.perf_counter() - t0, res.wall_s)
+    out["a_counts"] = kernels.launch_counts()
+    out["a_slab"] = domination.domination_block.launches
+    search.run_search(problem, backend="kernel", pop_size=POP,
+                      n_generations=GENS // 2, seed=SEED, out_dir=dirs["b"],
+                      checkpoint_every=GENS // 2, mesh=str(n_ranks))
+    res = search.run_search(problem, backend="islands", pop_size=POP,
+                            n_generations=GENS, seed=SEED,
+                            migrate_every=MESH_MIGRATE, mesh=str(n_ranks))
+    out["c"] = _cpu_state(res.state)
+    sw = sweep.run_sweep(mixed, pop_size=SWEEP_MIXED["pop"],
+                         n_generations=SWEEP_MIXED["gens"], seed=SEED,
+                         max_buckets=SWEEP_MIXED["max_buckets"],
+                         mesh=f"{n_ranks}x1")
+    torch.cuda.synchronize()
+    out["d"] = {n: (_cpu_state(r.state), r.pareto_objs, r.pareto_genes)
+                for n, r in sw.results.items()}
+    out["counts"] = kernels.launch_counts()
+    out["slab"] = domination.domination_block.launches
+    out["collectives"] = dict(dist.COLLECTIVES)
+
+    # one sharded generation's host time, from (a)'s final population
+    mesh = launch_mesh.make_search_mesh(str(n_ranks), ("pop",),
+                                        device=dev)
+    cfg = nsga2.NSGA2Config(pop_size=POP)
+    state = layout.shard_state(nsga2.NSGA2State(
+        *(out["a"][f].to(dev) for f in ("genes", "objs", "rank", "crowd")),
+        GENS), mesh, dist.sharded_state_sharding(mesh))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    chunk = dist.make_sharded_chunk(make_kernel_fitness(problem), mesh, cfg,
+                                    CHUNK)
+    chunk(state, gen)                                  # warm-up
+    dist.reset_collectives()
+    out["gen_ms"] = host_ms(lambda: chunk(state, gen)) / CHUNK
+    out["gen_collectives"] = {k: v / (3 * CHUNK)
+                              for k, v in dist.COLLECTIVES.items()}
+    # one all_reduce of the peel's (2P,) int32 counts, alone: on host
+    # tensors (gloo's round trip) and on the card's (staged through the
+    # host, so each waits for the card, which the ranks share)
+    group = mesh.get_group("pop")
+    for where in ("cpu", dev):
+        x = torch.ones(2 * POP, dtype=torch.int32, device=where)
+        out[f"reduce_ms_{torch.device(where).type}"] = host_ms(
+            lambda: [dist.all_reduce_sum(x, group) for _ in range(50)]) / 50
+    return out
+
+
+def phase_mesh(problem, tree_path: dict, sweep_path: dict, root: str,
+               rng, n_ranks: int = MESH_RANKS) -> dict:
+    """`[mesh]`: the port's multi-device search, ``n_ranks`` ranks spawned
+    on the cards (gloo where they share one, NCCL refusing two ranks on a
+    GPU; NCCL where every rank has a card of its own), checked against the
+    single-card runs: (a) the har tree, kernel backend, pop 512,
+    ``mesh=n_ranks``, 8 generations with verify_rtl == `phase_main_path`'s
+    run (state and pareto.json); (b) saved at generation 4 under the mesh
+    and resumed with no mesh == the same; (c) islands on an n_ranks-ring,
+    pop 512 (512 / n_ranks an island), migrate_every 4 ==
+    `dist.run_islands_serial` of the same islands on one card; (d) the
+    mixed sweep on an n_ranks x 1 mesh == the batched single-card campaign
+    of `phase_sweep`. The ranks' launch counts
+    come back to the parent; `domination_block` (the bool slab, its first
+    caller) must have launched. The slab at the sharded sort's shape and
+    `fitness_errors` at the shard's P are timed beside their bounds."""
+    from repro_torch import search
+    from repro_torch.core import dist, nsga2
+    from repro_torch.kernels import domination, fitness, ops
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.search import make_fitness, make_kernel_fitness
+
+    root = pathlib.Path(root)
+    dirs = {k: str(root / k) for k in ("a", "b")}
+    path = str(root / "problems.pt")
+    torch.save({"tree": problem, "mixed": sweep_path["mixed"]}, path)
+    backend = launch_mesh.collective_backend("cuda", n_ranks,
+                                             torch.cuda.device_count())
+    t_spawn = time.time()
+    outs = launch_mesh.spawn(mesh_rank, n_ranks, "cuda",
+                             (path, dirs, n_ranks))
+    t_all = time.time() - t_spawn
+    rendezvous = max(o["t_enter"] for o in outs) - t_spawn
+    devices = sorted({o["device"] for o in outs})
+    shared = ("the ranks share one card: this checks the code and its "
+              "arithmetic, not NVLink" if len(devices) < n_ranks
+              else "a card a rank")
+    log(f"[mesh] {n_ranks} ranks on {devices} over {backend} ({shared}): "
+        f"spawn and rendezvous {rendezvous:.1f} s, the ranks' whole work "
+        f"{t_all:.1f} s")
+
+    want = tree_path["state"]
+    for o in outs:
+        check(all(torch.equal(o["a"][f], getattr(want, f).cpu())
+                  for f in o["a"]),
+              "(a) the --mesh 2 run differs from the single-card run")
+    got_art = json.load(open(pathlib.Path(dirs["a"]) / "pareto.json"))
+    want_art = dict(tree_path["art"].payload)
+    for d in (got_art, want_art):
+        d.pop("wall_s")
+    check(got_art == want_art, "(a) the --mesh 2 pareto.json differs from "
+          "the single-card run's")
+    a_counts = outs[0]["a_counts"]
+    log(f"[mesh] (a) run_search {DATASET} kernel pop={POP} gens={GENS} "
+        f"mesh={n_ranks}: {outs[0]['a_s'][1]:.2f} s search, "
+        f"{outs[0]['a_s'][0]:.2f} s with pareto.json + verify_rtl on rank "
+        f"0; final state and pareto.json ({len(got_art['pareto'])} points, "
+        f"all verified) == the single-card run; launches on rank 0 "
+        f"{a_counts}, the bool slab {outs[0]['a_slab']} of them")
+    check(all(o["a_slab"] == GENS for o in outs)
+          and a_counts["fitness_errors"] >= 1 + GENS,
+          "(a) the sharded sort's slab did not launch once a generation on "
+          "every rank, or the fitness kernel launched fewer times")
+
+    resumed = search.run_search(
+        problem, backend="kernel", pop_size=POP, n_generations=GENS,
+        seed=SEED, out_dir=dirs["b"], checkpoint_every=GENS // 2,
+        resume=True)
+    check(same_state(resumed.state, want),
+          "(b) saved under the mesh, resumed with none: differs from the "
+          "uninterrupted run")
+    log(f"[mesh] (b) saved at generation {GENS // 2} under mesh="
+        f"{n_ranks}, resumed on one card with no mesh: == the "
+        f"uninterrupted run")
+
+    local = max(8, POP // n_ranks)     # the engine's islands rule
+    cfg = dist.IslandConfig(
+        local_pop=local, migrate_every=MESH_MIGRATE,
+        n_migrate=min(4, local // 2),
+        nsga=nsga2.NSGA2Config(pop_size=local, n_generations=GENS))
+    serial = dist.run_islands_serial(
+        SEED, make_fitness(problem, "reference"), problem.n_genes,
+        n_ranks, cfg, -(-GENS // MESH_MIGRATE),
+        seed_genes=problem.exact_genes(), device=problem.device)
+    for o in outs:
+        check(all(torch.equal(o["c"][f], torch.cat(
+            [getattr(s, f) for s in serial]).cpu()) for f in o["c"]),
+            "(c) the islands ring differs from the serial islands")
+    log(f"[mesh] (c) islands: {n_ranks} islands of {local}, "
+        f"migrate_every {MESH_MIGRATE}, {GENS} generations (reference "
+        f"fitness, the card's sort in each island and migration) == the "
+        f"same islands run one after another in one process")
+
+    mb = sweep_path["mixed_result"]
+    for o in outs:
+        check(o["d"].keys() == mb.results.keys() and all(
+            all(torch.equal(o["d"][n][0][f], getattr(r.state, f).cpu())
+                for f in o["d"][n][0])
+            and np.array_equal(o["d"][n][1], r.pareto_objs)
+            and np.array_equal(o["d"][n][2], r.pareto_genes)
+            for n, r in mb.results.items()),
+            "(d) the mixed sweep on a 2x1 mesh differs from the batched "
+            "single-card campaign")
+    log(f"[mesh] (d) sweep mesh={n_ranks}x1 on the mixed campaign "
+        f"{sorted(mb.results)}: == the batched single-card campaign")
+
+    # one generation: sharded (eager, generation by generation) against a
+    # captured single-card chunk, from the same population
+    fit = make_kernel_fitness(problem)
+    gen = torch.Generator(device=problem.device).manual_seed(SEED + 2)
+    chunk = nsga2.make_chunk(fit, nsga2.NSGA2Config(pop_size=POP), CHUNK)
+    chunk(want, gen)
+    t_one = host_ms(lambda: chunk(want, gen)) / CHUNK
+    per_gen = outs[0]["gen_collectives"]
+    how = (f"{backend}, CUDA tensors staged through the host"
+           if backend == "gloo" else backend)
+    log(f"[mesh] one generation, {DATASET} pop {POP}: sharded over {n_ranks} "
+        f"ranks ({how}) "
+        f"{outs[0]['gen_ms']:.2f} ms host clock, against {t_one:.2f} ms in "
+        f"a captured single-card chunk of {CHUNK}; collectives per "
+        f"generation on a rank: {per_gen['all_gather']:.1f} all_gather, "
+        f"{per_gen['all_reduce']:.1f} all_reduce (one a front, plus the "
+        f"counts); one all_reduce of {2 * POP} int32 alone "
+        f"{outs[0]['reduce_ms_cpu']:.3f} ms on host tensors, "
+        f"{outs[0]['reduce_ms_cuda']:.3f} ms on the card's")
+
+    # the kernels at the shard's shapes
+    rows = {}
+    pi, pj = 2 * POP // n_ranks, 2 * POP
+    oi = torch.as_tensor((rng.integers(0, 64, (pi, 2)) / 63)
+                         .astype(np.float32), device="cuda")
+    oj = torch.as_tensor((rng.integers(0, 64, (pj, 2)) / 63)
+                         .astype(np.float32), device="cuda")
+    got = domination.domination_block(oi, oj)
+    torch.cuda.synchronize()
+    err = int((got.int() - domination.domination_block_plain(oi, oj).int())
+              .abs().max())
+    check(err == 0, f"domination_block {pi}x{pj} differs from its plain "
+          f"version")
+    ms, plain_ms, text = timed(
+        lambda: domination.domination_block(oi, oj),
+        lambda: domination.domination_block_plain(oi, oj),
+        "domination_kernel", reps=50, plain_reps=50)
+    bms, by = bound((pi + pj) * 2 * 4 + pi * pj, 3 * 2 * pi * pj,
+                    FP32_OPS_PER_S)
+    log(f"[mesh] domination_block {pi}x{pj} M=2 (a rank's rows of the "
+        f"sharded sort): equal; {text}; bound {bms:.5f} ms ({by})")
+    rows["domination_block[shard]"] = dict(
+        name="domination_block[shard]", route="cuda",
+        source=TPU_KERNELS["domination_block"][0],
+        replaces=TPU_KERNELS["domination_block"][1],
+        launches=sum(o["slab"] for o in outs), max_abs_err=float(err),
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+        what=f"the bool slab ({pi}, {pj}, 2): a rank's rows of the sharded "
+             f"sort, har pop {POP} on {n_ranks} ranks; launches are the "
+             f"slab's alone, over the ranks")
+    p_s = POP // n_ranks
+    genes = rng.random((p_s, problem.n_genes), dtype=np.float32)
+    genes[0] = problem.exact_genes()
+    genes_t = torch.as_tensor(genes, device="cuda")
+    shift, thr, _, cap = ops.decode_population_full(problem.threshold,
+                                                    genes_t)
+    fit_ops = ops.prepare_fitness_operands(
+        problem.x_sel, problem.y, problem.path, problem.path_len,
+        problem.n_neg, problem.leaf_class, problem.n_classes)
+    got = fitness.fitness_correct_counts(fit_ops, shift, thr, cap)
+    torch.cuda.synchronize()
+    err = int((got.long() - fitness.fitness_correct_counts_plain(
+        fit_ops, shift, thr, cap).long()).abs().max())
+    check(err == 0, f"fitness_errors at P={p_s} differs from its plain "
+          f"version by {err}")
+    ms, plain_ms, text = timed(
+        lambda: fitness.fitness_correct_counts(fit_ops, shift, thr, cap),
+        lambda: fitness.fitness_correct_counts_plain(fit_ops, shift, thr,
+                                                     cap),
+        "fitness_mma_kernel", reps=10, plain_reps=3)
+    n, l, c = problem.n_comparators, problem.n_leaves, problem.n_classes
+    b = int(problem.y.shape[0])
+    bms, by = bound(b * fit_ops.x_sel.shape[1] + 2 * p_s * n * 4
+                    + fit_ops.path.numel() + 2 * fit_ops.path.shape[0] * 4
+                    + b * 4 + 2 * p_s * 4, tree_ops(p_s, b, n, l, c),
+                    INT8_OPS_PER_S)
+    log(f"[mesh] fitness_errors P={p_s} B={b} N={n} (a rank's child slab): "
+        f"equal; {text}; bound {bms:.4f} ms ({by})")
+    counts = {k: sum(o["counts"][k] for o in outs) for k in outs[0]["counts"]}
+    rows["fitness_errors[shard]"] = dict(
+        name="fitness_errors[shard]", route="cuda",
+        source=TPU_KERNELS["fitness_errors"][0],
+        replaces=TPU_KERNELS["fitness_errors"][1],
+        launches=counts["fitness_errors"], max_abs_err=float(err), ms=ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+        what=f"fitness_correct_counts at a rank's slab, P={p_s}, B={b}, "
+             f"N={n}; launches over the ranks of [mesh]")
+    check(rows["domination_block[shard]"]["launches"] > 0,
+          "the bool slab never launched on the sharded sort")
+    log(f"[mesh] launches over the ranks (a)-(d): {counts}; the bool slab "
+        f"{rows['domination_block[shard]']['launches']}; collectives on rank "
+        f"0 {outs[0]['collectives']}")
+    return dict(counts=counts, rows=rows)
+
+
 MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
 
 
@@ -2245,8 +2550,10 @@ def main() -> None:
         faults_path = phase_faults(tree_path["art"],
                                    mlp_paths[MLP_RUNS[1][0]]["art"],
                                    forest_path["art"], d)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        mesh_path = phase_mesh(problem, tree_path, sweep_path, d, rng)
     for path in (tree_path, *mlp_paths.values(), forest_path, lm_path,
-                 sweep_path, faults_path):
+                 sweep_path, faults_path, mesh_path):
         for name, count in path["counts"].items():
             launches[name] += count
     check(all(v > 0 for v in launches.values()),
@@ -2257,6 +2564,7 @@ def main() -> None:
     check(all(row["launches"] > 0 for row in sweep_path["rows"].values()),
           "a batched kernel never launched in the campaign")
     results.update(sweep_path["rows"])
+    results.update(mesh_path["rows"])
 
     from repro_torch.search import make_kernel_fitness
     phase_breakdown(f"tree {DATASET}", make_kernel_fitness(problem),

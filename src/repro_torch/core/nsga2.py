@@ -204,6 +204,17 @@ def seed_count(seed_genes) -> int:
         np.asarray(seed_genes)).shape[0]
 
 
+def stream_generator(seed: int, index: int, device) -> torch.Generator:
+    """The generator of stream ``index`` under ``seed`` on ``device``,
+    seeded from ``numpy.random.SeedSequence([seed, index])``: the sweep's
+    problem i and the islands' island i (the counterpart of JAX's
+    ``fold_in`` and ``split``), so a stream never depends on the others."""
+    state = np.random.SeedSequence([seed, index]).generate_state(2, np.uint32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state[0]) | (int(state[1]) << 31))
+    return gen
+
+
 def draw_init(generator, pop_size: int, n_genes: int, n_seed_genes: int,
               device) -> InitDraws:
     """The initial population's draws from ``generator``; for a list of
@@ -284,32 +295,44 @@ def init_state(fitness_fn, cfg: NSGA2Config, draws: InitDraws,
     return NSGA2State(genes, objs, rank, crowd, 0)
 
 
-def survivors(pool_objs: torch.Tensor, pop_size: int):
+def survivors(pool_objs: torch.Tensor, pop_size: int,
+              rank: torch.Tensor | None = None):
     """(rank, crowd, keep): ranks and crowding of the pool and the indices
-    of the ``pop_size`` survivors (rank ascending, crowding descending)."""
-    rank = non_dominated_sort(pool_objs)
+    of the ``pop_size`` survivors (rank ascending, crowding descending).
+    ``rank``, when given, is the pool's ranks, sorted elsewhere (the
+    sharded sort of `core.dist`)."""
+    if rank is None:
+        rank = non_dominated_sort(pool_objs)
     crowd = crowding_distance(pool_objs, rank)
     key = rank.to(torch.float32) * _BIG - torch.clamp_max(crowd, _BIG / 2)
     keep = torch.argsort(key, dim=-1, stable=True)[..., :pop_size]
     return rank, crowd, keep
 
 
+def offspring(state: NSGA2State, draws: StepDraws,
+              cfg: NSGA2Config) -> torch.Tensor:
+    """The generation's children: tournament, crossover and mutation on
+    the drawn numbers."""
+    p, g = state.genes.shape[-2:]
+    if p % 2:
+        raise ValueError(f"pop_size must be even, got {p}")
+    p_mut = cfg.p_mutation if cfg.p_mutation is not None else 1.0 / g
+    idx = _tournament(state.rank, state.crowd, draws.tour_a, draws.tour_b)
+    pa = _rows(state.genes, idx[..., 0::2])
+    pb = _rows(state.genes, idx[..., 1::2])
+    o1, o2 = _sbx(pa, pb, draws.sbx_u, draws.sbx_do, draws.sbx_swap,
+                  cfg.eta_crossover, cfg.p_crossover)
+    children = torch.cat([o1, o2], dim=-2)[..., :p, :]
+    return _poly_mutation(children, draws.mut_u, draws.mut_mask,
+                          cfg.eta_mutation, p_mut)
+
+
 def make_step(fitness_fn, cfg: NSGA2Config):
     """One (mu+lambda) generation: ``step(state, draws) -> state``."""
 
     def step(state: NSGA2State, draws: StepDraws) -> NSGA2State:
-        p, g = state.genes.shape[-2:]
-        if p % 2:
-            raise ValueError(f"pop_size must be even, got {p}")
-        p_mut = cfg.p_mutation if cfg.p_mutation is not None else 1.0 / g
-        idx = _tournament(state.rank, state.crowd, draws.tour_a, draws.tour_b)
-        pa = _rows(state.genes, idx[..., 0::2])
-        pb = _rows(state.genes, idx[..., 1::2])
-        o1, o2 = _sbx(pa, pb, draws.sbx_u, draws.sbx_do, draws.sbx_swap,
-                      cfg.eta_crossover, cfg.p_crossover)
-        children = torch.cat([o1, o2], dim=-2)[..., :p, :]
-        children = _poly_mutation(children, draws.mut_u, draws.mut_mask,
-                                  cfg.eta_mutation, p_mut)
+        p = state.genes.shape[-2]
+        children = offspring(state, draws, cfg)
         c_objs = fitness_fn(children)
 
         pool_genes = torch.cat([state.genes, children], dim=-2)

@@ -2,11 +2,15 @@
 
 Each source under ``src/repro_torch/csrc/`` is compiled on first use, for
 ``sm_90a``, into a shared library with a plain C interface under
-``build/repro_torch_kernels/`` at the repository root (git-ignored). The
+``build/repro_torch_kernels/`` at the repository root (git-ignored), or
+under ``$REPRO_TORCH_BUILD_DIR`` (`runtime.compile_cache.enable` sets both
+it and `BUILD_DIR`, so processes started later inherit it). The
 library name carries a digest of the sources and flags, so an edited
 source is rebuilt and a stale library is never loaded. `build` starts one
-nvcc per missing library, all at once. Every exported C function returns
-the `cudaGetLastError()` of its launch; `check_launch` raises on non-zero.
+nvcc per missing library, all at once, under a lock on the build
+directory, so ranks of a mesh that build at once run nvcc only once. Every
+exported C function returns the `cudaGetLastError()` of its launch;
+`check_launch` raises on non-zero.
 
 Nothing is built or loaded at import time: this module is imported on
 machines without nvcc or a GPU, where only the plain versions run.
@@ -14,6 +18,7 @@ machines without nvcc or a GPU, where only the plain versions run.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -24,7 +29,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
+BUILD_DIR = Path(os.environ.get(BUILD_DIR_ENV) or Path(__file__).resolve()
+                 .parents[3] / "build" / "repro_torch_kernels")
 SOURCES = ("fitness", "domination", "tree_infer", "qmatmul", "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -68,11 +75,17 @@ def build(names=SOURCES) -> float:
     The compiler's report (registers, shared memory, spills) is kept beside
     each library as ``.log``."""
     t0 = time.perf_counter()
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
+    if all(library_path(n).exists() for n in names):
         return 0.0
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # another process may be building
+        _compile([n for n in names if not library_path(n).exists()], nvcc)
+    return time.perf_counter() - t0
+
+
+def _compile(todo, nvcc: str) -> None:
     jobs = []
     for name in todo:
         out = library_path(name)
@@ -92,7 +105,6 @@ def build(names=SOURCES) -> float:
             os.replace(tmp, out)
     if errors:
         raise KernelBuildError("\n".join(errors))
-    return time.perf_counter() - t0
 
 
 def build_log(name: str) -> str:

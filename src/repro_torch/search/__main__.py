@@ -14,6 +14,11 @@
         [--serial] [--fault-report] [--device cuda]
     PYTHONPATH=src python -m repro_torch.search faults \
         --pareto runs/seeds/pareto.json [--point best] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.search --dataset seeds \
+        --backend kernel --mesh 2 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.search --dataset seeds \
+        --backend islands --mesh 2 --migrate-every 5 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.search sweep --mesh 2x1 [--device cpu]
 
 The run command trains the exact design (a bespoke tree, with `--trees K` a
 bootstrap forest, or with `--family mlp` a printed integer-weight MLP), runs
@@ -37,8 +42,16 @@ single stuck-at fault over the test split, Monte-Carlo defect draws under
 a seed and the critical gates, into a validated fault_report.json.
 All take ``--device`` (default cuda; cpu runs the plain versions of the
 kernels).
-What the port does not cover yet exits with status 2 and names the
-ROADMAP.md queue item that will port it.
+
+``--mesh`` (search and sweep) and ``--backend islands`` run on the ranks of
+a `torch.distributed` group (`repro_torch.launch.mesh`): under torchrun
+the command joins the group that exists; otherwise it starts the mesh's
+ranks itself (the ``spawn`` start method, a ``file://`` store in a
+temporary directory), rank r on ``cuda:{r % device_count}`` or on the CPU
+with ``--device cpu``, over NCCL when every rank has a card of its own and
+gloo otherwise. Rank 0 prints and writes the artifacts; an exception in
+any rank makes the command exit non-zero. ``--compilation-cache DIR``
+keeps the kernels' libraries in DIR, so a second run builds nothing.
 """
 from __future__ import annotations
 
@@ -50,20 +63,51 @@ import numpy as np
 from repro_torch.core import area
 from repro_torch.datasets import DATASET_SPECS, load_dataset
 
-# Surfaces of `python -m repro.search` this slice does not port yet, and the
-# ROADMAP.md item that will.
-NOT_PORTED = {
-    "islands": "--backend islands: ROADMAP.md Queue 1 item 12",
-    "mesh": "--mesh (multi-device search): ROADMAP.md Queue 1 item 12",
-    "compilation_cache": "--compilation-cache (a persistent compile cache "
-                         "for the multi-device sweep): ROADMAP.md Queue 1 "
-                         "item 12",
-}
+def _enable_cache(cache_dir: str | None) -> None:
+    if cache_dir:
+        from repro_torch.runtime import compile_cache
+        compile_cache.enable(cache_dir)
 
 
-def _not_ported(what: str) -> None:
-    print(f"error: not ported yet: {NOT_PORTED[what]}", file=sys.stderr)
-    raise SystemExit(2)
+def _on_ranks(run, args, spec: str | None, axes) -> None:
+    """``run(args)`` on every rank of the mesh ``spec`` asks for (in this
+    process when it needs one rank and no group exists); rank 0 alone
+    prints."""
+    from repro_torch.launch import mesh as _mesh
+
+    device = _device_or_exit(args.device)
+    try:
+        n = _mesh.mesh_size(spec, axes, device.type)
+    except ValueError as e:
+        print(f"error: --mesh: {e}", file=sys.stderr)
+        raise SystemExit(2)
+    if n > 1:
+        n_cards = _mesh.auto_extent(device.type)
+        backend = _mesh.collective_backend(device.type, n, n_cards)
+        print(f"== mesh {spec}: {n} ranks over {backend} ({device.type}, "
+              f"{n_cards} card(s)) ==", flush=True)
+        if device.type == "cuda":   # build once, before the ranks start
+            from repro_torch.kernels import _build
+            _build.build()
+    # a spawned rank finds functions by their module's name, which is
+    # "__main__" under `python -m`: hand it this module's own copy
+    import importlib
+    cli = importlib.import_module("repro_torch.search.__main__")
+    _mesh.run_ranks(cli._rank_cli, n, device,
+                    (getattr(cli, run.__name__), args))
+
+
+def _rank_cli(run, args) -> None:
+    """One rank of a CLI run: rank 0 prints, the others stay quiet."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import mesh as _mesh
+
+    if _mesh.is_writer():
+        return run(args)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return run(args)
 
 
 def _device_or_exit(device: str):
@@ -122,10 +166,14 @@ def serve_main(argv=None) -> None:
     ap.add_argument("--verify-netlist", action="store_true",
                     help="simulate the served design's gate-level netlist "
                          "over every served batch and require equality")
+    ap.add_argument("--compilation-cache", default=None, metavar="DIR",
+                    help="keep the kernels' built libraries in DIR: a "
+                         "second run builds nothing")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
     args = ap.parse_args(argv)
+    _enable_cache(args.compilation_cache)
 
     device = _device_or_exit(args.device)
     artifact = _load_artifact_or_exit(args.pareto)
@@ -231,9 +279,12 @@ def sweep_main(argv=None) -> None:
                     help="run the per-problem serial loop (the oracle the "
                          "batched path is held to)")
     ap.add_argument("--mesh", default=None,
-                    help="device mesh spec (not ported)")
+                    help="mesh spec: 'KxN' = K ranks on the bucket axis x N "
+                         "on the population axis, 'N'/'auto' = population "
+                         "axis only; default: one device")
     ap.add_argument("--compilation-cache", default=None, metavar="DIR",
-                    help="persistent compilation cache (not ported)")
+                    help="keep the kernels' built libraries in DIR: a "
+                         "second run builds nothing")
     ap.add_argument("--emit-rtl", action="store_true",
                     help="write every pareto point's Verilog under "
                          "OUT/<dataset>/rtl/")
@@ -258,11 +309,6 @@ def sweep_main(argv=None) -> None:
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        _not_ported("mesh")
-    if args.compilation_cache is not None:
-        _not_ported("compilation_cache")
-
     names = (sorted(DATASET_SPECS) if args.datasets == "all"
              else [n.strip() for n in args.datasets.split(",") if n.strip()])
     mlp_names = [n.strip() for n in args.mlp_datasets.split(",") if n.strip()]
@@ -270,7 +316,23 @@ def sweep_main(argv=None) -> None:
     if unknown:
         ap.error(f"unknown datasets: {unknown}; options: "
                  f"{sorted(DATASET_SPECS)}")
-    device = _device_or_exit(args.device)
+    if args.mesh and args.serial:
+        ap.error("--mesh requires the batched path (the serial loop is the "
+                 "mesh-free oracle)")
+    _enable_cache(args.compilation_cache)
+    args.names, args.mlp_names = names, mlp_names
+    _on_ranks(_sweep_run, args, args.mesh, ("bucket", "pop"))
+
+
+def _sweep_run(args) -> None:
+    """The sweep on this rank (every rank of a mesh runs the campaign;
+    rank 0 writes the artifacts, the report and the fault reports)."""
+    from repro_torch.launch import mesh as _mesh
+    from repro_torch.launch.mesh import rank_device
+    from repro_torch.search import sweep as sweep_mod
+
+    names, mlp_names = args.names, args.mlp_names
+    device = rank_device(args.device)
 
     kind = "tree" if args.trees <= 1 else f"forest[{args.trees}]"
     extra = (f" + {len(mlp_names)} printed-MLP datasets" if mlp_names else "")
@@ -282,8 +344,11 @@ def sweep_main(argv=None) -> None:
     cfg = sweep_mod.SweepConfig(
         pop_size=args.pop, n_generations=args.gens, seed=args.seed,
         vmapped=not args.serial, max_buckets=args.max_buckets,
-        out_dir=args.out, emit_rtl=args.emit_rtl, verify_rtl=args.verify_rtl)
+        mesh=args.mesh, out_dir=args.out, emit_rtl=args.emit_rtl,
+        verify_rtl=args.verify_rtl)
     sweep = sweep_mod.run_sweep(problems, cfg)
+    if not _mesh.is_writer():
+        return
 
     for i, run in enumerate(sweep.bucket_runs):
         d = run.bucket.dims
@@ -472,7 +537,12 @@ def main(argv=None) -> None:
     ap.add_argument("--backend", default="reference",
                     choices=("reference", "kernel", "islands"))
     ap.add_argument("--mesh", default=None,
-                    help="device mesh spec (not ported)")
+                    help="mesh spec: 'N' or 'auto' splits the population "
+                         "over N ranks / one rank a card (islands: the "
+                         "ring's size, default auto); default: one device")
+    ap.add_argument("--compilation-cache", default=None, metavar="DIR",
+                    help="keep the kernels' built libraries in DIR: a "
+                         "second run builds nothing")
     ap.add_argument("--pop", type=int, default=64)
     ap.add_argument("--gens", type=int, default=40)
     ap.add_argument("--seed", type=int, default=0)
@@ -483,7 +553,12 @@ def main(argv=None) -> None:
                          "card), so one interval = one device dispatch")
     ap.add_argument("--resume", action="store_true",
                     help="continue from the latest checkpoint under "
-                         "OUT/ckpt (both backends)")
+                         "OUT/ckpt (every backend, islands included)")
+    ap.add_argument("--migrate-every", type=int, default=5,
+                    help="islands backend: generations between ring "
+                         "migrations (checkpoints land on round boundaries)")
+    ap.add_argument("--n-migrate", type=int, default=4,
+                    help="islands backend: elites migrated per round")
     ap.add_argument("--max-loss", type=float, default=0.01)
     ap.add_argument("--emit-rtl", action="store_true",
                     help="write every pareto point's Verilog under OUT/rtl/")
@@ -495,13 +570,21 @@ def main(argv=None) -> None:
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
     args = ap.parse_args(argv)
-    if args.backend == "islands":
-        _not_ported("islands")
-    if args.mesh is not None:
-        _not_ported("mesh")
     if (args.emit_rtl or args.verify_rtl) and not args.out:
         ap.error("--emit-rtl/--verify-rtl require --out")
-    device = _device_or_exit(args.device)
+    _enable_cache(args.compilation_cache)
+    if args.backend == "islands":
+        _on_ranks(_search_run, args, args.mesh or "auto", ("data",))
+    else:
+        _on_ranks(_search_run, args, args.mesh, ("pop",))
+
+
+def _search_run(args) -> None:
+    """The search on this rank (every rank of a mesh searches; rank 0
+    writes the artifacts)."""
+    from repro_torch.launch import mesh as _mesh
+
+    device = _mesh.rank_device(args.device)
 
     from repro_torch import search
     from repro_torch.core import netlist, rtl
@@ -526,10 +609,14 @@ def main(argv=None) -> None:
         backend=args.backend, pop_size=args.pop, n_generations=args.gens,
         seed=args.seed, dataset=args.dataset, out_dir=args.out,
         checkpoint_every=args.checkpoint_every, resume=args.resume,
-        emit_rtl=args.emit_rtl, verify_rtl=args.verify_rtl)
+        mesh=args.mesh, migrate_every=args.migrate_every,
+        n_migrate=args.n_migrate, emit_rtl=args.emit_rtl,
+        verify_rtl=args.verify_rtl)
     print(f"== run_search backend={cfg.backend} pop={cfg.pop_size} "
           f"gens={cfg.n_generations} ==")
     result = search.run_search(problem, cfg)
+    if not _mesh.is_writer():
+        return
 
     print(f"search wall time: {result.wall_s:.1f}s "
           f"({result.n_evaluations} chromosome evaluations, "

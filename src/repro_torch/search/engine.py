@@ -20,8 +20,20 @@ counts the host calls: the initial population and one per chunk.
 through `runtime.checkpoint` under ``out_dir/ckpt`` and ``resume=True``
 continues from the newest intact save. With ``out_dir`` the pareto front is
 written to ``pareto.json`` (the family's schema) in the format
-`repro.search.load_pareto_artifact` reads. Islands and meshes are a later
-slice of the port.
+`repro.search.load_pareto_artifact` reads.
+
+``mesh`` (a `launch.mesh.make_search_mesh` spec) splits the population
+over the ranks of a process group: the same chunk schedule runs through
+`core.dist.make_sharded_chunk`, generation by generation (a gloo
+collective cannot be captured in a CUDA graph), with the same arrays, so
+checkpoints stay in the "single" layout and a run saved under one mesh
+resumes under another, or none, bit for bit. ``backend="islands"`` runs
+one NSGA-II island a rank of a ring (``mesh``, default "auto") with
+migrations every ``migrate_every`` generations (`core.dist`); its
+generations round up to whole rounds and its checkpoints land on round
+boundaries. On a mesh every rank runs `run_search`; rank 0 alone writes
+checkpoints and artifacts while the others wait, and every rank returns
+the gathered result.
 """
 from __future__ import annotations
 
@@ -40,11 +52,19 @@ from repro_torch.search.problem import SearchProblem
 
 @dataclasses.dataclass
 class SearchConfig:
-    backend: str = "reference"      # reference | kernel
+    backend: str = "reference"      # reference | kernel | islands
     pop_size: int = 64
     n_generations: int = 40
     seed: int = 0
     seed_exact: bool = True         # inject the exact design into the init pop
+    # a `launch.mesh.make_search_mesh` spec (None = one device; "auto"/"4"
+    # split the population over the ranks; islands: the ring's size). The
+    # checkpoints do not depend on it, so a run may resume on another mesh
+    mesh: str | None = None
+    # islands backend (generations round UP to whole migration rounds;
+    # checkpoints land on round boundaries)
+    migrate_every: int = 5
+    n_migrate: int = 4
     dataset: str | None = None      # dataset label recorded in pareto.json
     out_dir: str | None = None
     checkpoint_every: int = 0       # generations between saves; 0 = off
@@ -128,10 +148,11 @@ def _drive_chunks(state, start: int, stop: int, every: int, make_chunk_fn,
 
 
 def _validate_resume_meta(ckpt_dir: str, step: int, family: str,
-                          cfg: SearchConfig) -> dict:
+                          cfg: SearchConfig, n_islands: int = 0) -> dict:
     """Refuse a checkpoint whose layout cannot match this run: another
-    driver family, another pop size, or a state not drawn from a torch
-    generator (a JAX checkpoint keeps a threefry key there). Returns the
+    driver family, another pop size, a state not drawn from a torch
+    generator (a JAX checkpoint keeps a threefry key there), or for the
+    islands another migration grid or number of islands. Returns the
     manifest's meta."""
     from repro_torch.runtime import checkpoint
 
@@ -151,6 +172,18 @@ def _validate_resume_meta(ckpt_dir: str, step: int, family: str,
             f"{where} holds rng={meta.get('rng')!r} state, not a torch "
             f"generator's (a JAX search checkpoint keeps a threefry key); "
             f"cannot resume it in the port")
+    if family != "islands":
+        return meta
+    if meta.get("migrate_every", cfg.migrate_every) != cfg.migrate_every:
+        raise ValueError(
+            f"islands checkpoint at step {step} was written with "
+            f"migrate_every={meta['migrate_every']}; resuming with "
+            f"migrate_every={cfg.migrate_every} would shift the round grid")
+    if meta.get("n_islands", n_islands) != n_islands:
+        raise ValueError(
+            f"islands checkpoint at step {step} was written on "
+            f"{meta['n_islands']} islands; this mesh has {n_islands} ranks "
+            f"(per-island populations would not line up)")
     return meta
 
 
@@ -173,14 +206,40 @@ def _restore_template(problem, cfg: SearchConfig, generator: torch.Generator):
             generator.get_state(), torch.zeros((), dtype=torch.int32))
 
 
-def _run_single(problem, cfg: SearchConfig, fitness):
-    """The chunked generation loop with checkpoint/resume. Returns (state,
-    n_evaluations, n_dispatches) for this call."""
+def _save(ckpt_dir: str, step: int, leaves, meta: dict) -> None:
+    """Write a checkpoint on rank 0 alone; every rank waits for it."""
+    from repro_torch.launch import mesh as _mesh
     from repro_torch.runtime import checkpoint
+
+    if _mesh.is_writer():
+        checkpoint.save(ckpt_dir, step, leaves, meta=meta)
+    _mesh.barrier()
+
+
+def _run_single(problem, cfg: SearchConfig, fitness, mesh=None):
+    """The chunked generation loop with checkpoint/resume. Returns (state,
+    n_evaluations, n_dispatches) for this call.
+
+    With a mesh the same schedule runs through `dist.make_sharded_chunk`
+    on this rank's slab; every rank seeds the same generator, restores
+    the whole saved state and keeps its slab, and the saves hold the
+    gathered state and the one replicated generator state (checked equal
+    on every rank), so they are the single-device run's."""
+    from repro_torch.core import dist
+    from repro_torch.runtime import checkpoint
+    from repro_torch.sharding import search as _specs
 
     device = problem.device
     nsga_cfg = nsga2.NSGA2Config(pop_size=cfg.pop_size,
                                  n_generations=cfg.n_generations)
+    if mesh is not None:
+        specs = dist.sharded_state_sharding(mesh)
+        group = mesh.get_group("pop")
+        n_shards = _specs.axis_extent(mesh, "pop")
+        if cfg.pop_size % n_shards:
+            raise ValueError(
+                f"pop_size={cfg.pop_size} not divisible by the mesh's "
+                f"pop axis ({n_shards})")
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.seed)
     state = None
@@ -197,19 +256,39 @@ def _run_single(problem, cfg: SearchConfig, fitness):
             genes, objs, rank, crowd, rng_state, _ = leaves
             generator.set_state(rng_state)
             state = nsga2.NSGA2State(genes, objs, rank, crowd, start_gen)
+            if mesh is not None:
+                dist.assert_replicated(generator.get_state(), group,
+                                       "the restored generator state")
+                state = _specs.shard_state(state, mesh, specs)
 
     if state is None:
         seed_genes = problem.exact_genes() if cfg.seed_exact else None
-        draws = nsga2.draw_init(generator, cfg.pop_size, problem.n_genes,
-                                0 if seed_genes is None else 1, device)
-        state = nsga2.init_state(fitness, nsga_cfg, draws,
-                                 seed_genes=seed_genes)
+        if mesh is not None:
+            state = dist.init_sharded(generator, fitness, problem.n_genes,
+                                      mesh, nsga_cfg, seed_genes=seed_genes)
+        else:
+            draws = nsga2.draw_init(generator, cfg.pop_size, problem.n_genes,
+                                    nsga2.seed_count(seed_genes), device)
+            state = nsga2.init_state(fitness, nsga_cfg, draws,
+                                     seed_genes=seed_genes)
         n_evals += cfg.pop_size
         n_dispatches += 1
 
     def make_chunk_fn(length):
-        chunk = nsga2.make_chunk(fitness, nsga_cfg, length)
+        if mesh is not None:
+            chunk = dist.make_sharded_chunk(fitness, mesh, nsga_cfg, length)
+        else:
+            chunk = nsga2.make_chunk(fitness, nsga_cfg, length)
         return lambda s: chunk(s, generator)
+
+    def whole(s):
+        return s if mesh is None else dist.gather_state(s, mesh, specs)
+
+    def save(gen, s):
+        if mesh is not None:
+            dist.assert_replicated(generator.get_state(), group,
+                                   "the generator state")
+        _save(ckpt_dir, gen, _state_leaves(whole(s), generator), meta)
 
     # no out_dir: nothing to save, so checkpoint_every does not shrink the
     # chunks (the whole run stays one dispatch)
@@ -217,13 +296,119 @@ def _run_single(problem, cfg: SearchConfig, fitness):
     state, cur_gen, n_chunks = _drive_chunks(
         state, start_gen, cfg.n_generations,
         cfg.checkpoint_every if saving else 0, make_chunk_fn,
-        (lambda gen, s: checkpoint.save(ckpt_dir, gen,
-                                        _state_leaves(s, generator),
-                                        meta=meta))
-        if saving else None)
+        save if saving else None)
     n_evals += cfg.pop_size * (cur_gen - start_gen)
     n_dispatches += n_chunks
-    return state, n_evals, n_dispatches
+    return whole(state), n_evals, n_dispatches
+
+
+def _islands_template(problem, n_islands: int, local_pop: int,
+                      generator: torch.Generator):
+    """Leaves of the gathered islands state for `checkpoint.restore`: the
+    islands' rows in ring order and one generator state per island."""
+    p, dev = n_islands * local_pop, problem.device
+    rng = generator.get_state()
+    return (torch.zeros((p, problem.n_genes), dtype=torch.float32, device=dev),
+            torch.zeros((p, 2), dtype=torch.float32, device=dev),
+            torch.zeros((p,), dtype=torch.int32, device=dev),
+            torch.zeros((p,), dtype=torch.float32, device=dev),
+            torch.zeros((n_islands, *rng.shape), dtype=rng.dtype),
+            torch.zeros((), dtype=torch.int32))
+
+
+def _run_islands(problem, cfg: SearchConfig):
+    """One NSGA-II island a rank of the ``data`` ring, ring migration.
+
+    Generations round UP to whole migration rounds (``migrate_every``
+    each), so the islands may run more generations than configured;
+    `n_evaluations` counts what ran. Rounds run as `dist.make_island_chunk`
+    calls sized to the checkpoint cadence: checkpoints land on round
+    boundaries, every ceil(checkpoint_every / migrate_every) rounds,
+    labelled in generations, and hold the gathered islands and every
+    island's generator state; a resume hands each rank its island's.
+    Returns (the gathered state, n_evaluations, n_dispatches)."""
+    from repro_torch.core import dist
+    from repro_torch.families import family_of
+    from repro_torch.launch.mesh import make_search_mesh
+    from repro_torch.runtime import checkpoint
+    from repro_torch.sharding import search as _specs
+
+    # the fitness the JAX package's islands use
+    fitness = family_of(problem).make_fitness(problem, "reference")
+    # one mesh constructor for every driver; islands default to a ring
+    # over every card
+    mesh = make_search_mesh(cfg.mesh or "auto", axes=("data",),
+                            device=problem.device)
+    n_islands = _specs.axis_extent(mesh, "data")
+    specs = dist.island_state_sharding(mesh)
+    local_pop = max(8, cfg.pop_size // n_islands)
+    island_cfg = dist.IslandConfig(
+        local_pop=local_pop, migrate_every=cfg.migrate_every,
+        n_migrate=min(cfg.n_migrate, local_pop // 2),
+        nsga=nsga2.NSGA2Config(pop_size=local_pop,
+                               n_generations=cfg.n_generations))
+    n_rounds = max(1, -(-cfg.n_generations // cfg.migrate_every))
+    ckpt_rounds = (max(1, -(-cfg.checkpoint_every // cfg.migrate_every))
+                   if cfg.checkpoint_every else 0)
+
+    state = generator = None
+    start_round = n_evals = n_dispatches = 0
+    ckpt_dir = _ckpt_dir(cfg)
+    meta = {"family": "islands", "backend": cfg.backend,
+            "pop_size": cfg.pop_size, "local_pop": local_pop,
+            "n_islands": n_islands, "migrate_every": cfg.migrate_every,
+            "rng": "torch"}
+    if cfg.resume and ckpt_dir:
+        step = checkpoint.latest_step(ckpt_dir)
+        if step is not None:
+            _validate_resume_meta(ckpt_dir, step, "islands", cfg, n_islands)
+            generator = torch.Generator(device=problem.device)
+            leaves, gens_done = checkpoint.restore(
+                ckpt_dir, step, _islands_template(problem, n_islands,
+                                                  local_pop, generator))
+            genes, objs, rank, crowd, rng_states, _ = leaves
+            state = _specs.shard_state(
+                nsga2.NSGA2State(genes, objs, rank, crowd, gens_done),
+                mesh, specs)
+            # a copy: set_state crashes on a view at a storage offset
+            generator.set_state(_specs.split(rng_states, specs["generator"],
+                                             mesh)[0].clone())
+            start_round = gens_done // cfg.migrate_every
+
+    if state is None:
+        state, generator = dist.init_islands(
+            cfg.seed, fitness, problem.n_genes, mesh, island_cfg,
+            seed_genes=problem.exact_genes() if cfg.seed_exact else None,
+            device=problem.device)
+        n_evals += n_islands * local_pop
+        n_dispatches += 1
+
+    def make_chunk_fn(n):
+        chunk = dist.make_island_chunk(fitness, mesh, island_cfg, n)
+        return lambda s: chunk(s, generator)
+
+    def save(rnd, s):
+        # the JAX package's leaves, one generator state per island where it
+        # keeps one key per island
+        whole = dist.gather_state(s, mesh, specs)
+        rng = dist.gather(generator.get_state()[None], specs["generator"],
+                          mesh)
+        _save(ckpt_dir, rnd * cfg.migrate_every,
+              (whole.genes, whole.objs, whole.rank, whole.crowd, rng,
+               np.int32(rnd * cfg.migrate_every)), meta)
+
+    saving = bool(ckpt_dir and ckpt_rounds)
+    state, cur_round, n_chunks = _drive_chunks(
+        state, start_round, n_rounds, ckpt_rounds if saving else 0,
+        make_chunk_fn, save if saving else None)
+    n_gens = cur_round * cfg.migrate_every
+    n_evals += n_islands * local_pop * (cur_round - start_round) \
+        * cfg.migrate_every
+    n_dispatches += n_chunks
+    whole = dist.gather_state(state, mesh, specs)
+    return (nsga2.NSGA2State(whole.genes, whole.objs, whole.rank,
+                             whole.crowd, n_gens), n_evals, n_dispatches)
+
 
 
 def run_search(problem, cfg: SearchConfig | None = None,
@@ -231,9 +416,10 @@ def run_search(problem, cfg: SearchConfig | None = None,
     """Search the problem's design space on its device; `overrides` are
     applied on top of `cfg` (or a default SearchConfig)."""
     cfg = dataclasses.replace(cfg or SearchConfig(), **overrides)
-    if cfg.backend not in _backends.BACKENDS:
+    backends = (*_backends.BACKENDS, "islands")
+    if cfg.backend not in backends:
         raise ValueError(
-            f"unknown backend {cfg.backend!r}; options: {_backends.BACKENDS}")
+            f"unknown backend {cfg.backend!r}; options: {backends}")
     if cfg.checkpoint_every < 0:
         raise ValueError(
             f"checkpoint_every must be >= 0, got {cfg.checkpoint_every}")
@@ -242,9 +428,17 @@ def run_search(problem, cfg: SearchConfig | None = None,
     if cfg.pop_size < 2 or cfg.pop_size % 2:
         raise ValueError(f"pop_size must be even and >= 2, got {cfg.pop_size}")
 
+    from repro_torch.launch import mesh as _mesh
+
     t0 = time.time()
-    fitness = _backends.make_fitness(problem, cfg.backend)
-    state, n_evals, n_dispatches = _run_single(problem, cfg, fitness)
+    if cfg.backend == "islands":
+        state, n_evals, n_dispatches = _run_islands(problem, cfg)
+    else:
+        fitness = _backends.make_fitness(problem, cfg.backend)
+        mesh = _mesh.make_search_mesh(cfg.mesh, axes=("pop",),
+                                      device=problem.device)
+        state, n_evals, n_dispatches = _run_single(problem, cfg, fitness,
+                                                   mesh=mesh)
     objs, genes = nsga2.pareto_front(state.objs, state.genes)
     wall_s = time.time() - t0
 
@@ -257,12 +451,13 @@ def run_search(problem, cfg: SearchConfig | None = None,
         n_evaluations=n_evals,
         n_dispatches=n_dispatches,
     )
-    if cfg.out_dir:
+    if cfg.out_dir and _mesh.is_writer():
         from repro_torch.families import family_of
 
         family_of(problem).write_artifact(
             problem, result, cfg.out_dir, emit_rtl=cfg.emit_rtl,
             verify_rtl=cfg.verify_rtl, dataset=cfg.dataset)
+    _mesh.barrier()
     return result
 
 

@@ -116,8 +116,10 @@ def predict_votes(problem: SearchProblem, bits: torch.Tensor,
     t2 = t_sub[None] if single else t_sub
     path_t = problem.path.to(torch.float32).T
     target = (problem.path_len - problem.n_neg).to(torch.float32)
-    cls1h = torch.nn.functional.one_hot(
-        problem.leaf_class.long(), problem.n_classes).to(torch.float32)
+    # one-hot by comparison: `one_hot` checks its indices with a host sync,
+    # which a CUDA graph capture (the islands' chunks) refuses
+    cls1h = (problem.leaf_class.long()[:, None] == torch.arange(
+        problem.n_classes, device=bits2.device)).to(torch.float32)
     caps = None
     if vote_cap is not None:
         caps = torch.as_tensor(vote_cap, device=bits2.device).reshape(-1)

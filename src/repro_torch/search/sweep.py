@@ -413,7 +413,11 @@ class SweepConfig:
     vmapped: bool = True            # batched; False = the serial oracle
     granule: int = GRANULE
     max_buckets: int = DEFAULT_MAX_BUCKETS
-    mesh: str | None = None         # multi-device sweeps are not ported
+    # a `launch.mesh.make_search_mesh(axes=("bucket", "pop"))` spec: "2x4"
+    # spreads each bucket's problem stack over 2 bucket ranks and every
+    # population over 4; "4"/"auto" put every rank on the population axis.
+    # None = one device. Requires vmapped (the serial loop is the oracle)
+    mesh: str | None = None
     out_dir: str | None = None      # per-dataset artifacts under OUT/<name>/
     emit_rtl: bool = False
     verify_rtl: bool = False
@@ -450,13 +454,8 @@ def problem_generators(names_sorted: list[str], seed: int,
     """One generator per problem on ``device``: dataset i of the
     name-sorted campaign is seeded from (seed, i), so its stream never
     depends on the bucket plan (the counterpart of JAX's ``fold_in``)."""
-    out = {}
-    for i, name in enumerate(names_sorted):
-        state = np.random.SeedSequence([seed, i]).generate_state(2, np.uint32)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(state[0]) | (int(state[1]) << 31))
-        out[name] = gen
-    return out
+    return {name: nsga2.stream_generator(seed, i, device)
+            for i, name in enumerate(names_sorted)}
 
 
 def _synchronize(device: torch.device) -> None:
@@ -469,15 +468,51 @@ def _launch_delta(before: dict) -> dict:
     return {k: now[k] - before[k] for k in now if now[k] != before[k]}
 
 
+def _run_bucket_mesh(fam, padded: list, generators: list, n_genes: int,
+                     seed_genes, nsga_cfg: nsga2.NSGA2Config, mesh,
+                     n_generations: int) -> list:
+    """A bucket on a (bucket, pop) mesh: the stack split over the bucket
+    axis (padded to a multiple of it by repeating the last problem, with a
+    generator of its own in the same state) and each population over the
+    pop axis; returns every lane's whole final state, on every rank."""
+    from repro_torch.core import dist
+    from repro_torch.sharding import search as _specs
+
+    pad_k = (-len(padded)) % _specs.axis_extent(mesh, "bucket")
+    extra = []
+    for _ in range(pad_k):
+        gen = torch.Generator(device=generators[-1].device)
+        gen.set_state(generators[-1].get_state())
+        extra.append(gen)
+    specs = _specs.batched_state_specs()
+    lanes = _specs.split(padded + [padded[-1]] * pad_k, specs["generator"],
+                         mesh)
+    gens = _specs.split(generators + extra, specs["generator"], mesh)
+    stacked = stack_padded(lanes)
+    init = nsga2.make_batched_init(
+        dist.sharded_fitness(
+            lambda pop: fam.population_objectives(stacked, pop), mesh),
+        n_genes, nsga_cfg, seed_genes=seed_genes)
+    state = _specs.split_pop(init(gens, stacked.exact_accuracy.device),
+                             mesh, specs)
+    chunk = dist.make_sharded_batched_chunk(fam.population_objectives, mesh,
+                                            nsga_cfg, n_generations)
+    state = dist.gather_state(chunk(state, stacked, gens), mesh, specs)
+    return [state.member(i) for i in range(len(padded))]
+
+
 def run_bucket(fam, padded: list, generators: list, n_genes: int, seed_genes,
-               cfg: SweepConfig):
+               cfg: SweepConfig, mesh=None):
     """Advance one bucket's padded problems: batched (one init and one
-    chunk for all) or, with ``cfg.vmapped`` False, one problem at a time
-    through the unbatched `nsga2.make_chunk`. Returns (per-problem states,
-    dispatches)."""
+    chunk for all; on a mesh, `_run_bucket_mesh`) or, with ``cfg.vmapped``
+    False, one problem at a time through the unbatched `nsga2.make_chunk`.
+    Returns (per-problem states, dispatches)."""
     nsga_cfg = nsga2.NSGA2Config(pop_size=cfg.pop_size,
                                  n_generations=cfg.n_generations)
     device = padded[0].exact_accuracy.device
+    if mesh is not None:
+        return _run_bucket_mesh(fam, padded, generators, n_genes, seed_genes,
+                                nsga_cfg, mesh, cfg.n_generations), 2
     if cfg.vmapped:
         stacked = stack_padded(padded)
 
@@ -509,7 +544,8 @@ def run_bucket(fam, padded: list, generators: list, n_genes: int, seed_genes,
 def run_sweep(problems: dict, cfg: SweepConfig | None = None,
               **overrides) -> SweepResult:
     """Run the NSGA-II campaign over every problem in `problems` (all on
-    one device).
+    one device, or on every rank of a ``cfg.mesh``, each rank returning
+    the whole result and rank 0 alone writing the artifacts).
 
     Returns per-dataset `SearchResult`s (pareto genes unpadded back to
     each problem's real layout) and bucket-level dispatch and time
@@ -522,17 +558,27 @@ def run_sweep(problems: dict, cfg: SweepConfig | None = None,
         raise ValueError("run_sweep needs at least one problem")
     if (cfg.emit_rtl or cfg.verify_rtl) and not cfg.out_dir:
         raise ValueError("emit_rtl/verify_rtl require out_dir")
-    if cfg.mesh:
-        raise ValueError("mesh sharding of the sweep is not ported yet: "
-                         "ROADMAP.md Queue 1 item 12")
     if cfg.pop_size < 2 or cfg.pop_size % 2:
         raise ValueError(f"pop_size must be even and >= 2, got {cfg.pop_size}")
     from repro_torch.families import get_family
+    from repro_torch.launch import mesh as _mesh
 
     devices = {problems[n].device for n in problems}
     if len(devices) != 1:
         raise ValueError(f"a campaign runs on one device, got {devices}")
     device = devices.pop()
+    mesh = None
+    if cfg.mesh:
+        if not cfg.vmapped:
+            raise ValueError("mesh sharding requires the vmapped path "
+                             "(the serial loop is the mesh-free oracle)")
+        mesh = _mesh.make_search_mesh(cfg.mesh, axes=("bucket", "pop"),
+                                      device=device)
+        n_pop = mesh.size(1) if mesh is not None else 1
+        if cfg.pop_size % n_pop:
+            raise ValueError(
+                f"pop_size={cfg.pop_size} not divisible by the mesh's pop "
+                f"axis ({n_pop})")
     names_sorted = sorted(problems)
     generators = problem_generators(names_sorted, cfg.seed, device)
     buckets = plan_buckets(problems, granule=cfg.granule,
@@ -551,7 +597,7 @@ def run_sweep(problems: dict, cfg: SweepConfig | None = None,
         states, n_dispatches = run_bucket(
             fam, padded, [generators[n] for n in bucket.names],
             fam.padded_n_genes(bucket.dims),
-            fam.padded_exact_genes(bucket.dims), cfg)
+            fam.padded_exact_genes(bucket.dims), cfg, mesh)
         _synchronize(device)
         search_s = time.perf_counter() - t_s
         launches = _launch_delta(before)
@@ -572,12 +618,13 @@ def run_sweep(problems: dict, cfg: SweepConfig | None = None,
                 n_evaluations=cfg.pop_size * (1 + cfg.n_generations),
                 n_dispatches=n_dispatches)  # shared across the bucket
             results[name] = result
-            if cfg.out_dir:
+            if cfg.out_dir and _mesh.is_writer():
                 fam.write_artifact(
                     problem, result, os.path.join(cfg.out_dir, name),
                     emit_rtl=cfg.emit_rtl, verify_rtl=cfg.verify_rtl,
                     dataset=name)
 
+    _mesh.barrier()
     return SweepResult(results=results, bucket_runs=bucket_runs,
                        wall_s=time.time() - t0)
 
