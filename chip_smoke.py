@@ -56,12 +56,14 @@ Phases, each of which stops the script with a non-zero exit on failure:
    2e-5; bfloat16 by `row_error`, a row's largest difference over its root
    mean square, within 2^-4) at the LM prefill's shape (llama3.2-3b at
    B=4, S=4096: H=96, Hkv=32, hd=128, bf16) in the model's (B, S, H, hd)
-   layout through `flash_attention_bshd`, and in the (H, S, hd) layout in
-   float32, with grok's softcap 30, at gemma's MQA with head dim 256 and at
-   a ragged S=1000; time it at the main shape beside its plain version, its
-   bound (the bf16 tensor-core rate) and `scaled_dot_product_attention`
-   (causal, GQA); and check that the model's prefill attention runs nothing
-   on the card but the kernel (no layout copies).
+   layout through `flash_attention_bshd`, and at zamba2-7b's (B=4, S=4096,
+   H=Hkv=32, hd=112, bf16) the same way; in the (H, S, hd) layout in
+   float32 (hd 64 and 112), with grok's softcap 30, at gemma's MQA with
+   head dim 256 and at a ragged S=1000; time it at both model shapes beside
+   its plain version, its bound (the bf16 tensor-core rate) and
+   `scaled_dot_product_attention` (causal, GQA); and check that the model's
+   prefill attention runs nothing on the card but the kernel (no layout
+   copies).
 7. `[lm]`: the LM serving path at llama3.2-3b's full width (28 layers,
    random bf16 weights from the seed): `generate` of 32 greedy tokens after
    a B=4 x 4096-token prompt (the repo's `train_4k` length; `prefill_32k`
@@ -71,20 +73,32 @@ Phases, each of which stops the script with a non-zero exit on failure:
    must give the same tokens, and prefill and decode times, peak memory and
    the device time of one prefill split into the attention kernel,
    matmuls and the rest are printed.
-8. Print where one generation's time goes on each search path (its
+8. `[ssm]`: the SSM and hybrid serving paths at mamba2-1.3b's and
+   zamba2-7b's full width (48 and 81 mamba2 layers, zamba2's 13 shared
+   attention invocations at head dim 112; random bf16 weights from the
+   seed), each as `[lm]`: `generate` of 32 greedy tokens after the B=4 x
+   4096 prompt, counted (zamba2: `flash_attention` once per super-block of
+   the prefill, 13; mamba2 runs no TPU kernel: its SSD scan is plain
+   PyTorch, as it is jnp in the JAX package); decode held to a fresh
+   prefill within a quarter of the largest logit (the SSD takes only whole
+   chunks of 256 past the first, so decode at position 255 and 3840 after
+   a prefill of as many tokens is held to that position of one causal
+   forward over the prompt); a second `generate` identical; prefill and
+   decode times, peak memory and one prefill's device time split.
+9. Print where one generation's time goes on each search path (its
    survivor selection run once under sync debug mode "error", its ranks
    held to the host loop's on the same pool).
-9. `[chunk]`: on the tree and MLP `har` paths, 8 generations chunked with
+10. `[chunk]`: on the tree and MLP `har` paths, 8 generations chunked with
    `checkpoint_every=4` (each chunk one captured CUDA graph, its warm-up
    step run under sync debug mode "error") must equal the per-generation
    loop element for element; one generation's host time, device busy time
    and idle share inside a captured chunk beside an eager step's; the
    graphs captured and the dispatches.
-10. `[resume]`: 8 tree `har` generations saving every 3; a fresh
+11. `[resume]`: 8 tree `har` generations saving every 3; a fresh
    `run_search` resuming from the step-6 save must equal the uninterrupted
    run, the step-8 saves (the CUDA generator's state included) leaf for
    leaf.
-11. `[sweep]`: the paper's campaign, `repro_torch.search.sweep.run_sweep`
+12. `[sweep]`: the paper's campaign, `repro_torch.search.sweep.run_sweep`
    over the ten datasets at their real sizes (six buckets, pop 64, 40
    generations, the CLI's defaults): batched with `verify_rtl` and the
    report, then the serial loop, equal array for array; per bucket its
@@ -99,7 +113,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    beside their bounds; then a mixed campaign (seeds and vertebral
    two-tree forests in one bucket, seeds and pendigits MLPs in another,
    pop 16, 4 generations), batched == serial.
-12. `[faults]`: the stuck-at campaign (`core.faults`, `search.robustness`,
+13. `[faults]`: the stuck-at campaign (`core.faults`, `search.robustness`,
    plain PyTorch on the card). The har tree's best point over all 3090
    test rows: its zero-fault lane == `netlist.simulate` == the argmax of
    `tree_infer_scores`' votes (`ops.classify`, the `--verify-rtl` leg);
@@ -119,7 +133,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    each `fault_report.json` == the CPU's but the pendigits MLP's. Its
    launches alone are the phase's count: the checks above launch kernels
    too, outside that window.
-13. `[mesh]`: the multi-device search (`core.dist`, `launch.mesh`), two
+14. `[mesh]`: the multi-device search (`core.dist`, `launch.mesh`), two
    ranks spawned on the one card over gloo (NCCL refuses two ranks on one
    GPU; this checks the code and its arithmetic, not NVLink): (a) the har
    tree, kernel backend, pop 512, `mesh="2"`, 8 generations with
@@ -135,7 +149,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    collectives a generation, one `all_reduce` alone, spawn and rendezvous
    s; the slab and `fitness_errors` at a rank's shapes timed beside their
    bounds (rows `domination_block[shard]`, `fitness_errors[shard]`).
-14. The kernel list, the card's name and power limit, one JSON line of
+15. The kernel list, the card's name and power limit, one JSON line of
    per-kernel results (each row names what it times in `what`; the rows
    `fitness_errors[bucket]` and `domination_block[bucket]` are the batched
    launches, the `[shard]` rows a mesh rank's), and last `{"ok": true,
@@ -205,6 +219,9 @@ TPU_KERNELS = {  # kernel -> (port source, the TPU kernel it replaces,
 }
 LM_ARCH = "llama3.2-3b"            # full width; the repo's train_4k length
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 4096, 32
+SSM_ARCHS = ("mamba2-1.3b", "zamba2-7b")   # [ssm]: full width, same prompt
+SSD_CHUNK = 256                    # ssm_block's default chunk
+FLASH_112 = "flash_attention[hd 112]"      # the kernel line's zamba2 row
 FLASH_F32_TOL = 2e-5               # tests/test_kernels.py:208-209
 # bfloat16: `row_error` (a query row's largest difference over the row's
 # root mean square) at most two bf16 ulps of a row's largest element at four
@@ -218,6 +235,17 @@ FLASH_BF16_ROW_TOL = 2.0 ** -4
 # 0.109 measured on an H100 on logits up to 5.2, against five ulps
 # (0.03125 each in [4, 8)) here
 LM_LOGIT_ATOL = 0.15
+# [ssm]: decode against a fresh prefill, as a share of the prefill's
+# largest logit. In bf16 decode runs the exact float32 recurrence and a
+# one-step conv einsum where the prefill rounds the SSD weight block and x
+# to bf16 and the conv after every tap, and the layers carry that on; the
+# JAX package's own decode differs from its fresh prefill as much as the
+# port's (tests/test_torch_ssm.py::test_bf16_decode_spread_is_the_jax_
+# packages: 2.8% at 12 layers and 16 steps), growing with depth and
+# steps: 0.034 and 0.045 of the largest logit measured on an H100 at
+# position 255 (mamba2-1.3b, zamba2-7b); a decode that lost its caches
+# differs by the logits' own scale
+SSM_LOGIT_RTOL = 0.25
 
 
 def log(msg: str) -> None:
@@ -1916,30 +1944,37 @@ def attention_pairs(sq: int, skv: int) -> int:
 
 def phase_flash(rng) -> dict:
     """`flash_attention` against its plain version on the card: the LM
-    prefill's shape (llama3.2-3b at B=4, S=4096) in the model's (B, S, H,
-    hd) layout through `flash_attention_bshd`, then float32, grok's softcap,
+    prefill's shape (llama3.2-3b at B=4, S=4096) and zamba2-7b's (B=4,
+    S=4096, H=Hkv=32, hd 112) in the model's (B, S, H, hd) layout through
+    `flash_attention_bshd`, then float32 (hd 64 and 112), grok's softcap,
     gemma's MQA with head dim 256 and a ragged S in the (H, S, hd) layout;
-    timed at the main shape beside its bound and
+    both model shapes timed beside their bounds and
     `scaled_dot_product_attention` (causal, GQA, the one PyTorch call that
     computes the same function without a softcap); and the device
-    activities other than the kernel in the model's prefill attention."""
+    activities other than the kernel in the model's prefill attention.
+    Returns the kernel line's rows of the two model shapes."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.models import attention
 
     cfg = get_config(LM_ARCH)
+    zcfg = get_config(SSM_ARCHS[1])
     b, kv, g = LM_BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     cases = [  # (name, H, Hkv, S, hd, dtype, softcap)
         ("main", b * cfg.n_heads, b * kv, LM_PROMPT, cfg.head_dim,
          torch.bfloat16, 0.0),
+        ("hd 112", b * zcfg.n_heads, b * zcfg.n_kv_heads, LM_PROMPT,
+         zcfg.head_dim, torch.bfloat16, 0.0),
         ("float32", 8, 4, 512, 64, torch.float32, 0.0),
+        ("float32 hd 112", 8, 8, 777, 112, torch.float32, 0.0),
         ("softcap 30", 48, 8, 1024, 128, torch.bfloat16, 30.0),
         ("MQA hd 256", 8, 1, 2048, 256, torch.bfloat16, 0.0),
         ("ragged", 24, 8, 1000, 128, torch.bfloat16, 0.0),
     ]
-    err, result = 0.0, None
+    err, rows = 0.0, {}
     for name, h, hkv, s, hd, dtype, cap in cases:
-        if name == "main":   # (B, S, heads, hd), as the model holds them
+        model = name in ("main", "hd 112")
+        if model:   # (B, S, heads, hd), as the model holds them
             q, k, v = (torch.as_tensor(rng.standard_normal(
                 (b, s, n // b, hd), dtype=np.float32), device="cuda")
                 .to(dtype) for n in (h, hkv, hkv))
@@ -1974,7 +2009,7 @@ def phase_flash(rng) -> dict:
                    f"half of the rows {late:.4f})")
         err = max(err, e)
         log(f"[flash] {where}: {how}; largest difference {e:.3g}")
-        if name != "main":
+        if not model:
             continue
         del want
         ms, plain_ms, text = timed(
@@ -1993,43 +2028,47 @@ def phase_flash(rng) -> dict:
         n_ops = 4 * attention_pairs(s, s) * hd * h
         n_bytes = (2 * h + 2 * hkv) * s * hd * q.element_size()
         bms, by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
-        log(f"[flash] main shape, model layout: {text}; "
+        log(f"[flash] {name} shape, model layout: {text}; "
             f"scaled_dot_product_attention {lib_ms:.4f} ms {lib_how} "
             f"(differs from the kernel by {lib_err:.3g}); bound {bms:.4f} "
             f"ms ({by}; {n_ops:.4g} FLOPs at 989 TFLOP/s bf16, {n_bytes} "
             f"bytes); kernel at {n_ops / ms / 1e9:.1f} TFLOP/s, "
             f"{ms / lib_ms:.2f}x SDPA, {ms / bms:.2f}x its bound")
-        # what else the model's prefill attention runs on the card: the
-        # kernel reads q, k, v and writes its output in the model's layout
-        qg = q.view(b, s, kv, g, hd)
-        attention.chunked_prefill_attention(qg, k, v)
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            attention.chunked_prefill_attention(qg, k, v)
-            torch.cuda.synchronize()
-        others = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and "flash_attn" not in e.name]
-        other_ms = sum(e.time_range.elapsed_us() for e in others) / 1e3
-        log(f"[flash] device activities beside the kernel in one "
-            f"chunked_prefill_attention at the main shape: {len(others)} "
-            f"({other_ms:.4f} ms){': ' if others else ''}"
-            f"{', '.join(sorted({e.name[:60] for e in others}))}")
-        check(not others, "the model's prefill attention copies around "
-              "the kernel")
-        result = dict(
-            name="flash_attention", route="cuda",
-            source=TPU_KERNELS["flash_attention"][0],
+        key = "flash_attention" if name == "main" else FLASH_112
+        rows[key] = dict(
+            name=key, route="cuda", source=TPU_KERNELS["flash_attention"][0],
             replaces=TPU_KERNELS["flash_attention"][1], launches=0,
             max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
             bound_by=by, library_ms=lib_ms)
-        del q, k, v, got, qt, kt, vt, qg
-    result["max_abs_err"] = err
+        if name == "main":
+            # what else the model's prefill attention runs on the card: the
+            # kernel reads q, k, v and writes its output in the model's
+            # layout
+            qg = q.view(b, s, kv, g, hd)
+            attention.chunked_prefill_attention(qg, k, v)
+            torch.cuda.synchronize()
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                attention.chunked_prefill_attention(qg, k, v)
+                torch.cuda.synchronize()
+            others = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "flash_attn" not in e.name]
+            other_ms = sum(e.time_range.elapsed_us() for e in others) / 1e3
+            log(f"[flash] device activities beside the kernel in one "
+                f"chunked_prefill_attention at the main shape: {len(others)} "
+                f"({other_ms:.4f} ms){': ' if others else ''}"
+                f"{', '.join(sorted({e.name[:60] for e in others}))}")
+            check(not others, "the model's prefill attention copies around "
+                  "the kernel")
+            del qg
+        del q, k, v, got, qt, kt, vt
+    for row in rows.values():
+        row["max_abs_err"] = err
     log(f"[flash] the largest difference from the plain version over all "
         f"cases is {err:.3g}")
-    return result
+    return rows
 
 
 def phase_lm() -> dict:
@@ -2155,12 +2194,170 @@ def phase_lm() -> dict:
         f"(host clock)")
     del caches
 
+    prefill_profile("[lm]", lambda: lm.prefill(params, cfg, batch,
+                                                s_max=s_max), t_prefill)
+    return dict(counts=counts)
+
+
+def phase_ssm(arch: str) -> dict:
+    """The SSM / hybrid serving path at ``arch``'s full width: random bf16
+    parameters and the [lm] phase's B=4 x 4096-token prompt from the seed,
+    greedy `generate` of 32 tokens, counted (zamba2-7b: one
+    `flash_attention` launch, at head dim 112, per super-block of the
+    prefill; mamba2-1.3b runs no kernel of the TPU's). The SSD takes a
+    prompt longer than its chunk only in whole chunks, so no prefill of
+    P + 1 tokens exists past one chunk: decode at position P right after a
+    prefill of P tokens is held to position P of one causal forward over
+    the whole prompt, at P = 255 and 3840 (`decode_vs_prefill`); the decode
+    step after the prompt must pick `generate`'s second token, a second
+    `generate` the same tokens; then prefill and decode times, peak memory
+    and where one prefill's device time goes."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, transformer
+    from repro_torch.runtime import lm_serve
+
+    cfg = get_config(arch)
+    tag = f"[ssm {arch}]"
+    s_max = LM_PROMPT + LM_TOKENS
+    n_super = (transformer.hybrid_layout(cfg)[0] if cfg.family == "hybrid"
+               else 0)
+    t0 = time.perf_counter()
+    params = transformer.init_params(SEED, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{tag} {cfg.family}: {cfg.n_layers} mamba2 layers, d_model "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_nheads} SSD heads "
+        f"of {cfg.ssm_head_dim}, state {cfg.ssm_state}"
+        + (f", {n_super} super-blocks of {cfg.shared_attn_every} + tail "
+           f"{transformer.hybrid_layout(cfg)[2]}, {cfg.n_shared_blocks} "
+           f"shared attention blocks ({cfg.n_heads} heads of "
+           f"{cfg.head_dim}, d_ff {cfg.d_ff})" if n_super else "")
+        + f", vocab {cfg.vocab_size}, {n_params:,} parameters in "
+        f"{cfg.dtype} ({time.perf_counter() - t0:.1f} s to draw); prompt "
+        f"B={LM_BATCH} x {LM_PROMPT} tokens, {LM_TOKENS} new, s_max {s_max}")
+
+    batch = {"tokens": prompt}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = lm_serve.generate(params, cfg, batch, n_tokens=LM_TOKENS,
+                            s_max=s_max)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["flash_attention"] == n_super,
+          f"{arch}: flash_attention launched {counts['flash_attention']} "
+          f"times in one generate, not once per super-block of the prefill "
+          f"({n_super})")
+    check(tuple(out.shape) == (LM_BATCH, LM_TOKENS)
+          and out.dtype == torch.int32, f"generate gave {tuple(out.shape)} "
+          f"{out.dtype}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "generated tokens outside the vocabulary")
+    log(f"{tag} generate: {t_gen * 1e3:.1f} ms for {LM_BATCH} x "
+        f"{LM_TOKENS} tokens after the prompt; launches {counts}; peak "
+        f"memory {peak / 2**30:.2f} GiB")
+
+    logits_f, caches = lm.prefill(params, cfg, batch, s_max=s_max)
+    check(torch.equal(logits_f[:, -1, :cfg.vocab_size].argmax(-1).int(),
+                      out[:, 0]), "prefill's argmax is not generate's first "
+          "token")
+    logits_n, _ = lm.decode_step(params, cfg, out[:, :1], caches, LM_PROMPT)
+    check(torch.equal(logits_n[:, -1, :cfg.vocab_size].argmax(-1).int(),
+                      out[:, 1]), "decode's argmax is not generate's second "
+          "token")
+    del caches, logits_n
+    # decode at position P right after a prefill of P tokens vs position P
+    # of one causal forward over the whole prompt (the logits of a fresh
+    # prefill of P + 1 tokens, which the SSD refuses past one chunk): P =
+    # 255, inside the first chunk, and 3840, after 15 whole chunks
+    hidden, _ = transformer.forward(params, cfg, prompt)
+    for p in (SSD_CHUNK - 1, LM_PROMPT - SSD_CHUNK):
+        _, caches = lm.prefill(params, cfg, {"tokens": prompt[:, :p]},
+                               s_max=s_max)
+        logits_d, _ = lm.decode_step(params, cfg, prompt[:, p:p + 1],
+                                     caches, p)
+        fresh = transformer.logits_from_hidden(params, cfg,
+                                               hidden[:, p:p + 1])
+        decode_vs_prefill(
+            f"{tag} decode at position {p} after a prefill of {p} vs "
+            f"position {p} of a forward over the prompt",
+            logits_d[:, -1, :cfg.vocab_size].float(),
+            fresh[:, -1, :cfg.vocab_size].float())
+        del caches, logits_d, fresh
+    del hidden, logits_f
+
+    again = lm_serve.generate(params, cfg, batch, n_tokens=LM_TOKENS,
+                              s_max=s_max)
+    check(torch.equal(out, again), "a second generate gave other tokens")
+    log(f"{tag} a second generate gave identical tokens")
+
+    t_prefill = host_ms(lambda: lm.prefill(params, cfg, batch, s_max=s_max))
+    _, caches = lm.prefill(params, cfg, batch, s_max=s_max)
+    tok = out[:, :1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(LM_TOKENS - 1):
+        lm.decode_step(params, cfg, tok, caches, LM_PROMPT + i)
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t) * 1e3 / (LM_TOKENS - 1)
+    decode_dev, decode_how = device_or_stream_ms(
+        lambda: lm.decode_step(params, cfg, tok, caches, LM_PROMPT), 3)
+    log(f"{tag} prefill {t_prefill:.1f} ms "
+        f"({LM_BATCH * LM_PROMPT / t_prefill * 1e3:.0f} prompt tokens/s); "
+        f"decode {t_dec:.2f} ms per step of {LM_BATCH} tokens "
+        f"({LM_BATCH / t_dec * 1e3:.1f} tokens/s), {decode_dev:.2f} ms of "
+        f"it {decode_how}; generate {LM_BATCH * LM_TOKENS / t_gen:.1f} new "
+        f"tokens/s end to end (host clock)")
+    del caches
+    prefill_profile(tag, lambda: lm.prefill(params, cfg, batch, s_max=s_max),
+                    t_prefill)
+    del params
+    torch.cuda.empty_cache()
+    return dict(counts=counts)
+
+
+def decode_vs_prefill(what: str, ld: torch.Tensor, lf: torch.Tensor) -> None:
+    """Hold decode's logits ``ld`` (B, V) to a fresh prefill's ``lf`` within
+    SSM_LOGIT_RTOL of the prefill's largest logit; the argmax must agree in
+    every row whose top-2 gap exceeds twice that row's difference (a
+    closer pair is within the rounding spread)."""
+    check(bool(torch.isfinite(ld).all() and torch.isfinite(lf).all()),
+          f"{what}: non-finite logits")
+    row_diff = (ld - lf).abs().amax(-1)
+    diff = float(row_diff.max())
+    scale = float(lf.abs().max())
+    top2 = lf.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    same = ld.argmax(-1) == lf.argmax(-1)
+    decided = gap > 2 * row_diff
+    log(f"{what}: largest logit difference {diff:.4f}, {diff / scale:.4f} "
+        f"of the largest logit {scale:.3f} (limit {SSM_LOGIT_RTOL}; by row "
+        f"{[round(x, 4) for x in row_diff.tolist()]}); same argmax in rows "
+        f"{same.tolist()}; top-2 gaps {[round(x, 4) for x in gap.tolist()]}")
+    check(diff <= SSM_LOGIT_RTOL * scale, f"{what}: decode logits differ "
+          f"from a fresh prefill's by {diff} ({diff / scale} of the largest)")
+    check(bool(same[decided].all()), f"{what}: decode and prefill pick "
+          f"other tokens in a row whose top-2 gap exceeds twice its "
+          f"difference")
+
+
+def prefill_profile(tag: str, prefill, t_prefill: float) -> None:
+    """Print where one ``prefill()``'s device time goes (a profiler trace
+    after a warm-up call): the attention kernel, matmuls (cuBLAS) and the
+    rest, the idle share against its host-clock ``t_prefill`` ms, and the
+    largest device activities by name."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    lm.prefill(params, cfg, batch, s_max=s_max)
+    prefill()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        lm.prefill(params, cfg, batch, s_max=s_max)
+        prefill()
         torch.cuda.synchronize()
     split = {"attention kernel": 0.0, "matmuls": 0.0, "rest": 0.0}
     by_name: dict[str, float] = {}
@@ -2177,17 +2374,16 @@ def phase_lm() -> dict:
             split["rest"] += us
     busy = sum(split.values()) / 1e3
     if busy == 0:
-        log("[lm] the profiler saw no device activity in one prefill: no "
-            "split")
-        return dict(counts=counts)
-    log(f"[lm] one prefill's device time {busy:.1f} ms (host clock "
+        log(f"{tag} the profiler saw no device activity in one prefill: no "
+            f"split")
+        return
+    log(f"{tag} one prefill's device time {busy:.1f} ms (host clock "
         f"{t_prefill:.1f} ms, idle share {1 - busy / t_prefill:.3f}): "
         + ", ".join(f"{k} {v / 1e3:.1f} ms ({v / 1e3 / busy:.1%})"
                     for k, v in split.items()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log("[lm] largest device activities of one prefill: " + "; ".join(
+    log(f"{tag} largest device activities of one prefill: " + "; ".join(
         f"{n[:70]} {us / 1e3:.2f} ms" for n, us in top))
-    return dict(counts=counts)
 
 
 # substrings of the cuBLAS / CUTLASS GEMM kernels' names in a trace
@@ -2532,7 +2728,8 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     results = phase_kernels(problem, rng)
     results["qmatmul"] = phase_qmatmul(mlp_problems[MLP_RUNS[0][0]], rng)
-    results["flash_attention"] = phase_flash(rng)
+    flash_rows = phase_flash(rng)
+    results["flash_attention"] = flash_rows["flash_attention"]
     launches = dict.fromkeys(results, 0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         tree_path = phase_main_path(problem, out_dir)
@@ -2544,6 +2741,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_forest_") as out_dir:
         forest_path = phase_forest(rng, out_dir)
     lm_path = phase_lm()
+    torch.cuda.empty_cache()
+    ssm_paths = {arch: phase_ssm(arch) for arch in SSM_ARCHS}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as d:
         sweep_path = phase_sweep(rng, d)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as d:
@@ -2553,7 +2752,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
         mesh_path = phase_mesh(problem, tree_path, sweep_path, d, rng)
     for path in (tree_path, *mlp_paths.values(), forest_path, lm_path,
-                 sweep_path, faults_path, mesh_path):
+                 *ssm_paths.values(), sweep_path, faults_path, mesh_path):
         for name, count in path["counts"].items():
             launches[name] += count
     check(all(v > 0 for v in launches.values()),
@@ -2563,6 +2762,13 @@ def main() -> None:
         results[name]["what"] = TPU_KERNELS[name][2]
     check(all(row["launches"] > 0 for row in sweep_path["rows"].values()),
           "a batched kernel never launched in the campaign")
+    results[FLASH_112] = flash_rows[FLASH_112]
+    results[FLASH_112]["launches"] = \
+        ssm_paths[SSM_ARCHS[1]]["counts"]["flash_attention"]
+    results[FLASH_112]["what"] = (
+        "bf16 zamba2-7b prefill, q, k and v (4, 4096, 32, 112), the model's "
+        "layout: the HD=128 tiles on 112-column TMA maps (1.14x the work); "
+        "launches: the [ssm] zamba2-7b generate's")
     results.update(sweep_path["rows"])
     results.update(mesh_path["rows"])
 

@@ -106,18 +106,23 @@ def mlp_problem_from_arrays(w1_master, w2_master, shift: int, n_classes: int,
 def lm_params_from_arrays(params_np: dict, cfg, device="cuda") -> dict:
     """The port's LM parameters from a JAX `transformer.init_params` tree
     read out as numpy arrays: ``embed``, ``final_norm``, the stacked
-    ``layers`` (ln1, attn {wq, wk, wv, wo}, ln2, ffn {wi, [wg,] wo}) and
-    ``lm_head`` when the embeddings are not tied. The port keeps the same
-    tree, so the mapping is one to one; each array becomes a tensor of the
-    config's dtype on ``device`` (bfloat16 arrays pass through float32,
-    which holds them exactly)."""
+    ``layers`` (attn_mlp: ln1, attn {wq, wk, wv, wo}, ln2, ffn {wi, [wg,]
+    wo}; ssm: ln1, ssm {z_proj, ..., out_proj}), the hybrid's stacked
+    ``shared`` attention + MLP blocks, and ``lm_head`` when the embeddings
+    are not tied. The port keeps the same tree, so the mapping is one to
+    one; each array becomes a tensor of its own width on ``device``
+    (bfloat16 arrays pass through float32, which holds them exactly), so
+    the SSM's float32 ``a_log``, ``d_skip`` and ``dt_bias`` stay float32 in
+    a bfloat16 model, as the JAX package keeps them."""
     from repro_torch.models import transformer
 
-    transformer.require_attn_mlp(cfg)
+    transformer.require_ported(cfg)
     dev = resolve_device(device)
-    dtype = transformer.torch_dtype(cfg)
-    want = {"embed", "final_norm", "layers"} | (
-        set() if cfg.tie_embeddings else {"lm_head"})
+    want = {"embed", "final_norm", "layers"}
+    if not cfg.tie_embeddings:
+        want.add("lm_head")
+    if cfg.family == "hybrid" and cfg.n_shared_blocks:
+        want.add("shared")
     if set(params_np) != want:
         raise ValueError(f"lm_params_from_arrays: keys {sorted(params_np)}, "
                          f"expected {sorted(want)} for {cfg.name}")
@@ -125,7 +130,9 @@ def lm_params_from_arrays(params_np: dict, cfg, device="cuda") -> dict:
     def convert(tree):
         if isinstance(tree, dict):
             return {k: convert(v) for k, v in tree.items()}
-        return torch.as_tensor(np.array(tree, np.float32)).to(
-            device=dev, dtype=dtype)
+        arr = np.asarray(tree)
+        dtype = getattr(torch, str(arr.dtype))
+        return torch.as_tensor(arr.astype(np.float32)).to(device=dev,
+                                                          dtype=dtype)
 
     return convert(params_np)

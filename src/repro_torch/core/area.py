@@ -36,6 +36,8 @@ LEAF_OVERHEAD_UNITS = round(LEAF_OVERHEAD_MM2 / AREA_QUANTUM_MM2)
 assert abs(NODE_OVERHEAD_UNITS * AREA_QUANTUM_MM2 - NODE_OVERHEAD_MM2) < 1e-12
 assert abs(LEAF_OVERHEAD_UNITS * AREA_QUANTUM_MM2 - LEAF_OVERHEAD_MM2) < 1e-12
 POWER_PER_MM2_MW = 0.0455  # paper Table I slope (mW per mm^2)
+DELAY_BASE_MS = 19.2       # paper Table I affine fit (reported for completeness)
+DELAY_PER_COMP_MS = 0.11
 
 
 def comparator_gate_counts(t: int, p: int) -> tuple[int, int]:
@@ -58,6 +60,20 @@ def comparator_area_units(t: int, p: int) -> int:
     """Comparator area as an exact integer count of AREA_QUANTUM_MM2 quanta."""
     n_and, n_or = comparator_gate_counts(t, p)
     return n_and * _AND2_UNITS + n_or * _OR2_UNITS
+
+
+def trunc_comparator_gate_counts(t: int, p: int, k: int) -> tuple[int, int]:
+    """(n_and2, n_or2) for a k-LSB-truncated p-bit comparator: the exact
+    comparator of width p - k against t >> k; zero gates (constant false)
+    when p - k <= 0."""
+    if k >= p:
+        return 0, 0
+    return comparator_gate_counts(t >> k, p - k)
+
+
+def trunc_comparator_area_mm2(t: int, p: int, k: int) -> float:
+    n_and, n_or = trunc_comparator_gate_counts(t, p, k)
+    return n_and * AREA_AND2_MM2 + n_or * AREA_OR2_MM2
 
 
 def _build_lut(cell) -> tuple[np.ndarray, np.ndarray]:
@@ -141,9 +157,17 @@ def mac_area_units(code: int, in_bits: int) -> int:
     return rows * int(in_bits) * _FA_UNITS
 
 
+def mac_area_mm2(code: int, in_bits: int) -> float:
+    return mac_area_units(code, in_bits) * AREA_QUANTUM_MM2
+
+
 def act_area_units(acc_bits: int) -> int:
     """Activation cell (ReLU zero-mux or argmax compare leg) in quanta."""
     return int(acc_bits) * _ACT_BIT_UNITS
+
+
+def act_area_mm2(acc_bits: int) -> float:
+    return act_area_units(acc_bits) * AREA_QUANTUM_MM2
 
 
 def mlp_neuron_area_units(codes, in_bits: int, acc_bits: int) -> int:
@@ -192,3 +216,7 @@ def tree_overhead_units(n_comparators: int, n_leaves: int) -> int:
 
 def power_mw(area_mm2: float) -> float:
     return POWER_PER_MM2_MW * area_mm2
+
+
+def delay_ms(n_comparators: int) -> float:
+    return DELAY_BASE_MS + DELAY_PER_COMP_MS * n_comparators

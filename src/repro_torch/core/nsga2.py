@@ -41,6 +41,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.domination import domination_block
 from repro_torch.runtime import graphs
 
 _BIG = 1e9
@@ -50,6 +51,14 @@ def non_dominated_sort(objs: torch.Tensor) -> torch.Tensor:
     """int32 rank per individual (0 = first/pareto front); objs (P, M), or
     (K, P, M) for K pools."""
     return kops.non_dominated_rank(objs)
+
+
+def domination_matrix(objs: torch.Tensor,
+                      against: torch.Tensor | None = None) -> torch.Tensor:
+    """objs (Pi, M), minimised: out[i, j] is True iff objs[i] dominates
+    against[j] (default ``against = objs``), `domination_block` (the
+    kernel on a CUDA tensor)."""
+    return domination_block(objs, objs if against is None else against)
 
 
 def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -448,6 +457,27 @@ def make_batched_init(fitness_fn, n_genes: int, cfg: NSGA2Config,
 # state and a list (or tuple) of K generators, problem i drawing from
 # generator i, so each problem equals `make_chunk` run on it alone.
 make_batched_chunk = make_chunk
+
+
+def run(generator: torch.Generator, fitness_fn, n_genes: int,
+        cfg: NSGA2Config, state: NSGA2State | None = None,
+        seed_genes=None) -> NSGA2State:
+    """Run the GA for ``cfg.n_generations``; ``state`` continues a run.
+
+    The counterpart of the JAX package's ``run(key, ...)``: the draws come
+    from ``generator`` on its device (`draw_init`, then `draw_step` a
+    generation), so the same generator state gives the same run. PyTorch
+    runs eagerly, so ``fitness_fn`` may be any tensor function, and the
+    JAX ``jit`` switch has no counterpart."""
+    dev = generator.device
+    if state is None:
+        draws = draw_init(generator, cfg.pop_size, n_genes,
+                          seed_count(seed_genes), dev)
+        state = init_state(fitness_fn, cfg, draws, seed_genes)
+    step = make_step(fitness_fn, cfg)
+    for _ in range(cfg.n_generations):
+        state = step(state, draw_step(generator, cfg.pop_size, n_genes, dev))
+    return state
 
 
 def pareto_front(objs: torch.Tensor, genes: torch.Tensor):

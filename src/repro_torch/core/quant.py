@@ -52,6 +52,28 @@ def inputs_at_precision(x8: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return x8.to(torch.int32) >> shift
 
 
+def decode_genes(genes: torch.Tensor):
+    """Real-coded genes in [0,1]^(2N) -> (bits[N], margin[N]) int32, the
+    two-genes-per-comparator layout of the paper's Fig. 3a: gene 2k is the
+    precision, gene 2k+1 the substitution margin."""
+    g = genes.to(torch.float32)
+    gp, gm = g[..., 0::2], g[..., 1::2]
+    span_p = MAX_BITS - MIN_BITS + 1
+    bits = MIN_BITS + torch.clamp(torch.floor(gp * span_p), 0, span_p - 1)
+    margin = -MARGIN + torch.clamp(torch.floor(gm * (2 * MARGIN + 1)),
+                                   0, 2 * MARGIN)
+    return bits.to(torch.int32), margin.to(torch.int32)
+
+
+def exact_genes(n_comparators: int) -> np.ndarray:
+    """The Fig. 3a chromosome of the exact 8-bit, zero-margin design (the
+    search's own layout is `exact_tree_genes`)."""
+    g = np.zeros(2 * n_comparators, dtype=np.float32)
+    g[0::2] = 0.999  # precision -> 8 bits
+    g[1::2] = 0.5    # margin -> 0  (floor(0.5 * 11) = 5 -> m = 0)
+    return g
+
+
 def decode_tree_genes(genes: torch.Tensor):
     """Cross-layer tree genes [0,1]^(3N+1) -> (bits, margin, trunc, vote).
 

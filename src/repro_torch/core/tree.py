@@ -10,14 +10,18 @@ stage selects the class. The same dataflow runs on the GPU:
 P[l, n] = +1 if leaf l's path requires decision n true (go right), -1 if it
 requires it false, 0 if node n is not on the path. The layout is built on
 the host in numpy, as in `repro.core.tree`; `predict_descent_quantized` is
-the independent sequential oracle.
+the independent sequential oracle, and `predict_quantized` the matmul-form
+one on torch tensors (the JAX package's `ptree_to_jnp` has no counterpart:
+its callers pass a dict of tensors).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
+from repro_torch.core import quant
 from repro_torch.core.train import TreeArrays
 
 
@@ -107,6 +111,41 @@ def concatenate_ptrees(ptrees) -> dict:
             [pt.leaf_class for pt in ptrees]).astype(np.int32),
         "leaf_tree": leaf_tree,
     }
+
+
+def decisions_quantized(x8: torch.Tensor, feature: torch.Tensor,
+                        threshold: torch.Tensor, bits: torch.Tensor,
+                        margin: torch.Tensor) -> torch.Tensor:
+    """Comparator array under the dual approximation.
+
+    x8 (B, F) integer master codes; feature (N,), threshold (N,) float,
+    bits (N,) in [2, 8], margin (N,) in [-5, 5]. Returns bool (B, N).
+    """
+    t_int = quant.threshold_to_int(threshold, bits)
+    t_sub = quant.substitute(t_int, margin, bits)
+    x_p = quant.inputs_at_precision(x8[:, feature.long()], bits)
+    return x_p > t_sub[None, :]
+
+
+def leaves_from_decisions(decisions: torch.Tensor, path: torch.Tensor,
+                          path_len: torch.Tensor) -> torch.Tensor:
+    """decisions bool (B, N) -> leaf index (B,) via the path matmul: the
+    first leaf whose score (+1 hits minus -1 hits) reaches its target
+    path_len - #(-1), the first maximum as `jnp.argmax` takes it."""
+    score = decisions.to(torch.float32) @ path.to(torch.float32).T  # (B, L)
+    target = (path_len - (path == -1).sum(dim=1)).to(torch.float32)
+    return torch.argmax(score - target[None, :], dim=1)
+
+
+def predict_quantized(x8: torch.Tensor, ptree_arrays: dict,
+                      bits: torch.Tensor, margin: torch.Tensor) -> torch.Tensor:
+    """The full matmul-form pipeline; ``ptree_arrays`` a dict of tensors
+    (feature, threshold, path, path_len, leaf_class)."""
+    d = decisions_quantized(x8, ptree_arrays["feature"],
+                            ptree_arrays["threshold"], bits, margin)
+    leaf = leaves_from_decisions(d, ptree_arrays["path"],
+                                 ptree_arrays["path_len"])
+    return ptree_arrays["leaf_class"][leaf]
 
 
 def predict_descent_quantized(x8, tree: TreeArrays, bits_full, margin_full):

@@ -44,6 +44,17 @@
 // past Skv is a zero score, not a masked one. Query tiles run heaviest first
 // across all heads (the tile index is the grid's slowest axis). The output
 // is stored from registers, masked at the ragged Sq edge.
+// Head dim 112 (zamba2-7b's shared attention; 224-byte rows are not a whole
+// number of 128-byte chunks) runs the HD = 128 instantiation on TMA maps
+// 112 columns wide: each row's second 64-column box reads 48 columns and TMA
+// fills the other 16 with zeros (OOB fill NONE is zeros, and the expected
+// transaction bytes stay the whole box). Zero columns of q and k add
+// nothing to q k^T, zero columns of v give zero columns of O that the
+// epilogue does not store, and the scale is 112^-0.5 from the wrapper. The
+// cost is 128 / 112 = 1.14x the tensor-core work of the exact product: at
+// the zamba2 prefill (B=4, S=4096, H=Hkv=32) the bound is 4 * (S^2 / 2) *
+// 112 * H = 4.81e11 FLOPs, 0.486 ms at 989 TFLOP/s, and the padded kernel
+// issues 5.50e11.
 //
 // float32: flash_attn_kernel, on the CUDA cores (the tensor cores take
 // float32 only as TF32, which would break float32 parity with the plain
@@ -57,7 +68,8 @@
 // (m, l) state, replicated over the 16 threads of a half-warp and reduced
 // with shuffles, and their accumulator columns 4 tx + 64 u + e. Ragged Sq
 // and Skv are masked in the loads (zeros), in the scores (-1e30) and in the
-// stores.
+// stores. Head dim 112 runs the HD = 128 tiles with columns 112-127 loaded
+// as zeros and not stored.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,9 +105,10 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-// rows [row0, row0 + n_rows) of one head (row stride `ld`) into a shared tile
-// of row stride `stride`; rows at or past `s` read as zeros
-template <int HD>
+// rows [row0, row0 + n_rows) of one head (row stride `ld`, HDR columns)
+// into a shared tile of HD columns and row stride `stride`; rows at or past
+// `s` and columns at or past HDR read as zeros
+template <int HD, int HDR>
 __device__ __forceinline__ void load_tile(float* dst, int stride,
                                           const float* src, long long ld,
                                           int row0, int n_rows, int s) {
@@ -104,8 +117,8 @@ __device__ __forceinline__ void load_tile(float* dst, int stride,
     const int r = c / kChunks;
     const int d = (c % kChunks) * 4;
     const int g = row0 + r;
-    const float4 v = g < s ? load4(src + g * ld + d)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 v = g < s && d < HDR ? load4(src + g * ld + d)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
     store4(dst + r * stride + d, v);
   }
 }
@@ -116,7 +129,9 @@ constexpr size_t smem_bytes() {
          (kBQ * (HD + 4) + kBK * (HD + 4) + kBK * HD + kBQ * kPStride);
 }
 
-template <int HD>
+// HD: the tile's head dim (64, 128 or 256); HDR <= HD: the operands' own,
+// whose columns past HDR the tiles hold as zeros and the store skips
+template <int HD, int HDR>
 __global__ void __launch_bounds__(kThreads) flash_attn_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out, Layout lq,
@@ -140,7 +155,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(
   const float* kh = k + batch * lk.b + (head / group) * lk.h;
   const float* vh = v + batch * lv.b + (head / group) * lv.h;
 
-  load_tile<HD>(qs, kQK, qh, lq.s, q0, kBQ, sq);
+  load_tile<HD, HDR>(qs, kQK, qh, lq.s, q0, kBQ, sq);
 
   float m[kRows], l[kRows];
   float4 acc[kRows][kVec];
@@ -157,8 +172,8 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(
   const int n_tiles = min((skv + kBK - 1) / kBK, last_q / kBK + 1);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
-    load_tile<HD>(ks, kQK, kh, lk.s, k0, kBK, skv);
-    load_tile<HD>(vs, HD, vh, lv.s, k0, kBK, skv);
+    load_tile<HD, HDR>(ks, kQK, kh, lk.s, k0, kBK, skv);
+    load_tile<HD, HDR>(vs, HD, vh, lv.s, k0, kBK, skv);
     __syncthreads();
 
     // scores of rows ty + 16 i against keys tx + 16 j
@@ -168,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
+    for (int d = 0; d < HDR; d += 4) {
       float4 a[kRows], b[kCols];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) a[i] = load4(qs + (ty + 16 * i) * kQK + d);
@@ -264,6 +279,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(
     float* row = out + batch * lo.b + q_pos * lo.s + head * lo.h;
 #pragma unroll
     for (int u = 0; u < kVec; ++u) {
+      if (4 * tx + 64 * u >= HDR) continue;
       const float4 a = acc[i][u];
       store4(row + 4 * tx + 64 * u,
              make_float4(a.x / den, a.y / den, a.z / den, a.w / den));
@@ -566,7 +582,11 @@ struct Mma<256> {
 };
 
 
-template <int HD>
+// HD: the tiles' head dim (64, 128 or 256); HDR <= HD: the operands' own.
+// The TMA maps are HDR wide, so a box's columns past HDR arrive as zeros:
+// q k^T is the exact product, the zero columns of v give zero columns of O,
+// and the store skips them
+template <int HD, int HDR>
 __global__ void __launch_bounds__(kThreads, 1) flash_attn_tc_kernel(
     __grid_constant__ const CUtensorMap tm_q,
     __grid_constant__ const CUtensorMap tm_k,
@@ -737,7 +757,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attn_tc_kernel(
       const float den = fmaxf(l[r], 1e-30f);
       __nv_bfloat16* dst = out + batch * lo.b + q_pos * lo.s + head * lo.h;
 #pragma unroll
-      for (int jb = 0; jb < HD / 8; ++jb)
+      for (int jb = 0; jb < HDR / 8; ++jb)
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jb + col) =
             __floats2bfloat162_rn(o[4 * jb + 2 * r] / den,
                                   o[4 * jb + 2 * r + 1] / den);
@@ -811,37 +831,37 @@ int tensor_map(CUtensorMap* map, const void* ptr, int hd, int rows, int heads,
   return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
 }
 
-template <int HD>
+template <int HD, int HDR>
 int launch_tc(const Args& a, cudaStream_t stream) {
   using S = tc::Shape<HD>;
   CUtensorMap mq, mk, mv;
-  int rc = tensor_map(&mq, a.q, HD, a.sq, a.h, a.b, a.lq, tc::kBQ);
-  if (rc == 0) rc = tensor_map(&mk, a.k, HD, a.skv, a.hkv, a.b, a.lk, S::kBK);
-  if (rc == 0) rc = tensor_map(&mv, a.v, HD, a.skv, a.hkv, a.b, a.lv, S::kBK);
+  int rc = tensor_map(&mq, a.q, HDR, a.sq, a.h, a.b, a.lq, tc::kBQ);
+  if (rc == 0) rc = tensor_map(&mk, a.k, HDR, a.skv, a.hkv, a.b, a.lk, S::kBK);
+  if (rc == 0) rc = tensor_map(&mv, a.v, HDR, a.skv, a.hkv, a.b, a.lv, S::kBK);
   if (rc != 0) return rc;
   const int n_qt = (a.sq + tc::kBQ - 1) / tc::kBQ;
   if (a.b > 65535 || n_qt > 65535) return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      tc::flash_attn_tc_kernel<HD>,
+      tc::flash_attn_tc_kernel<HD, HDR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
   if (err != cudaSuccess) return err;
-  tc::flash_attn_tc_kernel<HD>
+  tc::flash_attn_tc_kernel<HD, HDR>
       <<<dim3(a.h, a.b, n_qt), tc::kThreads, S::kSmem, stream>>>(
           mq, mk, mv, static_cast<__nv_bfloat16*>(a.out), a.lo, a.sq, a.skv,
           a.h / a.hkv, a.scale, a.softcap);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int HDR>
 int launch_f32(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = f32::smem_bytes<HD>();
   const int n_qt = (a.sq + f32::kBQ - 1) / f32::kBQ;
   if (a.h > 65535 || a.b > 65535) return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      f32::flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      f32::flash_attn_kernel<HD, HDR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  f32::flash_attn_kernel<HD>
+  f32::flash_attn_kernel<HD, HDR>
       <<<dim3(n_qt, a.h, a.b), f32::kThreads, smem, stream>>>(
           static_cast<const float*>(a.q), static_cast<const float*>(a.k),
           static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lq,
@@ -849,9 +869,11 @@ int launch_f32(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int HD>
+// HD: the kernels' tile width; HDR: the operands' head dim (HDR < HD pads
+// the tiles with zero columns)
+template <int HD, int HDR = HD>
 int launch(const Args& a, bool bf16, cudaStream_t stream) {
-  return bf16 ? launch_tc<HD>(a, stream) : launch_f32<HD>(a, stream);
+  return bf16 ? launch_tc<HD, HDR>(a, stream) : launch_f32<HD, HDR>(a, stream);
 }
 
 }  // namespace
@@ -860,7 +882,8 @@ int launch(const Args& a, bool bf16, cudaStream_t stream) {
 // strides (sb, ss, sh) for its first three axes and a contiguous last axis,
 // 16-byte aligned rows and strides; one dtype: float32 (is_bf16 = 0, CUDA
 // cores) or bfloat16 (1, tensor cores). Query head i reads kv head
-// i / (h / hkv). hd is 64, 128 or 256; softcap <= 0 turns the cap off.
+// i / (h / hkv). hd is 64, 112, 128 or 256 (112 runs the 128-wide kernels
+// on zero-padded tiles); softcap <= 0 turns the cap off.
 // Returns the launch's CUDA error, or kNoEncoder / kMapError + CUresult when
 // a TMA map could not be made.
 extern "C" int repro_flash_attention(
@@ -878,6 +901,8 @@ extern "C" int repro_flash_attention(
   switch (hd) {
     case 64:
       return launch<64>(a, is_bf16, s);
+    case 112:
+      return launch<128, 112>(a, is_bf16, s);
     case 128:
       return launch<128>(a, is_bf16, s);
     case 256:

@@ -28,8 +28,10 @@ break the float32 parity below. A launch that fails raises
 TPU kernel's order: the float32 dot, the scale after it, the optional tanh
 softcap, the mask, the running (m, l, acc) in float32, p rounded to v's
 dtype before the PV product; the bfloat16 kernel takes exp2 with log2(e)
-folded into the scale. They take head dims 64, 128 and 256 (the repo's
-configs) and any Sq and Skv (the ragged edge is masked in the kernel).
+folded into the scale. They take head dims 64, 112, 128 and 256 (the
+repo's configs; 112 runs the 128-wide kernels on tiles whose last 16
+columns are zeros, 1.14x the exact product's work) and any Sq and Skv (the
+ragged edge is masked in the kernel).
 
 The plain version follows `repro/kernels/ref.py::flash_attention`: one full
 float32 softmax over the kv heads repeated `group` times; it does not round
@@ -51,7 +53,7 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 112, 128, 256)
 NEG_INF = -1e30
 
 

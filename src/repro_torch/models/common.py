@@ -49,6 +49,16 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str,
     return out.to(x.dtype)
 
 
+def norm_like(p: dict, arbitrary_dim_w: torch.Tensor, x: torch.Tensor,
+              kind: str, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over an arbitrary trailing dim (the SSM's gated norm); ``p``
+    and ``kind`` are unused, as in the JAX package."""
+    xf = x.to(torch.float32)
+    ms = (xf * xf).mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(ms + eps) * arbitrary_dim_w.to(torch.float32)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

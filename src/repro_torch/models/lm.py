@@ -1,13 +1,16 @@
-"""LM serving steps and KV caches.
+"""LM serving steps and decode caches.
 
 Counterpart of the serving half of `repro.models.lm` for the `attn_mlp`
-layer kind: `init_caches` and `extend_caches` (KV caches only; SSM caches
-come with the SSM slice), `prefill` and `decode_step`. The KV caches keep
-the JAX package's layout, a (k, v) pair of (L, B, S_max, KV, hd) tensors,
-and decode writes each new token into them in place at its position.
-Serving prefills straight into S_max slots (`prefill(..., s_max=...)`), so
-no exact-length pair is made and copied by `extend_caches`. The
-training loss (`chunked_ce_loss`, `lm_loss`) comes with LM training.
+and `ssm` layer kinds: `init_caches` and `extend_caches`, `prefill` and
+`decode_step`. The caches keep the JAX package's layout: a (k, v) pair of
+(L, B, S_max, KV, hd) tensors for attention layers; a (conv (L, B, K-1,
+C), state (L, B, NH, HD, N)) pair for SSM layers, the states float32 in
+every model dtype; and for the hybrid, a (k, v) pair of (n_super, B, S_max,
+KV, hd), one slot a super-block's shared block. Decode writes each new
+token into them in place at its position. Serving prefills straight into
+the decode layout (`prefill(..., s_max=...)`), so no exact-length caches
+are made and copied by `extend_caches`. The training loss
+(`chunked_ce_loss`, `lm_loss`) comes with LM training.
 """
 from __future__ import annotations
 
@@ -20,18 +23,17 @@ from repro_torch.models import transformer
 def init_caches(cfg, batch_size: int, s_max: int, dtype=None,
                 device="cuda") -> dict:
     """Preallocated decode caches sized for an s_max-token context."""
-    transformer.require_attn_mlp(cfg)
+    transformer.require_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or transformer.torch_dtype(cfg)
-    shape = (cfg.n_layers, batch_size, s_max, cfg.n_kv_heads, cfg.head_dim)
-    return {"kv": (torch.zeros(shape, dtype=dtype, device=dev),
-                   torch.zeros(shape, dtype=dtype, device=dev))}
+    return transformer.empty_caches(cfg, batch_size, s_max, dtype, dev)
 
 
 def extend_caches(cfg, caches: dict, s_max: int) -> dict:
-    """Prefill caches (exact prompt length) padded with zeros out to s_max
-    slots, the decode layout."""
-    transformer.require_attn_mlp(cfg)
+    """Prefill caches (exact prompt length; the hybrid's SSM caches grouped
+    by super-block) in the decode layout: KV padded with zeros out to s_max
+    slots, the hybrid's SSM caches one (n_layers, ...) stack."""
+    transformer.require_ported(cfg)
 
     def pad(t):
         if t.shape[2] > s_max:
@@ -41,8 +43,17 @@ def extend_caches(cfg, caches: dict, s_max: int) -> dict:
         out[:, :, :t.shape[2]] = t
         return out
 
-    k, v = caches["kv"]
-    return {**caches, "kv": (pad(k), pad(v))}
+    out = dict(caches)
+    for key in ("kv", "shared_kv"):
+        if key in out:
+            out[key] = tuple(pad(t) for t in out[key])
+    if "ssm_main" in out:  # hybrid prefill layout -> flat decode layout
+        main = tuple(t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
+                     for t in out.pop("ssm_main"))
+        tail = out.pop("ssm_tail", None)
+        out["ssm"] = main if tail is None else tuple(
+            torch.cat([m, t], dim=0) for m, t in zip(main, tail))
+    return out
 
 
 def prefill(params, cfg, batch: dict, s_max: int | None = None):

@@ -1,0 +1,195 @@
+"""Mamba2 (SSD, state-space duality) layer: chunked prefill and the O(1)
+decode recurrence.
+
+Counterpart of `repro.models.ssm` on one device (no sharding). The
+projections are separate weight blocks (z / x / BC / dt) as in the JAX
+package, with a single B/C group (n_groups=1, as mamba2-1.3b and zamba2).
+`ssd_chunked` walks the chunks in a Python loop carrying the (B, NH, HD, N)
+state, where the JAX package scans them; within a chunk it keeps the JAX
+package's arithmetic: the cumulative decay in float32 along the chunk's
+axis, and the (B, Q, Q, NH) weight block and the chunk's inputs rounded to
+bfloat16 whatever the model's dtype, then contracted in float32 (a
+product of two bf16 values is exact in float32, so only the summation order
+differs from XLA's). The SSD scan, the depthwise conv and the decode
+recurrence have no Pallas kernel in the JAX package; here they are plain
+PyTorch (einsums, cuBLAS where JAX uses XLA dots).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import norm_like, normal_init
+
+
+def conv_channels(cfg) -> int:
+    return cfg.d_inner + 2 * cfg.ssm_state
+
+
+def ssm_cache(cfg, n_stack: int, batch_size: int, dtype: torch.dtype,
+              device):
+    """Zeroed (conv (n_stack, B, K-1, C) in ``dtype``, state (n_stack, B, NH,
+    HD, N) float32) decode caches of ``n_stack`` layers; the states are
+    float32 in every model dtype."""
+    conv = torch.zeros((n_stack, batch_size, cfg.ssm_conv - 1,
+                        conv_channels(cfg)), dtype=dtype, device=device)
+    state = torch.zeros((n_stack, batch_size, cfg.ssm_nheads,
+                         cfg.ssm_head_dim, cfg.ssm_state),
+                        dtype=torch.float32, device=device)
+    return conv, state
+
+
+def init_ssm(gen: torch.Generator, cfg, dtype: torch.dtype, lead=()) -> dict:
+    """Mamba2 weights, with leading axes ``lead`` (the layer stack). As in
+    the JAX package, ``a_log``, ``d_skip`` and ``dt_bias`` are float32 in
+    every model dtype (A = -exp(a_log) = -1, D = 1, no dt bias)."""
+    d, nh, n, di = cfg.d_model, cfg.ssm_nheads, cfg.ssm_state, cfg.d_inner
+    dev = gen.device
+
+    def full(shape, value, dt):
+        return torch.full((*lead, *shape), value, dtype=dt, device=dev)
+
+    std = d ** -0.5
+    return {
+        "z_proj": normal_init(gen, (*lead, d, di), std, dtype),
+        "x_proj": normal_init(gen, (*lead, d, di), std, dtype),
+        "bc_proj": normal_init(gen, (*lead, d, 2 * n), std, dtype),
+        "dt_proj": normal_init(gen, (*lead, d, nh), std, dtype),
+        "conv_x_w": normal_init(gen, (*lead, cfg.ssm_conv, di), 0.2, dtype),
+        "conv_x_b": full((di,), 0.0, dtype),
+        "conv_bc_w": normal_init(gen, (*lead, cfg.ssm_conv, 2 * n), 0.2,
+                                 dtype),
+        "conv_bc_b": full((2 * n,), 0.0, dtype),
+        "a_log": full((nh,), 0.0, torch.float32),
+        "d_skip": full((nh,), 1.0, torch.float32),
+        "dt_bias": full((nh,), 0.0, torch.float32),
+        "norm_w": full((di,), 1.0, dtype),
+        "out_proj": normal_init(gen, (*lead, di, d), di ** -0.5, dtype),
+    }
+
+
+def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor) -> torch.Tensor:
+    """x (B, S, C); w (K, C); left-padded by K-1: a causal depthwise conv,
+    its taps added in the JAX package's order."""
+    k, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = xp[:, 0:s, :] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s, :] * w[i]
+    return out + b
+
+
+def _bf16_exact(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 and held in float32 (the JAX package's
+    bf16 operands of a float32-accumulated einsum)."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                b_: torch.Tensor, c_: torch.Tensor, d_skip: torch.Tensor,
+                chunk: int):
+    """SSD forward. xh (B, S, NH, HD) float32; dt (B, S, NH) float32
+    (post-softplus); a (NH,) negative; b_, c_ (B, S, N) float32. Returns y
+    (B, S, NH, HD) float32 and the final state (B, NH, HD, N).
+
+    The chunk is ``min(chunk, S)``; a longer S must be a multiple of it
+    (the JAX package's reshape refuses it too; nothing is padded).
+    """
+    bsz, s, nh, hd = xh.shape
+    n = b_.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"ssd_chunked: the sequence of {s} positions is "
+                         f"not a multiple of the SSD chunk {q}")
+    tril = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xh.device))
+    state = xh.new_zeros((bsz, nh, hd, n), dtype=torch.float32)
+    ys = []
+    for c0 in range(0, s, q):
+        xq, dtq = xh[:, c0:c0 + q], dt[:, c0:c0 + q]
+        bq, cq = b_[:, c0:c0 + q], c_[:, c0:c0 + q]
+        cum = torch.cumsum(dtq * a, dim=1)                  # (B, q, nh)
+        # intra-chunk: y_i += sum_{j<=i} (C_i.B_j) exp(cum_i - cum_j) dt_j x_j
+        diff = cum[:, :, None, :] - cum[:, None, :, :]     # (B, i, j, nh)
+        decay = torch.where(tril[None, :, :, None], torch.exp(diff), 0.0)
+        scores = torch.einsum("bin,bjn->bij", cq, bq)
+        w = _bf16_exact(scores[..., None] * decay * dtq[:, None, :, :])
+        y = torch.einsum("bijh,bjhp->bihp", w, _bf16_exact(xq))
+        # prior-state contribution: C_i . state decayed from the chunk start
+        y = y + torch.einsum("bin,bhpn,bih->bihp", cq, state, torch.exp(cum))
+        # state update: decay the whole chunk, inject inputs decayed to its
+        # end
+        end_decay = torch.exp(cum[:, -1:, :] - cum)         # (B, j, nh)
+        state = (state * torch.exp(cum[:, -1, :])[:, :, None, None]
+                 + torch.einsum("bjn,bjh,bjhp->bhpn", bq, dtq * end_decay,
+                                xq))
+        ys.append(y)
+    y = torch.cat(ys, dim=1) + d_skip[None, None, :, None] * xh
+    return y, state
+
+
+def ssm_block(params: dict, cfg, x: torch.Tensor, cache=None,
+              cache_layer=None, chunk: int = 256):
+    """The full Mamba2 block. cache None: prefill, returning the block's
+    fresh (conv (B, K-1, C), state (B, NH, HD, N)). Decode: cache = (conv
+    stack (L, B, K-1, C), state stack (L, B, NH, HD, N)), both updated in
+    place at ``cache_layer`` and returned. The conv cache packs the [x | B |
+    C] channels."""
+    bsz, s, _ = x.shape
+    di, n, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, \
+        cfg.ssm_head_dim
+    z = x @ params["z_proj"]
+    xin = x @ params["x_proj"]
+    bc = x @ params["bc_proj"]
+    dt = x @ params["dt_proj"]
+
+    layer = cache_layer if cache_layer is not None else 0
+    k = cfg.ssm_conv
+    if cache is None:
+        conv_x = _causal_depthwise_conv(xin, params["conv_x_w"],
+                                        params["conv_x_b"])
+        conv_bc = _causal_depthwise_conv(bc, params["conv_bc_w"],
+                                         params["conv_bc_b"])
+        packed = torch.cat([xin, bc], dim=-1)
+        new_conv = (packed[:, -(k - 1):, :] if s >= k - 1
+                    else F.pad(packed, (0, 0, k - 1 - s, 0)))
+    else:
+        conv_stack, state_stack = cache
+        conv_state = conv_stack[layer]
+        window_x = torch.cat([conv_state[..., :di], xin], dim=1)
+        window_bc = torch.cat([conv_state[..., di:], bc], dim=1)
+        conv_x = (torch.einsum("bkc,kc->bc", window_x, params["conv_x_w"])
+                  + params["conv_x_b"])[:, None, :]
+        conv_bc = (torch.einsum("bkc,kc->bc", window_bc, params["conv_bc_w"])
+                   + params["conv_bc_b"])[:, None, :]
+        new_conv = torch.cat([window_x[:, 1:, :], window_bc[:, 1:, :]],
+                             dim=-1)
+
+    conv_x = F.silu(conv_x.to(torch.float32))
+    conv_bc = F.silu(conv_bc.to(torch.float32))
+    b_, c_ = conv_bc[..., :n], conv_bc[..., n:]
+    xh = conv_x.reshape(bsz, s, nh, hd)
+    dt = dt.to(torch.float32) + params["dt_bias"]
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))        # softplus
+    a = -torch.exp(params["a_log"])
+
+    if cache is None:
+        y, final_state = ssd_chunked(xh, dt, a, b_, c_, params["d_skip"],
+                                     chunk)
+        new_cache = (new_conv, final_state)
+    else:
+        ssm_state = state_stack[layer]
+        da = dt[:, 0, :] * a                                 # (B, nh)
+        inject = torch.einsum("bn,bh,bhp->bhpn", b_[:, 0], dt[:, 0],
+                              xh[:, 0])
+        ssm_state = ssm_state * torch.exp(da)[:, :, None, None] + inject
+        y = torch.einsum("bn,bhpn->bhp", c_[:, 0], ssm_state)
+        y = (y + params["d_skip"][None, :, None] * xh[:, 0])[:, None]
+        conv_stack[layer] = new_conv
+        state_stack[layer] = ssm_state
+        new_cache = (conv_stack, state_stack)
+
+    y = y.reshape(bsz, s, di).to(x.dtype)
+    z = F.silu(z.to(torch.float32)).to(x.dtype)
+    y = norm_like(params, params["norm_w"], y * z, cfg.norm)
+    return y @ params["out_proj"], new_cache

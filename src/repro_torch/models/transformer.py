@@ -1,20 +1,25 @@
 """Model assembly: embeddings, the layer stack, final norm, logits.
 
 Counterpart of `repro.models.transformer` for the `attn_mlp` layer kind
-(families `dense`, `audio` and `vlm`): [attention + MLP] x L. Parameters are
-a dict tree like the JAX package's, with every per-layer tensor stacked on a
-leading layer axis; layer l reads views of row l. The layers run in a Python
-loop (the JAX package scans them). Prefill writes each layer's (k, v) into
-one (L, B, S, KV, hd) pair of caches; decode writes the new token into the
-given caches in place. The `moe`, `ssm` and `hybrid` kinds raise
-`NotImplementedError`.
+(families `dense`, `audio` and `vlm`: [attention + MLP] x L) and the `ssm`
+kind (family `ssm`: [mamba2] x L; family `hybrid`, zamba2: super-blocks of
+`shared_attn_every` mamba2 layers, each followed by one of
+`n_shared_blocks` shared attention + MLP blocks in turn, then a tail of
+plain mamba2 layers). Parameters are a dict tree like the JAX package's,
+with every per-layer tensor stacked on a leading layer axis (the hybrid's
+shared blocks on their own); layer l reads views of row l. The layers run
+in a Python loop (the JAX package scans them). Prefill writes each layer's
+caches into stacked tensors: (L, B, S, KV, hd) k and v pairs, (L, B, K-1,
+C) conv and (L, B, NH, HD, N) float32 SSM states, and the hybrid's (n_super,
+B, S, KV, hd) shared-block pair; decode updates the given caches in place.
+The `moe` family raises `NotImplementedError`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, lm_mlp
+from repro_torch.models import attention, lm_mlp, ssm
 from repro_torch.models.common import apply_norm, init_norm, normal_init
 
 
@@ -26,9 +31,10 @@ def layer_kind(cfg) -> str:
     return "attn_mlp"
 
 
-def require_attn_mlp(cfg) -> None:
-    """Raise unless ``cfg``'s layers are of the ported `attn_mlp` kind."""
-    if layer_kind(cfg) != "attn_mlp":
+def require_ported(cfg) -> None:
+    """Raise unless ``cfg``'s layers are of a ported kind (`attn_mlp`,
+    `ssm`)."""
+    if layer_kind(cfg) == "attn_moe":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.family} layers ({layer_kind(cfg)}) are not "
             f"ported yet: ROADMAP.md Queue 1 item 13")
@@ -47,7 +53,7 @@ def init_params(seed: int, cfg, dtype: torch.dtype | None = None,
     """Random parameters from a `torch.Generator` seeded with ``seed`` on
     ``device`` (float32 draws, then cast to ``dtype``, default the
     config's)."""
-    require_attn_mlp(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -55,16 +61,27 @@ def init_params(seed: int, cfg, dtype: torch.dtype | None = None,
     params = {
         "embed": normal_init(gen, (vp, d), 0.02, dtype),
         "final_norm": init_norm(cfg, dtype, dev),
-        "layers": {
-            "ln1": init_norm(cfg, dtype, dev, lead),
-            "attn": attention.init_attention(gen, cfg, dtype, lead),
-            "ln2": init_norm(cfg, dtype, dev, lead),
-            "ffn": lm_mlp.init_mlp(gen, cfg, dtype, lead),
-        },
     }
+    if layer_kind(cfg) == "ssm":
+        params["layers"] = {"ln1": init_norm(cfg, dtype, dev, lead),
+                            "ssm": ssm.init_ssm(gen, cfg, dtype, lead)}
+    else:
+        params["layers"] = _init_attn_mlp(gen, cfg, dtype, dev, lead)
+    if cfg.family == "hybrid" and cfg.n_shared_blocks:
+        params["shared"] = _init_attn_mlp(gen, cfg, dtype, dev,
+                                          (cfg.n_shared_blocks,))
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(gen, (vp, d), d ** -0.5, dtype)
     return params
+
+
+def _init_attn_mlp(gen, cfg, dtype, dev, lead) -> dict:
+    return {
+        "ln1": init_norm(cfg, dtype, dev, lead),
+        "attn": attention.init_attention(gen, cfg, dtype, lead),
+        "ln2": init_norm(cfg, dtype, dev, lead),
+        "ffn": lm_mlp.init_mlp(gen, cfg, dtype, lead),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -82,6 +99,20 @@ def _attn_mlp_block(p, cfg, x, positions, *, cache=None, cache_pos=None,
     return x + lm_mlp.mlp_block(p["ffn"], cfg, z), new_kv
 
 
+def _ssm_layer(p, cfg, x, *, cache=None, cache_layer=None):
+    h, new_cache = ssm.ssm_block(p["ssm"], cfg,
+                                 apply_norm(p["ln1"], x, cfg.norm),
+                                 cache=cache, cache_layer=cache_layer)
+    return x + h, new_cache
+
+
+def hybrid_layout(cfg):
+    """(n_super, per_super, tail) decomposition of the zamba2 stack."""
+    every = cfg.shared_attn_every
+    n_super = cfg.n_layers // every
+    return n_super, every, cfg.n_layers - n_super * every
+
+
 def _tree_slice(tree, i):
     if isinstance(tree, dict):
         return {k: _tree_slice(v, i) for k, v in tree.items()}
@@ -92,18 +123,85 @@ def _tree_slice(tree, i):
 # forward
 # ---------------------------------------------------------------------------
 
+def empty_caches(cfg, batch_size: int, slots: int, dtype: torch.dtype,
+                 device) -> dict:
+    """Zeroed caches of ``slots`` positions in the decode layout: "kv" (k, v)
+    of (L, B, slots, KV, hd) for `attn_mlp`; "ssm" (conv, state) of the
+    `ssm` layers (`ssm.ssm_cache`, states float32); the hybrid's shared
+    blocks "shared_kv", one (k, v) slot a super-block."""
+    if layer_kind(cfg) != "ssm":
+        return {"kv": _kv_pair(cfg, cfg.n_layers, batch_size, slots, dtype,
+                               device)}
+    caches = {"ssm": ssm.ssm_cache(cfg, cfg.n_layers, batch_size, dtype,
+                                   device)}
+    if cfg.family == "hybrid":
+        caches["shared_kv"] = _kv_pair(cfg, hybrid_layout(cfg)[0],
+                                       batch_size, slots, dtype, device)
+    return caches
+
+
+def _kv_pair(cfg, n_stack, batch_size, slots, dtype, device):
+    shape = (n_stack, batch_size, slots, cfg.n_kv_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def grouped_caches(cfg, caches: dict) -> dict:
+    """The hybrid's flat (n_layers, ...) SSM caches as the JAX package's
+    prefill returns them: "ssm_main" (n_super, per_super, ...) and, when
+    the stack has a tail, "ssm_tail" (tail, ...), views of the same
+    tensors."""
+    n_super, per, tail = hybrid_layout(cfg)
+    out = {k: v for k, v in caches.items() if k != "ssm"}
+    out["ssm_main"] = tuple(t[:n_super * per].reshape(n_super, per,
+                                                      *t.shape[1:])
+                            for t in caches["ssm"])
+    if tail:
+        out["ssm_tail"] = tuple(t[n_super * per:] for t in caches["ssm"])
+    return out
+
+
+def _attn_at(p, cfg, x, positions, kv, idx: int, pos0, decoding: bool):
+    """An attention + MLP block on cache slot ``idx`` of the stacked pair
+    ``kv``: decode writes its token in place, prefill its prompt."""
+    if decoding:
+        x, _ = _attn_mlp_block(p, cfg, x, positions, cache=kv,
+                               cache_pos=pos0, cache_layer=idx)
+        return x
+    s = x.shape[1]
+    x, (k, v) = _attn_mlp_block(p, cfg, x, positions)
+    kv[0][idx, :, :s] = k
+    kv[1][idx, :, :s] = v
+    return x
+
+
+def _ssm_at(params, cfg, x, stacks, layer: int, decoding: bool):
+    """Mamba2 layer ``layer`` on the stacked (conv, state) caches."""
+    p = _tree_slice(params["layers"], layer)
+    if decoding:
+        x, _ = _ssm_layer(p, cfg, x, cache=stacks, cache_layer=layer)
+        return x
+    x, (conv, state) = _ssm_layer(p, cfg, x)
+    stacks[0][layer] = conv
+    stacks[1][layer] = state
+    return x
+
+
 def forward(params, cfg, tokens, *, prefix_embed=None, caches=None,
             pos0=None, s_max=None):
-    """Shared forward for prefill (caches=None: fresh caches are returned,
-    of s_max slots with the prompt in the first S, or of exactly S when
-    s_max is None) and decode (caches given: one-token step at position
-    pos0, caches updated in place).
+    """Shared forward for prefill (caches=None: fresh caches are returned)
+    and decode (caches given: one-token step at position pos0, caches
+    updated in place).
 
-    tokens (B, S_text) integer; prefix_embed (B, P, D) for vlm.
-    Returns (hidden (B, S, D), new_caches); the JAX package's third output,
-    the MoE load-balance loss, comes with the MoE layers.
+    Prefill with s_max returns the decode layout (`empty_caches`: s_max
+    slots, the prompt in the first S); without it, the JAX package's
+    prefill layout: S slots, and the hybrid's SSM caches grouped by
+    super-block (`grouped_caches`). tokens (B, S_text) integer;
+    prefix_embed (B, P, D) for vlm. Returns (hidden (B, S, D),
+    new_caches); the JAX package's third output, the MoE load-balance
+    loss, comes with the MoE layers.
     """
-    require_attn_mlp(cfg)
+    require_ported(cfg)
     x = params["embed"][tokens]                    # gather (B, S_text, D)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
@@ -114,27 +212,36 @@ def forward(params, cfg, tokens, *, prefix_embed=None, caches=None,
     decoding = caches is not None
     if decoding:
         positions = torch.full((b, 1), pos0, device=x.device)
-        kv = caches["kv"]
-        for layer in range(cfg.n_layers):
-            p = _tree_slice(params["layers"], layer)
-            x, kv = _attn_mlp_block(p, cfg, x, positions, cache=kv,
-                                    cache_pos=pos0, cache_layer=layer)
     else:
         slots = s if s_max is None else s_max
         if slots < s:
             raise ValueError(f"forward: the prompt holds {s} positions, more "
                              f"than s_max={s_max}")
         positions = torch.arange(s, device=x.device).expand(b, s)
-        shape = (cfg.n_layers, b, slots, cfg.n_kv_heads, cfg.head_dim)
-        kv = (x.new_zeros(shape), x.new_zeros(shape))
+        caches = empty_caches(cfg, b, slots, x.dtype, x.device)
+
+    if layer_kind(cfg) == "attn_mlp":
         for layer in range(cfg.n_layers):
-            p = _tree_slice(params["layers"], layer)
-            x, (k, v) = _attn_mlp_block(p, cfg, x, positions)
-            kv[0][layer, :, :s] = k
-            kv[1][layer, :, :s] = v
+            x = _attn_at(_tree_slice(params["layers"], layer), cfg, x,
+                         positions, caches["kv"], layer, pos0, decoding)
+    elif cfg.family == "ssm":
+        for layer in range(cfg.n_layers):
+            x = _ssm_at(params, cfg, x, caches["ssm"], layer, decoding)
+    else:  # hybrid (zamba2)
+        n_super, per, _ = hybrid_layout(cfg)
+        for sb in range(n_super):
+            for layer in range(sb * per, (sb + 1) * per):
+                x = _ssm_at(params, cfg, x, caches["ssm"], layer, decoding)
+            shared = _tree_slice(params["shared"], sb % cfg.n_shared_blocks)
+            x = _attn_at(shared, cfg, x, positions, caches["shared_kv"], sb,
+                         pos0, decoding)
+        for layer in range(n_super * per, cfg.n_layers):
+            x = _ssm_at(params, cfg, x, caches["ssm"], layer, decoding)
 
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return x, {"kv": kv}
+    if not decoding and s_max is None and cfg.family == "hybrid":
+        caches = grouped_caches(cfg, caches)
+    return x, caches
 
 
 def logits_from_hidden(params, cfg, hidden):

@@ -543,6 +543,11 @@ def main(argv=None) -> None:
     ap.add_argument("--compilation-cache", default=None, metavar="DIR",
                     help="keep the kernels' built libraries in DIR: a "
                          "second run builds nothing")
+    ap.add_argument("--block-p", type=int, default=8,
+                    help="accepted for the JAX package's command lines and "
+                         "ignored: it tiles the Pallas grid (DESIGN.md "
+                         "§12); the CUDA kernels choose their own tiles, "
+                         "so it changes no result")
     ap.add_argument("--pop", type=int, default=64)
     ap.add_argument("--gens", type=int, default=40)
     ap.add_argument("--seed", type=int, default=0)
@@ -611,7 +616,7 @@ def _search_run(args) -> None:
         checkpoint_every=args.checkpoint_every, resume=args.resume,
         mesh=args.mesh, migrate_every=args.migrate_every,
         n_migrate=args.n_migrate, emit_rtl=args.emit_rtl,
-        verify_rtl=args.verify_rtl)
+        verify_rtl=args.verify_rtl, block_p=args.block_p)
     print(f"== run_search backend={cfg.backend} pop={cfg.pop_size} "
           f"gens={cfg.n_generations} ==")
     result = search.run_search(problem, cfg)

@@ -61,6 +61,13 @@ class SearchConfig:
     # split the population over the ranks; islands: the ring's size). The
     # checkpoints do not depend on it, so a run may resume on another mesh
     mesh: str | None = None
+    # the JAX package's kernel-backend tiles, accepted with its defaults and
+    # ignored: they tile the Pallas grid (DESIGN.md §12), and the CUDA
+    # kernels choose their own tiles, so they change no result
+    block_p: int = 8
+    block_b: int = 256
+    block_l: int | None = None
+    interpret: bool | None = None
     # islands backend (generations round UP to whole migration rounds;
     # checkpoints land on round boundaries)
     migrate_every: int = 5

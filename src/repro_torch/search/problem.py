@@ -146,6 +146,20 @@ def vote_area_units(problem: SearchProblem,
                        problem.vote_units_exact)
 
 
+def vote_area_mm2(problem: SearchProblem,
+                  vote_cap: torch.Tensor) -> torch.Tensor:
+    """`vote_area_units` in float32 mm^2, the JAX package's term: the
+    approximate adder where the cap is 1 (the port's int32 cap or the JAX
+    package's float one), else the exact adder (0 for one tree)."""
+    q = area_mod.AREA_QUANTUM_MM2
+    cap = torch.as_tensor(vote_cap)
+    return torch.where(cap == 1,
+                       torch.tensor(problem.vote_units_approx * q,
+                                    dtype=torch.float32, device=cap.device),
+                       torch.tensor(problem.vote_units_exact * q,
+                                    dtype=torch.float32, device=cap.device))
+
+
 def area_units(problem: SearchProblem, bits: torch.Tensor,
                t_sub: torch.Tensor, vote_cap: torch.Tensor) -> torch.Tensor:
     """(...,) int64 area in quanta: comparator LUT + overheads + the vote

@@ -60,6 +60,7 @@ def _qkv(seed, h, hkv, sq, skv, hd):
 
 @pytest.mark.parametrize("sq,skv,hd,group", [
     (256, 256, 64, 1), (512, 512, 128, 4), (256, 512, 64, 2),
+    (256, 256, 112, 1),                  # zamba2-7b's head dim
 ])
 def test_plain_matches_ref(jref, sq, skv, hd, group):
     """The shapes of `tests/test_kernels.py`'s flash attention test."""
@@ -162,6 +163,7 @@ def test_row_error_limit_separates_planted_faults(main_length_rows, fault,
     (2, 64, 2, 2, 16, 0.0),      # reduced llama: GQA group 2
     (1, 128, 1, 4, 32, 30.0),    # MQA with grok's softcap
     (2, 1024, 2, 1, 16, 0.0),    # two JAX chunks of 512
+    (1, 256, 2, 1, 112, 0.0),    # zamba2-7b: hd 112, no GQA grouping
 ])
 def test_prefill_attention_matches_jax(jref, b, s, kv, g, hd, softcap):
     """The model layout (B, S, KV, G, hd), read where it lies, equals the
@@ -309,6 +311,9 @@ CUDA_CASES = [  # (h, hkv, sq, skv, hd, dtype, softcap)
     (6, 2, 777, 777, 64, torch.bfloat16, 0.0),     # ragged at every tile
     (8, 2, 300, 900, 128, torch.bfloat16, 0.0),    # Sq < Skv
     (4, 4, 130, 333, 256, torch.bfloat16, 0.0),    # Sq < Skv at hd 256
+    (8, 8, 777, 777, 112, torch.float32, 0.0),     # zamba2: hd 112
+    (32, 32, 1000, 1000, 112, torch.bfloat16, 0.0),  # zamba2: hd 112
+    (4, 2, 300, 900, 112, torch.bfloat16, 30.0),   # hd 112, Sq < Skv
 ]
 
 

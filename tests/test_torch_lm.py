@@ -35,8 +35,7 @@ from repro_torch.runtime import lm_serve
 TOL = 1e-5
 ATTN_MLP_ARCHS = ["llama3.2-3b", "gemma-2b", "minitron-8b", "command-r-35b",
                   "musicgen-large", "paligemma-3b"]
-UNPORTED_ARCHS = ["grok-1-314b", "kimi-k2-1t-a32b", "mamba2-1.3b",
-                  "zamba2-7b"]
+UNPORTED_ARCHS = ["grok-1-314b", "kimi-k2-1t-a32b"]
 B, S, S_MAX, N_TOKENS = 2, 32, 48, 6
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ast
 import dataclasses
 import functools
+import json
 import os
 import pathlib
 import subprocess
@@ -417,3 +418,28 @@ def test_cli_refuses_unported_surfaces(argv, tmp_path):
         assert "ranks over gloo" in proc.stdout
     if "--compilation-cache" in argv:
         assert (tmp_path / "d").is_dir()
+
+
+def test_block_p_is_accepted_and_ignored(tmp_path):
+    """The JAX package's kernel-backend tile knob runs on the port: a JAX
+    command line with ``--block-p 8`` writes the same `pareto.json` (all but
+    its wall time) as one without it, and `SearchConfig` takes the four JAX
+    tile fields with the JAX defaults."""
+    def run(extra, out):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.search", "--dataset",
+             "seeds", "--backend", "kernel", *extra, "--pop", "8", "--gens",
+             "2", "--out", str(out), "--device", "cpu"],
+            capture_output=True, text=True, cwd=REPO,
+            env={**os.environ, "PYTHONPATH": str(REPO / "src")}, timeout=120)
+        assert proc.returncode == 0, proc.stderr
+        art = json.loads((out / "pareto.json").read_text())
+        art.pop("wall_s")
+        return art
+
+    assert (run(["--block-p", "8"], tmp_path / "a")
+            == run([], tmp_path / "b"))
+    jax_cfg = j_search.SearchConfig()
+    port_cfg = t_search.SearchConfig()
+    for name in ("block_p", "block_b", "block_l", "interpret"):
+        assert getattr(port_cfg, name) == getattr(jax_cfg, name), name

@@ -12,8 +12,8 @@ mean of v's first i + 1 rows, which reads the PV product and the mask
 alone) and on a one-hot v (row i holds key j's probability in column
 j mod hd, which reads the score product alone), in the
 (H, S, hd) layout and in the model's (B, S, H, hd) layout, contiguous and
-as views into one fused qkv tensor; then times the LM prefill shape
-(llama3.2-3b at B=4, S=4096) through the model-layout wrapper beside its
+as views into one fused qkv tensor; then times the LM prefill shapes
+(llama3.2-3b at B=4, S=4096, hd 128; zamba2-7b's hd 112) through the model-layout wrapper beside its
 plain version, `scaled_dot_product_attention` and the bound. It is the
 quick check of the kernel between runs of `chip_smoke.py`, which holds the
 same limits. Exits 1 on the first failed check.
@@ -44,7 +44,13 @@ CASES = [  # (B, H, Hkv, Sq, Skv, hd, dtype, softcap)
     (2, 4, 2, 300, 900, 128, torch.bfloat16, 0.0),
     (1, 4, 2, 1, 1, 128, torch.bfloat16, 0.0),
     (4, 24, 8, 4096, 4096, 128, torch.bfloat16, 0.0),
+    (1, 8, 8, 777, 777, 112, torch.float32, 0.0),
+    (1, 8, 8, 1000, 1000, 112, torch.bfloat16, 0.0),
+    (2, 4, 2, 333, 333, 112, torch.bfloat16, 30.0),
+    (4, 32, 32, 4096, 4096, 112, torch.bfloat16, 0.0),
 ]
+TIMED = ((4, 24, 8, 4096, 128),    # llama3.2-3b prefill: B, H, Hkv, S, hd
+         (4, 32, 32, 4096, 112))   # zamba2-7b's shared attention
 
 
 def inputs(rng, kind, b, h, hkv, sq, skv, hd, dtype, fused):
@@ -117,7 +123,6 @@ def main() -> None:
         cs.fail("no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attn as fa
 
     seconds = _build.build(("flash_attn",))
     cs.log(f"[build] flash_attn {seconds:.1f} s")
@@ -135,7 +140,14 @@ def main() -> None:
             for layout in ("heads", "model", "fused"):
                 check_case(rng, kind, layout, case)
 
-    b, h, hkv, s, hd = 4, 24, 8, 4096, 128
+    for b, h, hkv, s, hd in TIMED:
+        time_shape(rng, b, h, hkv, s, hd)
+    cs.log("[done] all checks passed")
+
+
+def time_shape(rng, b, h, hkv, s, hd) -> None:
+    from repro_torch.kernels import flash_attn as fa
+
     q, k, v = (torch.as_tensor(rng.standard_normal((b, s, n, hd),
                                                    dtype=np.float32),
                                device="cuda").to(torch.bfloat16)
@@ -158,7 +170,6 @@ def main() -> None:
            f"scaled_dot_product_attention {lib_ms:.4f} ms {lib_how}; bound "
            f"{bms:.4f} ms ({by}); kernel {n_ops / ms / 1e9:.1f} TFLOP/s, "
            f"{ms / lib_ms:.2f}x SDPA, {ms / bms:.2f}x the bound")
-    cs.log("[done] all checks passed")
 
 
 if __name__ == "__main__":
