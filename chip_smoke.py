@@ -56,14 +56,15 @@ Phases, each of which stops the script with a non-zero exit on failure:
    2e-5; bfloat16 by `row_error`, a row's largest difference over its root
    mean square, within 2^-4) at the LM prefill's shape (llama3.2-3b at
    B=4, S=4096: H=96, Hkv=32, hd=128, bf16) in the model's (B, S, H, hd)
-   layout through `flash_attention_bshd`, and at zamba2-7b's (B=4, S=4096,
-   H=Hkv=32, hd=112, bf16) the same way; in the (H, S, hd) layout in
-   float32 (hd 64 and 112), with grok's softcap 30, at gemma's MQA with
-   head dim 256 and at a ragged S=1000; time it at both model shapes beside
-   its plain version, its bound (the bf16 tensor-core rate) and
-   `scaled_dot_product_attention` (causal, GQA); and check that the model's
-   prefill attention runs nothing on the card but the kernel (no layout
-   copies).
+   layout through `flash_attention_bshd`, and the same way at zamba2-7b's
+   (B=4, S=4096, H=Hkv=32, hd=112, bf16), grok-1-314b's (48 query / 8 kv
+   heads, softcap 30) and kimi-k2-1t-a32b's (64 / 8); in the (H, S, hd)
+   layout in float32 (hd 64 and 112), with grok's softcap 30 at S=1024, at
+   gemma's MQA with head dim 256 and at a ragged S=1000; time it at the
+   four model shapes beside its plain version, its bound (the bf16
+   tensor-core rate) and, without a softcap, `scaled_dot_product_attention`
+   (causal, GQA); and check that the model's prefill attention runs
+   nothing on the card but the kernel (no layout copies).
 7. `[lm]`: the LM serving path at llama3.2-3b's full width (28 layers,
    random bf16 weights from the seed): `generate` of 32 greedy tokens after
    a B=4 x 4096-token prompt (the repo's `train_4k` length; `prefill_32k`
@@ -85,20 +86,37 @@ Phases, each of which stops the script with a non-zero exit on failure:
    a prefill of as many tokens is held to that position of one causal
    forward over the prompt); a second `generate` identical; prefill and
    decode times, peak memory and one prefill's device time split.
-9. Print where one generation's time goes on each search path (its
+9. `[moe]`: the MoE serving path at grok-1-314b's and kimi-k2-1t-a32b's
+   published width, cut to 8 of 64 and 1 of 61 layers (56.2 and 38.8 GB
+   of random bf16 weights from the seed), each as `[lm]`: `generate` of 32
+   greedy tokens after the B=4 x 4096 prompt, counted (`flash_attention`
+   once per layer of the prefill, grok's with its softcap 30); a second
+   `generate` identical; one `moe_block` call at the prefill's and at
+   decode's shape under sync debug mode "error"; decode at position 4096
+   against a fresh prefill of 4097 tokens, (a) as served and (b) with the
+   last tokens' MoE run as one decode batch (in (a) a row's last token is
+   last in its experts' queues, so the prefill drops it where an expert
+   overflows), each layer's routing recorded on both sides: rows that
+   picked and kept the same experts in every layer are held to the
+   `[lm]` tolerance and argmax, the others logged with the first flipped
+   pick's router-logit gap (a near-tie) or dropped pick, at least one row
+   held in (b); prefill and decode times, peak memory, one prefill's
+   device time split and one MoE layer's route, dispatch, expert products
+   and combine timed alone.
+10. Print where one generation's time goes on each search path (its
    survivor selection run once under sync debug mode "error", its ranks
    held to the host loop's on the same pool).
-10. `[chunk]`: on the tree and MLP `har` paths, 8 generations chunked with
+11. `[chunk]`: on the tree and MLP `har` paths, 8 generations chunked with
    `checkpoint_every=4` (each chunk one captured CUDA graph, its warm-up
    step run under sync debug mode "error") must equal the per-generation
    loop element for element; one generation's host time, device busy time
    and idle share inside a captured chunk beside an eager step's; the
    graphs captured and the dispatches.
-11. `[resume]`: 8 tree `har` generations saving every 3; a fresh
+12. `[resume]`: 8 tree `har` generations saving every 3; a fresh
    `run_search` resuming from the step-6 save must equal the uninterrupted
    run, the step-8 saves (the CUDA generator's state included) leaf for
    leaf.
-12. `[sweep]`: the paper's campaign, `repro_torch.search.sweep.run_sweep`
+13. `[sweep]`: the paper's campaign, `repro_torch.search.sweep.run_sweep`
    over the ten datasets at their real sizes (six buckets, pop 64, 40
    generations, the CLI's defaults): batched with `verify_rtl` and the
    report, then the serial loop, equal array for array; per bucket its
@@ -113,7 +131,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    beside their bounds; then a mixed campaign (seeds and vertebral
    two-tree forests in one bucket, seeds and pendigits MLPs in another,
    pop 16, 4 generations), batched == serial.
-13. `[faults]`: the stuck-at campaign (`core.faults`, `search.robustness`,
+14. `[faults]`: the stuck-at campaign (`core.faults`, `search.robustness`,
    plain PyTorch on the card). The har tree's best point over all 3090
    test rows: its zero-fault lane == `netlist.simulate` == the argmax of
    `tree_infer_scores`' votes (`ops.classify`, the `--verify-rtl` leg);
@@ -133,7 +151,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    each `fault_report.json` == the CPU's but the pendigits MLP's. Its
    launches alone are the phase's count: the checks above launch kernels
    too, outside that window.
-14. `[mesh]`: the multi-device search (`core.dist`, `launch.mesh`), two
+15. `[mesh]`: the multi-device search (`core.dist`, `launch.mesh`), two
    ranks spawned on the one card over gloo (NCCL refuses two ranks on one
    GPU; this checks the code and its arithmetic, not NVLink): (a) the har
    tree, kernel backend, pop 512, `mesh="2"`, 8 generations with
@@ -141,7 +159,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    (b) the same run saved at generation 4 under the mesh and resumed on
    one card with no mesh == it; (c) islands on a 2-ring (256 an island,
    migrate_every 4) == the same islands run one after another in this
-   process; (d) the mixed sweep campaign of phase 11 on a 2x1 mesh == its
+   process; (d) the mixed sweep campaign of phase 13 on a 2x1 mesh == its
    batched single-card run. Each rank returns its launch counts (they are
    per process); the bool `domination_block` slab, each rank's (512,
    1024) rows of the sharded sort, must have launched. A sharded
@@ -149,7 +167,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    collectives a generation, one `all_reduce` alone, spawn and rendezvous
    s; the slab and `fitness_errors` at a rank's shapes timed beside their
    bounds (rows `domination_block[shard]`, `fitness_errors[shard]`).
-15. The kernel list, the card's name and power limit, one JSON line of
+16. The kernel list, the card's name and power limit, one JSON line of
    per-kernel results (each row names what it times in `what`; the rows
    `fitness_errors[bucket]` and `domination_block[bucket]` are the batched
    launches, the `[shard]` rows a mesh rank's), and last `{"ok": true,
@@ -164,6 +182,7 @@ script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import re
@@ -222,6 +241,11 @@ LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 4096, 32
 SSM_ARCHS = ("mamba2-1.3b", "zamba2-7b")   # [ssm]: full width, same prompt
 SSD_CHUNK = 256                    # ssm_block's default chunk
 FLASH_112 = "flash_attention[hd 112]"      # the kernel line's zamba2 row
+# [moe]: (arch, layers kept of its published depth), every other field as
+# published; 8 of grok's 64 layers are 56.2 GB of bf16 weights, 2 of kimi's
+# 61 would be 72.9 GB
+MOE_ARCHS = (("grok-1-314b", 8), ("kimi-k2-1t-a32b", 1))
+FLASH_SOFTCAP = "flash_attention[softcap 30]"   # the kernel line's grok row
 FLASH_F32_TOL = 2e-5               # tests/test_kernels.py:208-209
 # bfloat16: `row_error` (a query row's largest difference over the row's
 # root mean square) at most two bf16 ulps of a row's largest element at four
@@ -1944,27 +1968,36 @@ def attention_pairs(sq: int, skv: int) -> int:
 
 def phase_flash(rng) -> dict:
     """`flash_attention` against its plain version on the card: the LM
-    prefill's shape (llama3.2-3b at B=4, S=4096) and zamba2-7b's (B=4,
-    S=4096, H=Hkv=32, hd 112) in the model's (B, S, H, hd) layout through
-    `flash_attention_bshd`, then float32 (hd 64 and 112), grok's softcap,
-    gemma's MQA with head dim 256 and a ragged S in the (H, S, hd) layout;
-    both model shapes timed beside their bounds and
-    `scaled_dot_product_attention` (causal, GQA, the one PyTorch call that
-    computes the same function without a softcap); and the device
-    activities other than the kernel in the model's prefill attention.
-    Returns the kernel line's rows of the two model shapes."""
+    prefill's shape (llama3.2-3b at B=4, S=4096), zamba2-7b's (B=4,
+    S=4096, H=Hkv=32, hd 112), grok-1-314b's (48 query / 8 kv heads,
+    softcap 30) and kimi-k2-1t-a32b's (64 / 8) in the model's (B, S, H, hd)
+    layout through `flash_attention_bshd`, then float32 (hd 64 and 112),
+    grok's softcap at S=1024, gemma's MQA with head dim 256 and a ragged S
+    in the (H, S, hd) layout; the four model shapes timed beside their
+    bounds and, without a softcap, `scaled_dot_product_attention` (causal,
+    GQA, the one PyTorch call that computes the same function; it has no
+    softcap); and the device activities other than the kernel in the
+    model's prefill attention. Returns the kernel line's rows of the
+    llama, zamba2 and grok shapes."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.models import attention
 
     cfg = get_config(LM_ARCH)
     zcfg = get_config(SSM_ARCHS[1])
+    gcfg, kcfg = (get_config(arch) for arch, _ in MOE_ARCHS)
     b, kv, g = LM_BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    rows_of = {"main": "flash_attention", "hd 112": FLASH_112,
+               "grok": FLASH_SOFTCAP, "kimi": None}   # the model layouts
     cases = [  # (name, H, Hkv, S, hd, dtype, softcap)
         ("main", b * cfg.n_heads, b * kv, LM_PROMPT, cfg.head_dim,
          torch.bfloat16, 0.0),
         ("hd 112", b * zcfg.n_heads, b * zcfg.n_kv_heads, LM_PROMPT,
          zcfg.head_dim, torch.bfloat16, 0.0),
+        ("grok", b * gcfg.n_heads, b * gcfg.n_kv_heads, LM_PROMPT,
+         gcfg.head_dim, torch.bfloat16, gcfg.attn_softcap),
+        ("kimi", b * kcfg.n_heads, b * kcfg.n_kv_heads, LM_PROMPT,
+         kcfg.head_dim, torch.bfloat16, 0.0),
         ("float32", 8, 4, 512, 64, torch.float32, 0.0),
         ("float32 hd 112", 8, 8, 777, 112, torch.float32, 0.0),
         ("softcap 30", 48, 8, 1024, 128, torch.bfloat16, 30.0),
@@ -1973,7 +2006,7 @@ def phase_flash(rng) -> dict:
     ]
     err, rows = 0.0, {}
     for name, h, hkv, s, hd, dtype, cap in cases:
-        model = name in ("main", "hd 112")
+        model = name in rows_of
         if model:   # (B, S, heads, hd), as the model holds them
             q, k, v = (torch.as_tensor(rng.standard_normal(
                 (b, s, n // b, hd), dtype=np.float32), device="cuda")
@@ -2013,8 +2046,8 @@ def phase_flash(rng) -> dict:
             continue
         del want
         ms, plain_ms, text = timed(
-            lambda: fa.flash_attention_bshd(q, k, v),
-            lambda: fa.flash_attention_bshd_plain(q, k, v),
+            lambda: fa.flash_attention_bshd(q, k, v, softcap=cap),
+            lambda: fa.flash_attention_bshd_plain(q, k, v, softcap=cap),
             "flash_attn", reps=20, plain_reps=2)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
@@ -2022,24 +2055,29 @@ def phase_flash(rng) -> dict:
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)
 
-        lib_ms, lib_how = device_or_stream_ms(sdpa, 20)
-        lib_err = float((sdpa().transpose(1, 2).float() - got.float())
-                        .abs().max())
+        lib_ms, lib_text = None, "no library call (SDPA has no softcap)"
+        if not cap:
+            lib_ms, lib_how = device_or_stream_ms(sdpa, 20)
+            lib_err = float((sdpa().transpose(1, 2).float() - got.float())
+                            .abs().max())
+            lib_text = (f"scaled_dot_product_attention {lib_ms:.4f} ms "
+                        f"{lib_how} (differs from the kernel by "
+                        f"{lib_err:.3g}; the kernel {ms / lib_ms:.2f}x SDPA)")
         n_ops = 4 * attention_pairs(s, s) * hd * h
         n_bytes = (2 * h + 2 * hkv) * s * hd * q.element_size()
         bms, by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
-        log(f"[flash] {name} shape, model layout: {text}; "
-            f"scaled_dot_product_attention {lib_ms:.4f} ms {lib_how} "
-            f"(differs from the kernel by {lib_err:.3g}); bound {bms:.4f} "
-            f"ms ({by}; {n_ops:.4g} FLOPs at 989 TFLOP/s bf16, {n_bytes} "
-            f"bytes); kernel at {n_ops / ms / 1e9:.1f} TFLOP/s, "
-            f"{ms / lib_ms:.2f}x SDPA, {ms / bms:.2f}x its bound")
-        key = "flash_attention" if name == "main" else FLASH_112
-        rows[key] = dict(
-            name=key, route="cuda", source=TPU_KERNELS["flash_attention"][0],
-            replaces=TPU_KERNELS["flash_attention"][1], launches=0,
-            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=lib_ms)
+        log(f"[flash] {name} shape, model layout, softcap {cap}: {text}; "
+            f"{lib_text}; bound {bms:.4f} ms ({by}; {n_ops:.4g} FLOPs at 989 "
+            f"TFLOP/s bf16, {n_bytes} bytes); kernel at "
+            f"{n_ops / ms / 1e9:.1f} TFLOP/s, {ms / bms:.2f}x its bound")
+        key = rows_of[name]
+        if key is not None:
+            rows[key] = dict(
+                name=key, route="cuda",
+                source=TPU_KERNELS["flash_attention"][0],
+                replaces=TPU_KERNELS["flash_attention"][1], launches=0,
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
         if name == "main":
             # what else the model's prefill attention runs on the card: the
             # kernel reads q, k, v and writes its output in the model's
@@ -2131,27 +2169,10 @@ def phase_lm() -> dict:
           "token")
     longer = {"tokens": torch.cat([prompt, out[:, :1]], dim=1)}
     logits_f, _ = lm.prefill(params, cfg, longer)
-    ld = logits_d[:, -1, :cfg.vocab_size].float()
-    lf = logits_f[:, -1, :cfg.vocab_size].float()
-    check(bool(torch.isfinite(ld).all() and torch.isfinite(lf).all()),
-          "non-finite logits")
-    row_diff = (ld - lf).abs().amax(-1)
-    diff = float(row_diff.max())
-    scale = float(lf.abs().max())
-    top2 = lf.topk(2, dim=-1).values
-    gap = top2[:, 0] - top2[:, 1]
-    same = ld.argmax(-1) == lf.argmax(-1)
-    check(diff <= LM_LOGIT_ATOL, f"decode logits differ from a fresh "
-          f"prefill's by {diff} (atol {LM_LOGIT_ATOL}, logits up to {scale})")
-    check(bool(same.all()), f"decode and prefill pick other tokens: same "
-          f"argmax {same.tolist()}, top-2 gaps {gap.tolist()}, row "
-          f"differences {row_diff.tolist()}")
-    log(f"[lm] decode at position {LM_PROMPT} vs a fresh prefill of "
-        f"{LM_PROMPT + 1} tokens (ragged: the kernel masks the edge): "
-        f"largest logit difference {diff:.4f} (atol {LM_LOGIT_ATOL}; logits "
-        f"up to {scale:.3f}; by row {[round(x, 4) for x in row_diff.tolist()]}"
-        f"); same argmax in rows {same.tolist()}; top-2 gaps "
-        f"{[round(x, 4) for x in gap.tolist()]}")
+    hold_rows(f"[lm] decode at position {LM_PROMPT} vs a fresh prefill of "
+              f"{LM_PROMPT + 1} tokens (ragged: the kernel masks the edge)",
+              [True] * LM_BATCH, logits_d[:, -1, :cfg.vocab_size].float(),
+              logits_f[:, -1, :cfg.vocab_size].float())
     del caches, logits_p, logits_d, logits_f, longer
 
     again = lm_serve.generate(params, cfg, batch, n_tokens=LM_TOKENS,
@@ -2276,7 +2297,7 @@ def phase_ssm(arch: str) -> dict:
     # of one causal forward over the whole prompt (the logits of a fresh
     # prefill of P + 1 tokens, which the SSD refuses past one chunk): P =
     # 255, inside the first chunk, and 3840, after 15 whole chunks
-    hidden, _ = transformer.forward(params, cfg, prompt)
+    hidden, _, _ = transformer.forward(params, cfg, prompt)
     for p in (SSD_CHUNK - 1, LM_PROMPT - SSD_CHUNK):
         _, caches = lm.prefill(params, cfg, {"tokens": prompt[:, :p]},
                                s_max=s_max)
@@ -2384,6 +2405,318 @@ def prefill_profile(tag: str, prefill, t_prefill: float) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f"{tag} largest device activities of one prefill: " + "; ".join(
         f"{n[:70]} {us / 1e3:.2f} ms" for n, us in top))
+
+
+def moe_routes(fn):
+    """``fn()`` with the port's `moe._route` and `moe._dispatch` wrapped:
+    returns (its result, a record a MoE layer of the call: the router
+    logits (T, E), the picks (T, k) and whether each pick was kept, (T, k)
+    in pick order)."""
+    from repro_torch.models import moe
+
+    route, dispatch = moe._route, moe._dispatch
+    calls: list[dict] = []
+
+    def route_rec(router, cfg, xf):
+        gates, eids, aux = route(router, cfg, xf)
+        calls.append({"logits": xf.to(torch.float32) @ router, "eids": eids})
+        return gates, eids, aux
+
+    def dispatch_rec(cfg, xf, eids, capacity):
+        out = dispatch(cfg, xf, eids, capacity)
+        kept = torch.empty_like(out[1])
+        kept[torch.argsort(eids.reshape(-1), stable=True)] = out[1]
+        calls[-1]["kept"] = kept.view(eids.shape)
+        return out
+
+    moe._route, moe._dispatch = route_rec, dispatch_rec
+    try:
+        return fn(), calls
+    finally:
+        moe._route, moe._dispatch = route, dispatch
+
+
+def moe_rows_held(tag: str, dec: list, pf: list, rows: torch.Tensor):
+    """Which batch rows routed alike in decode (records ``dec``, one token
+    a row) and in a fresh prefill (records ``pf``; ``rows`` are the
+    compared tokens' flat indices): in every layer the same experts picked
+    and the same kept. Logs every other row with the first layer where it
+    parted (the layers after it see other inputs): a flipped pick, which
+    must be a near-tie (its prefill router-logit gap within the two sides'
+    difference of those logits), or a pick dropped on one side alone.
+    Returns one bool a row."""
+    layers = [tuple(t.cpu() for t in (d["logits"], f["logits"][rows],
+                                       d["eids"], f["eids"][rows],
+                                       d["kept"], f["kept"][rows]))
+              for d, f in zip(dec, pf)]
+    held = [True] * len(rows)
+    for r in range(len(rows)):
+        for layer, (ld, lf, ed, ef, kd, kf) in enumerate(layers):
+            sd, sf = set(ed[r].tolist()), set(ef[r].tolist())
+            diff = (ld[r] - lf[r]).abs()
+            if sd != sf:
+                # expert a picked by the prefill alone, c by decode alone:
+                # decode put c above a, the prefill a above c, so a's lead
+                # in the prefill is at most the two logits' differences
+                pairs = [(float(lf[r, a] - lf[r, c]), float(diff[a] + diff[c]))
+                         for a in sf - sd for c in sd - sf]
+                gap, room = max(pairs, key=lambda gr: gr[0] - gr[1])
+                log(f"{tag} row {r} not held: layer {layer} picks "
+                    f"{sorted(sd)} in decode, {sorted(sf)} in the prefill; "
+                    f"router-logit gap {gap:.3g} in the prefill, the sides' "
+                    f"difference of those logits {room:.3g} (largest in the "
+                    f"layer {float(diff.max()):.3g})")
+                check(gap <= room, f"{tag} row {r} layer {layer}: a flipped "
+                      f"pick that is no near-tie")
+                held[r] = False
+                break
+            kept_d = {e for e, k in zip(ed[r].tolist(), kd[r].tolist()) if k}
+            kept_f = {e for e, k in zip(ef[r].tolist(), kf[r].tolist()) if k}
+            if kept_d != kept_f:
+                log(f"{tag} row {r} not held: layer {layer} picks "
+                    f"{sorted(sd)}; dropped in decode {sorted(sd - kept_d)}, "
+                    f"in the prefill {sorted(sf - kept_f)}")
+                held[r] = False
+                break
+    return held
+
+
+def hold_rows(what: str, held: list, ld: torch.Tensor,
+              lf: torch.Tensor) -> None:
+    """Hold decode's logits ``ld`` (B, V) to a fresh prefill's ``lf`` on
+    the ``held`` rows (`[lm]`: every row): within LM_LOGIT_ATOL and the
+    same argmax; every row's difference is logged."""
+    check(bool(torch.isfinite(ld).all() and torch.isfinite(lf).all()),
+          f"{what}: non-finite logits")
+    row_diff = (ld - lf).abs().amax(-1)
+    top2 = lf.topk(2, dim=-1).values
+    same = ld.argmax(-1) == lf.argmax(-1)
+    log(f"{what}: rows held {held}; largest "
+        f"logit difference by row {[round(x, 4) for x in row_diff.tolist()]}"
+        f" (atol {LM_LOGIT_ATOL} on the held rows; logits up to "
+        f"{float(lf.abs().max()):.3f}); same argmax {same.tolist()}; top-2 "
+        f"gaps {[round(x, 4) for x in (top2[:, 0] - top2[:, 1]).tolist()]}")
+    sel = torch.tensor(held, device=ld.device)
+    if not any(held):
+        return
+    diff = float(row_diff[sel].max())
+    check(diff <= LM_LOGIT_ATOL, f"{what}: decode logits differ from the "
+          f"prefill's by {diff} on a held row (atol {LM_LOGIT_ATOL})")
+    check(bool(same[sel].all()), f"{what}: decode and prefill pick other "
+          f"tokens on a held row")
+
+
+def last_token_as_batch(fn):
+    """``fn()`` with every `moe.moe_block` call's last position run again
+    as one batch of its own (B tokens: the capacity and drops a decode
+    step gives them) and put in place of that position's output. The last
+    position feeds no other, so the rest of the call is as served."""
+    from repro_torch.models import moe
+
+    block = moe.moe_block
+
+    def block_last(p, cfg, x):
+        y, aux = block(p, cfg, x)
+        y[:, -1:] = block(p, cfg, x[:, -1:])[0]
+        return y, aux
+
+    moe.moe_block = block_last
+    try:
+        return fn()
+    finally:
+        moe.moe_block = block
+
+
+def moe_split(tag: str, cfg, params, b: int, s: int) -> None:
+    """Device time of one MoE layer's pieces at the prefill's shape (random
+    bf16 activations from the seed, layer 0's weights): the route, the
+    dispatch, the experts' three products and the combine, each alone
+    from a profiler trace, and x the layers."""
+    from repro_torch.models import moe
+
+    p = {k: v[0] for k, v in params["layers"]["ffn"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xf = torch.randn((b * s, cfg.d_model), generator=gen, device="cuda",
+                     dtype=torch.float32).to(torch.bfloat16)
+    cap = moe._capacity(cfg, b * s)
+    gates, eids, _ = moe._route(p["router"], cfg, xf)
+    buf, keep, slot, _ = moe._dispatch(cfg, xf, eids, cap)
+    out_buf = moe._expert_ffn(cfg, buf, p["wi"], p.get("wg"), p["wo"])
+    pieces = {
+        "route": lambda: moe._route(p["router"], cfg, xf),
+        "dispatch": lambda: moe._dispatch(cfg, xf, eids, cap),
+        "expert FFN": lambda: moe._expert_ffn(cfg, buf, p["wi"], p.get("wg"),
+                                              p["wo"]),
+        "combine": lambda: moe._combine(out_buf, gates, eids, keep, slot),
+    }
+    times = {}
+    for name, fn in pieces.items():
+        times[name], how = device_or_stream_ms(fn, 2)
+    mults = 3 if p.get("wg") is not None else 2
+    flops = 2 * cfg.n_experts * cap * cfg.d_model * cfg.moe_d_ff * mults
+    log(f"{tag} one MoE layer at the prefill's shape (T={b * s}, capacity "
+        f"{cap}, {how}): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in times.items())
+        + f"; x {cfg.n_layers} layers {sum(times.values()) * cfg.n_layers:.1f}"
+        f" ms; the experts' products {flops:.4g} FLOPs a layer, "
+        f"{flops / times['expert FFN'] / 1e9:.1f} TFLOP/s")
+
+
+def phase_moe(arch: str, n_layers: int) -> dict:
+    """The MoE serving path at ``arch``'s published width, cut to
+    ``n_layers`` layers: random bf16 parameters and the [lm] phase's B=4 x
+    4096-token prompt from the seed, greedy `generate` of 32 tokens,
+    counted (one `flash_attention` launch per layer of the prefill; grok
+    with its softcap 30); the prefill's and decode's argmax against
+    `generate`'s first two tokens; a second `generate` identical; one
+    `moe_block` call at the prefill's and at decode's shape under sync
+    debug mode "error"; decode at position 4096 against a fresh prefill of
+    the 4097 tokens, (a) as served and (b) with the last tokens' MoE run as
+    the decode step runs it, one batch of B (`last_token_as_batch`), on the
+    rows that routed alike in every layer on both sides (`moe_routes`,
+    `moe_rows_held`: routing flips at near-ties and capacity drops are the
+    design's, so they are logged, not held), at least one row held in (b);
+    then prefill and decode times, peak memory, one prefill's device time
+    split and the MoE layer's pieces."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, moe, transformer
+    from repro_torch.runtime import lm_serve
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    tag = f"[moe {arch}]"
+    s_max = LM_PROMPT + LM_TOKENS
+    t0 = time.perf_counter()
+    params = transformer.init_params(SEED, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    t_prompt = LM_BATCH * LM_PROMPT
+    log(f"{tag} reduced: n_layers {n_layers} of {full.n_layers}, every other "
+        f"field as published; {n_params:,} parameters, {n_bytes / 1e9:.2f} GB "
+        f"of weights ({n_bytes / 2**30:.2f} GiB; {t_init:.1f} s to draw)")
+    log(f"{tag} d_model {cfg.d_model}, {cfg.n_heads} query / {cfg.n_kv_heads} "
+        f"kv heads of {cfg.head_dim}, softcap {cfg.attn_softcap}, "
+        f"{cfg.n_experts} {cfg.act} experts of d_ff {cfg.moe_d_ff}, top "
+        f"{cfg.experts_per_token}, capacity factor {cfg.capacity_factor} "
+        f"(capacity {moe._capacity(cfg, t_prompt)} a prefill of {t_prompt} "
+        f"tokens, {moe._capacity(cfg, LM_BATCH)} a decode step), vocab "
+        f"{cfg.vocab_size}; prompt B={LM_BATCH} x {LM_PROMPT} tokens, "
+        f"{LM_TOKENS} new, s_max {s_max}")
+
+    batch = {"tokens": prompt}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = lm_serve.generate(params, cfg, batch, n_tokens=LM_TOKENS,
+                            s_max=s_max)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["flash_attention"] == n_layers,
+          f"{arch}: flash_attention launched {counts['flash_attention']} "
+          f"times in one generate, not once per layer of the prefill "
+          f"({n_layers})")
+    check(tuple(out.shape) == (LM_BATCH, LM_TOKENS)
+          and out.dtype == torch.int32, f"generate gave {tuple(out.shape)} "
+          f"{out.dtype}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "generated tokens outside the vocabulary")
+    log(f"{tag} generate: {t_gen * 1e3:.1f} ms for {LM_BATCH} x {LM_TOKENS} "
+        f"tokens after the prompt; launches {counts}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+
+    p0 = {k: v[0] for k, v in params["layers"]["ffn"].items()}
+    for what, shape in (("prefill", (LM_BATCH, LM_PROMPT)),
+                        ("decode", (LM_BATCH, 1))):
+        x = torch.randn((*shape, cfg.d_model), generator=gen, device="cuda",
+                        dtype=torch.float32).to(torch.bfloat16)
+        y, aux = sync_free(lambda: moe.moe_block(p0, cfg, x),
+                           f"{tag} moe_block at the {what} shape")
+        check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(aux)),
+              f"{tag} moe_block at the {what} shape: non-finite output")
+        del x, y
+    log(f"{tag} moe_block at the prefill's and decode's shapes made no host "
+        f"sync (sync debug mode \"error\")")
+
+    # decode at position 4096 against a fresh prefill of the 4097 tokens,
+    # routing recorded on both sides: (a) the prefill as served; (b) the
+    # same with the compared (last) tokens' MoE run as one batch of B, the
+    # capacity and drops of the decode step, since in (a) a row's last
+    # token is the last of that row in every expert's queue
+    logits_p, caches = lm.prefill(params, cfg, batch, s_max=s_max)
+    check(torch.equal(logits_p[:, -1, :cfg.vocab_size].argmax(-1).int(),
+                      out[:, 0]), "prefill's argmax is not generate's first "
+          "token")
+    (logits_d, _), dec = moe_routes(
+        lambda: lm.decode_step(params, cfg, out[:, :1], caches, LM_PROMPT))
+    check(torch.equal(logits_d[:, -1, :cfg.vocab_size].argmax(-1).int(),
+                      out[:, 1]), "decode's argmax is not generate's second "
+          "token")
+    del caches, logits_p
+    longer = {"tokens": torch.cat([prompt, out[:, :1]], dim=1)}
+    ld = logits_d[:, -1, :cfg.vocab_size].float()
+    what = f"decode at position {LM_PROMPT} vs a fresh prefill of " \
+           f"{LM_PROMPT + 1} tokens"
+    (logits_f, _), pf = moe_routes(lambda: lm.prefill(params, cfg, longer))
+    check(len(dec) == len(pf) == n_layers, f"{tag} recorded {len(dec)} / "
+          f"{len(pf)} MoE layers, not {n_layers}")
+    rows = torch.arange(LM_BATCH, device="cuda") * (LM_PROMPT + 1) + LM_PROMPT
+    held = moe_rows_held(f"{tag} (a)", dec, pf, rows)
+    hold_rows(f"{tag} (a) {what}", held, ld,
+              logits_f[:, -1, :cfg.vocab_size].float())
+    del logits_f, pf
+    (logits_f, _), pf = moe_routes(lambda: last_token_as_batch(
+        lambda: lm.prefill(params, cfg, longer)))
+    check(len(pf) == 2 * n_layers, f"{tag} recorded {len(pf)} MoE calls, "
+          f"not {2 * n_layers}")
+    held = moe_rows_held(f"{tag} (b)", dec, pf[1::2],
+                         torch.arange(LM_BATCH, device="cuda"))
+    hold_rows(f"{tag} (b) {what}, its last tokens' MoE as one batch", held,
+              ld, logits_f[:, -1, :cfg.vocab_size].float())
+    check(any(held), f"{tag} (b): no row routed alike on both sides")
+    del logits_d, logits_f, longer, dec, pf
+
+    again = lm_serve.generate(params, cfg, batch, n_tokens=LM_TOKENS,
+                              s_max=s_max)
+    check(torch.equal(out, again), "a second generate gave other tokens")
+    log(f"{tag} a second generate gave identical tokens")
+
+    t_prefill = host_ms(lambda: lm.prefill(params, cfg, batch, s_max=s_max))
+    _, caches = lm.prefill(params, cfg, batch, s_max=s_max)
+    tok = out[:, :1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(LM_TOKENS - 1):
+        lm.decode_step(params, cfg, tok, caches, LM_PROMPT + i)
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t) * 1e3 / (LM_TOKENS - 1)
+    decode_dev, decode_how = device_or_stream_ms(
+        lambda: lm.decode_step(params, cfg, tok, caches, LM_PROMPT), 3)
+    expert_bytes = sum(p0[k].numel() * p0[k].element_size()
+                       for k in ("wi", "wg", "wo") if k in p0) * n_layers
+    log(f"{tag} prefill {t_prefill:.1f} ms ({t_prompt / t_prefill * 1e3:.0f} "
+        f"prompt tokens/s); decode {t_dec:.2f} ms per step of {LM_BATCH} "
+        f"tokens ({LM_BATCH / t_dec * 1e3:.1f} tokens/s), {decode_dev:.2f} ms "
+        f"of it {decode_how}; a decode step reads every expert's weights, "
+        f"{expert_bytes / 1e9:.2f} GB: "
+        f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s; "
+        f"generate {LM_BATCH * LM_TOKENS / t_gen:.1f} new tokens/s end to end "
+        f"(host clock)")
+    del caches
+    prefill_profile(tag, lambda: lm.prefill(params, cfg, batch, s_max=s_max),
+                    t_prefill)
+    moe_split(tag, cfg, params, LM_BATCH, LM_PROMPT)
+    del params, p0
+    torch.cuda.empty_cache()
+    return dict(counts=counts)
 
 
 # substrings of the cuBLAS / CUTLASS GEMM kernels' names in a trace
@@ -2743,6 +3076,7 @@ def main() -> None:
     lm_path = phase_lm()
     torch.cuda.empty_cache()
     ssm_paths = {arch: phase_ssm(arch) for arch in SSM_ARCHS}
+    moe_paths = {arch: phase_moe(arch, n) for arch, n in MOE_ARCHS}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as d:
         sweep_path = phase_sweep(rng, d)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as d:
@@ -2752,7 +3086,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
         mesh_path = phase_mesh(problem, tree_path, sweep_path, d, rng)
     for path in (tree_path, *mlp_paths.values(), forest_path, lm_path,
-                 *ssm_paths.values(), sweep_path, faults_path, mesh_path):
+                 *ssm_paths.values(), *moe_paths.values(), sweep_path,
+                 faults_path, mesh_path):
         for name, count in path["counts"].items():
             launches[name] += count
     check(all(v > 0 for v in launches.values()),
@@ -2769,6 +3104,13 @@ def main() -> None:
         "bf16 zamba2-7b prefill, q, k and v (4, 4096, 32, 112), the model's "
         "layout: the HD=128 tiles on 112-column TMA maps (1.14x the work); "
         "launches: the [ssm] zamba2-7b generate's")
+    results[FLASH_SOFTCAP] = flash_rows[FLASH_SOFTCAP]
+    results[FLASH_SOFTCAP]["launches"] = \
+        moe_paths[MOE_ARCHS[0][0]]["counts"]["flash_attention"]
+    results[FLASH_SOFTCAP]["what"] = (
+        "bf16 grok-1-314b prefill, q (4, 4096, 48, 128), k and v (4, 4096, "
+        "8, 128), the model's layout, tanh softcap 30; no library call (SDPA "
+        "has no softcap); launches: the [moe] grok-1-314b generate's")
     results.update(sweep_path["rows"])
     results.update(mesh_path["rows"])
 

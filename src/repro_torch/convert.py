@@ -107,16 +107,17 @@ def lm_params_from_arrays(params_np: dict, cfg, device="cuda") -> dict:
     """The port's LM parameters from a JAX `transformer.init_params` tree
     read out as numpy arrays: ``embed``, ``final_norm``, the stacked
     ``layers`` (attn_mlp: ln1, attn {wq, wk, wv, wo}, ln2, ffn {wi, [wg,]
-    wo}; ssm: ln1, ssm {z_proj, ..., out_proj}), the hybrid's stacked
-    ``shared`` attention + MLP blocks, and ``lm_head`` when the embeddings
-    are not tied. The port keeps the same tree, so the mapping is one to
-    one; each array becomes a tensor of its own width on ``device``
-    (bfloat16 arrays pass through float32, which holds them exactly), so
-    the SSM's float32 ``a_log``, ``d_skip`` and ``dt_bias`` stay float32 in
-    a bfloat16 model, as the JAX package keeps them."""
+    wo}; attn_moe: the same with ffn {router, wi, [wg,] wo}; ssm: ln1, ssm
+    {z_proj, ..., out_proj}), the hybrid's stacked ``shared`` attention +
+    MLP blocks, and ``lm_head`` when the embeddings are not tied. The port
+    keeps the same tree, so the mapping is one to one; each array becomes a
+    tensor of its own width on ``device`` (bfloat16 arrays pass through
+    float32, which holds them exactly), so the MoE ``router`` and the SSM's
+    ``a_log``, ``d_skip`` and ``dt_bias`` stay float32 in a bfloat16 model,
+    as the JAX package keeps them."""
     from repro_torch.models import transformer
+    from repro_torch.models.common import is_glu
 
-    transformer.require_ported(cfg)
     dev = resolve_device(device)
     want = {"embed", "final_norm", "layers"}
     if not cfg.tie_embeddings:
@@ -126,6 +127,16 @@ def lm_params_from_arrays(params_np: dict, cfg, device="cuda") -> dict:
     if set(params_np) != want:
         raise ValueError(f"lm_params_from_arrays: keys {sorted(params_np)}, "
                          f"expected {sorted(want)} for {cfg.name}")
+    kind = transformer.layer_kind(cfg)
+    if kind != "ssm":
+        want_ffn = {"wi", "wo"} | ({"wg"} if is_glu(cfg.act) else set())
+        if kind == "attn_moe":
+            want_ffn.add("router")
+        got_ffn = set(params_np["layers"].get("ffn", {}))
+        if got_ffn != want_ffn:
+            raise ValueError(f"lm_params_from_arrays: layers.ffn keys "
+                             f"{sorted(got_ffn)}, expected {sorted(want_ffn)} "
+                             f"for {cfg.name} ({kind})")
 
     def convert(tree):
         if isinstance(tree, dict):

@@ -1,10 +1,11 @@
 """The LM stack of the port, for the `attn_mlp` layer kind (families
-`dense`, `audio` and `vlm`) and the `ssm` kind (families `ssm` and
-`hybrid`): norms and RoPE (`common`), attention with the
-`flash_attention` kernel on prefill (`attention`), the feed-forward block
-(`lm_mlp`), the Mamba2 layer (`ssm`), the layer stack (`transformer`) and
-the serving steps and caches (`lm`). MoE layers are a later slice of the
-port."""
-from repro_torch.models import attention, common, lm, lm_mlp, ssm, transformer
+`dense`, `audio` and `vlm`), the `attn_moe` kind (family `moe`) and the
+`ssm` kind (families `ssm` and `hybrid`): norms and RoPE (`common`),
+attention with the `flash_attention` kernel on prefill (`attention`), the
+feed-forward block (`lm_mlp`), the Mixture-of-Experts block (`moe`), the
+Mamba2 layer (`ssm`), the layer stack (`transformer`) and the serving
+steps and caches (`lm`)."""
+from repro_torch.models import (attention, common, lm, lm_mlp, moe, ssm,
+                                transformer)
 
-__all__ = ["attention", "common", "lm", "lm_mlp", "ssm", "transformer"]
+__all__ = ["attention", "common", "lm", "lm_mlp", "moe", "ssm", "transformer"]

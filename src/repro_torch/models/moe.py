@@ -1,0 +1,179 @@
+"""Mixture-of-Experts on one device: sort-based routing, dispatch at
+capacity with drops, batched expert FFN, deterministic combine.
+
+Counterpart of the local path of `repro.models.moe` (`_moe_local`, what the
+JAX package runs without a mesh). The names are the JAX package's:
+`_route` picks each token's top-k experts and the load-balance loss,
+`_dispatch` lays the picks out as an (E, C, D) buffer by a stable sort on
+the expert id, `_expert_ffn` runs the three batched products, and
+`_combine` (inline in the JAX package's `_moe_local`) adds the weighted
+expert outputs back per token. The
+expert-parallel paths (`_moe_ep`, `quantized_all_to_all`) are not ported,
+so `moe_block` takes no sharding rules and the config's `moe_a2a_int8`,
+which acts only there, is ignored, as the JAX package's local path ignores
+it.
+
+Every step is plain PyTorch on tensors whose shapes depend on the config
+and the batch alone (`_capacity` is a Python number), so a block makes no
+host sync. Three places keep the JAX package's arithmetic exactly:
+
+- the top-k breaks ties toward the lower expert id, as `lax.top_k` does
+  (a stable descending sort);
+- a token whose expert is already full (``capacity`` picks of tokens
+  earlier in the stable order) is dropped: its pick adds nothing;
+- the combine adds each token's k weighted outputs in increasing expert
+  id, one after another in the model dtype, which is the order of the JAX
+  package's scatter-add over the expert-sorted picks; no atomics, so a
+  second call gives the same bits.
+"""
+from __future__ import annotations
+
+import itertools
+import math
+
+import torch
+
+from repro_torch.models.common import activation, is_glu, normal_init
+
+
+def _fill_normal(gen: torch.Generator, shape, std: float,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """A (*lead, E, rows, cols) tensor of ``dtype`` filled with normal draws
+    times ``std``, one (rows, cols) expert slice at a time: a stacked
+    expert weight drawn whole in float32 (grok-1-314b's ``wi`` at 8 layers:
+    51.5 GB) would not fit beside the model; one slice of it is 0.8 GB."""
+    *outer, rows, cols = shape
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for idx in itertools.product(*(range(n) for n in outer)):
+        out[idx].copy_(torch.randn((rows, cols), generator=gen,
+                                   dtype=torch.float32, device=gen.device)
+                       * std)
+    return out
+
+
+def init_moe(gen: torch.Generator, cfg, dtype: torch.dtype, lead=()) -> dict:
+    """Router (D, E) float32 in every model dtype, as the JAX package keeps
+    it; expert weights ``wi`` (E, D, F), ``wo`` (E, F, D) and, for GLU
+    activations, ``wg`` (E, D, F) in ``dtype``; all with leading axes
+    ``lead`` (the layer stack)."""
+    d, ff, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    p = {
+        "router": normal_init(gen, (*lead, d, e), d ** -0.5, torch.float32),
+        "wi": _fill_normal(gen, (*lead, e, d, ff), d ** -0.5, dtype),
+        "wo": _fill_normal(gen, (*lead, e, ff, d), ff ** -0.5, dtype),
+    }
+    if is_glu(cfg.act):
+        p["wg"] = _fill_normal(gen, (*lead, e, d, ff), d ** -0.5, dtype)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# shared routing pieces
+# ---------------------------------------------------------------------------
+
+def _route(router: torch.Tensor, cfg, xf: torch.Tensor):
+    """xf (T, D) -> (gates (T, k) float32, expert ids (T, k), aux scalar).
+
+    The logits are a float32 product (TF32 must be off on the card, as
+    `chip_smoke.py` sets it, or the picks move). The top k come from a
+    stable descending sort, so equal logits go to the lower expert id
+    first, as `lax.top_k` orders them."""
+    e, k = cfg.n_experts, cfg.experts_per_token
+    logits = xf.to(torch.float32) @ router                    # (T, E)
+    top, eids = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates = torch.softmax(top[:, :k], dim=-1)
+    eids = eids[:, :k]
+    probs = torch.softmax(logits, dim=-1)
+    t = xf.shape[0]
+    flat = eids.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.int64, device=xf.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    frac = counts.to(torch.float32) / (t * k)
+    aux = e * torch.sum(frac * probs.mean(0))
+    return gates, eids, aux
+
+
+def _dispatch(cfg, xf: torch.Tensor, eids: torch.Tensor, capacity: int):
+    """Sort-based dispatch: returns (buf (E, C, D), keep, slot, token_of),
+    the last three over the T·k picks in expert-sorted order (a stable
+    sort of the flat expert ids, so within an expert the earlier token
+    first). A pick past its expert's ``capacity`` is dropped: its slot is
+    the sentinel row E·C, which takes every dropped write and is cut off."""
+    e, k = cfg.n_experts, cfg.experts_per_token
+    t, d = xf.shape
+    flat_e = eids.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    counts = torch.zeros(e, dtype=flat_e.dtype, device=xf.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(t * k, device=xf.device) - starts[sorted_e]
+    keep = pos_in_e < capacity
+    slot = torch.where(keep, sorted_e * capacity + pos_in_e, e * capacity)
+    token_of = order // k
+    buf = xf.new_zeros((e * capacity + 1, d))
+    buf[slot] = xf[token_of]
+    return buf[: e * capacity].view(e, capacity, d), keep, slot, token_of
+
+
+def _expert_ffn(cfg, buf: torch.Tensor, wi: torch.Tensor, wg, wo: torch.Tensor):
+    """(E, C, D) -> (E, C, D): each expert's FFN on its C slots, three
+    batched products over every expert, as the JAX package's einsums."""
+    act = activation(cfg.act)
+    h = torch.bmm(buf, wi)
+    if wg is not None:
+        h = act(torch.bmm(buf, wg)) * h
+    else:
+        h = act(h)
+    return torch.bmm(h, wo)
+
+
+def _capacity(cfg, t: int) -> int:
+    return int(max(1, math.ceil(
+        cfg.capacity_factor * t * cfg.experts_per_token / cfg.n_experts)))
+
+
+# ---------------------------------------------------------------------------
+# the local path
+# ---------------------------------------------------------------------------
+
+def _combine(out_buf: torch.Tensor, gates: torch.Tensor, eids: torch.Tensor,
+             keep: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """(T, D) output in ``out_buf``'s dtype: each token's kept expert
+    outputs times their gates (cast to that dtype), added one after another
+    in increasing expert id, as the JAX package's scatter-add over the
+    expert-sorted picks adds them (`repro.models.moe._moe_local`)."""
+    t, k = eids.shape
+    d = out_buf.shape[-1]
+    out_flat = out_buf.reshape(-1, d)
+    src = slot.clamp(max=out_flat.shape[0] - 1)
+    order = torch.argsort(eids.reshape(-1), stable=True)
+    w = gates.reshape(-1)[order].to(out_buf.dtype)
+    # each token's picks as positions in the expert-sorted order, lowest
+    # expert id first
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(t * k, device=order.device)
+    pos = pos.view(t, k).sort(dim=1).values
+    y = out_buf.new_zeros((t, d))
+    for r in range(k):
+        p = pos[:, r]
+        gathered = torch.where(keep[p, None], out_flat[src[p]], 0.0)
+        y = y + gathered * w[p, None]
+    return y
+
+
+def _moe_local(params: dict, cfg, x: torch.Tensor):
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    gates, eids, aux = _route(params["router"], cfg, xf)
+    capacity = _capacity(cfg, b * s)
+    buf, keep, slot, _ = _dispatch(cfg, xf, eids, capacity)
+    out_buf = _expert_ffn(cfg, buf, params["wi"], params.get("wg"),
+                          params["wo"])
+    y = _combine(out_buf, gates, eids, keep, slot)
+    return y.reshape(b, s, d), aux
+
+
+def moe_block(params: dict, cfg, x: torch.Tensor):
+    """x (B, S, D) -> ((B, S, D), aux_loss)."""
+    return _moe_local(params, cfg, x)

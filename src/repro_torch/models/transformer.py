@@ -1,25 +1,26 @@
 """Model assembly: embeddings, the layer stack, final norm, logits.
 
-Counterpart of `repro.models.transformer` for the `attn_mlp` layer kind
-(families `dense`, `audio` and `vlm`: [attention + MLP] x L) and the `ssm`
-kind (family `ssm`: [mamba2] x L; family `hybrid`, zamba2: super-blocks of
-`shared_attn_every` mamba2 layers, each followed by one of
-`n_shared_blocks` shared attention + MLP blocks in turn, then a tail of
-plain mamba2 layers). Parameters are a dict tree like the JAX package's,
-with every per-layer tensor stacked on a leading layer axis (the hybrid's
-shared blocks on their own); layer l reads views of row l. The layers run
-in a Python loop (the JAX package scans them). Prefill writes each layer's
-caches into stacked tensors: (L, B, S, KV, hd) k and v pairs, (L, B, K-1,
-C) conv and (L, B, NH, HD, N) float32 SSM states, and the hybrid's (n_super,
-B, S, KV, hd) shared-block pair; decode updates the given caches in place.
-The `moe` family raises `NotImplementedError`.
+Counterpart of `repro.models.transformer` on one device, for all three
+layer kinds: `attn_mlp` (families `dense`, `audio` and `vlm`: [attention +
+MLP] x L), `attn_moe` (family `moe`: [attention + MoE] x L, with the
+load-balance loss summed over the layers) and `ssm` (family `ssm`:
+[mamba2] x L; family `hybrid`, zamba2: super-blocks of `shared_attn_every`
+mamba2 layers, each followed by one of `n_shared_blocks` shared attention
++ MLP blocks in turn, then a tail of plain mamba2 layers). Parameters are a
+dict tree like the JAX package's, with every per-layer tensor stacked on a
+leading layer axis (the hybrid's shared blocks on their own); layer l reads
+views of row l. The layers run in a Python loop (the JAX package scans
+them). Prefill writes each layer's caches into stacked tensors: (L, B, S,
+KV, hd) k and v pairs, (L, B, K-1, C) conv and (L, B, NH, HD, N) float32
+SSM states, and the hybrid's (n_super, B, S, KV, hd) shared-block pair;
+decode updates the given caches in place.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, lm_mlp, ssm
+from repro_torch.models import attention, lm_mlp, moe, ssm
 from repro_torch.models.common import apply_norm, init_norm, normal_init
 
 
@@ -29,15 +30,6 @@ def layer_kind(cfg) -> str:
     if cfg.family in ("ssm", "hybrid"):
         return "ssm"
     return "attn_mlp"
-
-
-def require_ported(cfg) -> None:
-    """Raise unless ``cfg``'s layers are of a ported kind (`attn_mlp`,
-    `ssm`)."""
-    if layer_kind(cfg) == "attn_moe":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family} layers ({layer_kind(cfg)}) are not "
-            f"ported yet: ROADMAP.md Queue 1 item 13")
 
 
 def torch_dtype(cfg) -> torch.dtype:
@@ -52,8 +44,7 @@ def init_params(seed: int, cfg, dtype: torch.dtype | None = None,
                 device="cuda") -> dict:
     """Random parameters from a `torch.Generator` seeded with ``seed`` on
     ``device`` (float32 draws, then cast to ``dtype``, default the
-    config's)."""
-    require_ported(cfg)
+    config's; the MoE router stays float32)."""
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -66,7 +57,9 @@ def init_params(seed: int, cfg, dtype: torch.dtype | None = None,
         params["layers"] = {"ln1": init_norm(cfg, dtype, dev, lead),
                             "ssm": ssm.init_ssm(gen, cfg, dtype, lead)}
     else:
-        params["layers"] = _init_attn_mlp(gen, cfg, dtype, dev, lead)
+        params["layers"] = _init_attn_mlp(
+            gen, cfg, dtype, dev, lead,
+            use_moe=layer_kind(cfg) == "attn_moe")
     if cfg.family == "hybrid" and cfg.n_shared_blocks:
         params["shared"] = _init_attn_mlp(gen, cfg, dtype, dev,
                                           (cfg.n_shared_blocks,))
@@ -75,12 +68,13 @@ def init_params(seed: int, cfg, dtype: torch.dtype | None = None,
     return params
 
 
-def _init_attn_mlp(gen, cfg, dtype, dev, lead) -> dict:
+def _init_attn_mlp(gen, cfg, dtype, dev, lead, use_moe: bool = False) -> dict:
     return {
         "ln1": init_norm(cfg, dtype, dev, lead),
         "attn": attention.init_attention(gen, cfg, dtype, lead),
         "ln2": init_norm(cfg, dtype, dev, lead),
-        "ffn": lm_mlp.init_mlp(gen, cfg, dtype, lead),
+        "ffn": moe.init_moe(gen, cfg, dtype, lead) if use_moe
+        else lm_mlp.init_mlp(gen, cfg, dtype, lead),
     }
 
 
@@ -89,14 +83,18 @@ def _init_attn_mlp(gen, cfg, dtype, dev, lead) -> dict:
 # ---------------------------------------------------------------------------
 
 def _attn_mlp_block(p, cfg, x, positions, *, cache=None, cache_pos=None,
-                    cache_layer=None):
-    """Returns (x_out, new_kv)."""
+                    cache_layer=None, use_moe=False):
+    """Returns (x_out, new_kv, aux_loss); aux_loss is None without MoE."""
     h, new_kv = attention.attention_block(
         p["attn"], cfg, apply_norm(p["ln1"], x, cfg.norm), positions,
         cache=cache, cache_pos=cache_pos, cache_layer=cache_layer)
     x = x + h
     z = apply_norm(p["ln2"], x, cfg.norm)
-    return x + lm_mlp.mlp_block(p["ffn"], cfg, z), new_kv
+    if use_moe:
+        ff, aux = moe.moe_block(p["ffn"], cfg, z)
+    else:
+        ff, aux = lm_mlp.mlp_block(p["ffn"], cfg, z), None
+    return x + ff, new_kv, aux
 
 
 def _ssm_layer(p, cfg, x, *, cache=None, cache_layer=None):
@@ -161,18 +159,21 @@ def grouped_caches(cfg, caches: dict) -> dict:
     return out
 
 
-def _attn_at(p, cfg, x, positions, kv, idx: int, pos0, decoding: bool):
-    """An attention + MLP block on cache slot ``idx`` of the stacked pair
-    ``kv``: decode writes its token in place, prefill its prompt."""
+def _attn_at(p, cfg, x, positions, kv, idx: int, pos0, decoding: bool,
+             use_moe: bool = False):
+    """An attention + MLP (or MoE) block on cache slot ``idx`` of the
+    stacked pair ``kv``: decode writes its token in place, prefill its
+    prompt. Returns (x, the block's aux loss or None)."""
     if decoding:
-        x, _ = _attn_mlp_block(p, cfg, x, positions, cache=kv,
-                               cache_pos=pos0, cache_layer=idx)
-        return x
+        x, _, aux = _attn_mlp_block(p, cfg, x, positions, cache=kv,
+                                    cache_pos=pos0, cache_layer=idx,
+                                    use_moe=use_moe)
+        return x, aux
     s = x.shape[1]
-    x, (k, v) = _attn_mlp_block(p, cfg, x, positions)
+    x, (k, v), aux = _attn_mlp_block(p, cfg, x, positions, use_moe=use_moe)
     kv[0][idx, :, :s] = k
     kv[1][idx, :, :s] = v
-    return x
+    return x, aux
 
 
 def _ssm_at(params, cfg, x, stacks, layer: int, decoding: bool):
@@ -198,10 +199,10 @@ def forward(params, cfg, tokens, *, prefix_embed=None, caches=None,
     prefill layout: S slots, and the hybrid's SSM caches grouped by
     super-block (`grouped_caches`). tokens (B, S_text) integer;
     prefix_embed (B, P, D) for vlm. Returns (hidden (B, S, D),
-    new_caches); the JAX package's third output, the MoE load-balance
-    loss, comes with the MoE layers.
+    new_caches, aux_loss): the MoE layers' load-balance losses summed in
+    float32 over a prefill, a 0-dim tensor; 0.0 in decode and for the
+    other layer kinds, as the JAX package returns it.
     """
-    require_ported(cfg)
     x = params["embed"][tokens]                    # gather (B, S_text, D)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
@@ -220,10 +221,15 @@ def forward(params, cfg, tokens, *, prefix_embed=None, caches=None,
         positions = torch.arange(s, device=x.device).expand(b, s)
         caches = empty_caches(cfg, b, slots, x.dtype, x.device)
 
-    if layer_kind(cfg) == "attn_mlp":
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if layer_kind(cfg) != "ssm":
+        use_moe = layer_kind(cfg) == "attn_moe"
         for layer in range(cfg.n_layers):
-            x = _attn_at(_tree_slice(params["layers"], layer), cfg, x,
-                         positions, caches["kv"], layer, pos0, decoding)
+            x, aux = _attn_at(_tree_slice(params["layers"], layer), cfg, x,
+                              positions, caches["kv"], layer, pos0, decoding,
+                              use_moe=use_moe)
+            if use_moe and not decoding:
+                aux_total = aux_total + aux
     elif cfg.family == "ssm":
         for layer in range(cfg.n_layers):
             x = _ssm_at(params, cfg, x, caches["ssm"], layer, decoding)
@@ -233,15 +239,15 @@ def forward(params, cfg, tokens, *, prefix_embed=None, caches=None,
             for layer in range(sb * per, (sb + 1) * per):
                 x = _ssm_at(params, cfg, x, caches["ssm"], layer, decoding)
             shared = _tree_slice(params["shared"], sb % cfg.n_shared_blocks)
-            x = _attn_at(shared, cfg, x, positions, caches["shared_kv"], sb,
-                         pos0, decoding)
+            x, _ = _attn_at(shared, cfg, x, positions, caches["shared_kv"],
+                            sb, pos0, decoding)
         for layer in range(n_super * per, cfg.n_layers):
             x = _ssm_at(params, cfg, x, caches["ssm"], layer, decoding)
 
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if not decoding and s_max is None and cfg.family == "hybrid":
         caches = grouped_caches(cfg, caches)
-    return x, caches
+    return x, caches, aux_total
 
 
 def logits_from_hidden(params, cfg, hidden):

@@ -277,9 +277,10 @@ def test_init_params_and_caches_have_jax_layout(jax_mods, pair):
 def test_forward_hidden_matches_jax(jax_mods, pair):
     want, _, _ = jax_mods.tf.forward(pair.params_j, pair.cfg_j,
                                      jax_mods.jnp.asarray(pair.tokens))
-    got, _ = transformer.forward(pair.params_t, pair.cfg_t,
-                                 torch.as_tensor(pair.tokens))
+    got, _, aux = transformer.forward(pair.params_t, pair.cfg_t,
+                                      torch.as_tensor(pair.tokens))
     assert got.shape == (B, S, pair.cfg_t.d_model)
+    assert aux.dtype == torch.float32 and float(aux) == 0.0
     _close(got, want, MODEL_TOL)
 
 
