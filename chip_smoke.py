@@ -5,9 +5,10 @@
 
 Phases, each of which stops the script with a non-zero exit on failure:
 
-1. Build the five Hopper kernels from `src/repro_torch/csrc/` (one nvcc per
-   source, all started together, `sm_90a`) and report nvcc's register and
-   spill summary, for `fitness`, `qmatmul` and `flash_attn` by kernel.
+1. Build the six Hopper kernel sources from `src/repro_torch/csrc/` (one
+   nvcc per source, all started together, `sm_90a`) and report nvcc's
+   register and spill summary, for `fitness`, `qmatmul`, `flash_attn` and
+   `flash_attn_bwd` by kernel.
 2. Hold each kernel to its plain PyTorch version on the card at the main
    paths' shapes (the `har` dataset: a tree of N=588 comparators and L=589
    leaves, and a printed MLP of F=561 features, H=16 hidden and C=6 output
@@ -64,7 +65,20 @@ Phases, each of which stops the script with a non-zero exit on failure:
    four model shapes beside its plain version, its bound (the bf16
    tensor-core rate) and, without a softcap, `scaled_dot_product_attention`
    (causal, GQA); and check that the model's prefill attention runs
-   nothing on the card but the kernel (no layout copies).
+   nothing on the card but the kernel (no layout copies). Then the
+   gradient, `flash_attention_backward` (two kernels of `flash_attn_bwd.cu`
+   from the forward's kept log-sum-exp; no TPU kernel: the JAX package
+   differentiates its jnp attention), against its plain version by
+   `grad_error` (float32 within 2^-12, bf16 within 2^-4), two calls
+   bit-equal and autograd through both wrappers giving the kernel's bits,
+   at llama3.2-3b's training shape (B=2, S=4096, 24 / 8 heads), zamba2-7b's
+   hd 112, grok-1-314b's softcap 30 and kimi-k2-1t-a32b's heads (B=1), MQA
+   at hd 256, ragged S, Sq != Skv, one query, and softcap 5 on scores that
+   reach the cap in bf16 and float32, where two planted faults (D dropped,
+   the cap's derivative dropped) must read 1.5 limits or more
+   (`flash_bwd_cases`); the model shapes timed beside the plain backward,
+   the bound (5/2 of the forward's causal FLOPs at the bf16 rate) and SDPA's
+   backward where there is no cap.
 7. `[lm]`: the LM serving path at llama3.2-3b's full width (28 layers,
    random bf16 weights from the seed): `generate` of 32 greedy tokens after
    a B=4 x 4096-token prompt (the repo's `train_4k` length; `prefill_32k`
@@ -74,7 +88,25 @@ Phases, each of which stops the script with a non-zero exit on failure:
    must give the same tokens, and prefill and decode times, peak memory and
    the device time of one prefill split into the attention kernel,
    matmuls and the rest are printed.
-8. `[ssm]`: the SSM and hybrid serving paths at mamba2-1.3b's and
+8. `[train]`: LM training through `launch.train`'s loop
+   (`python -m repro_torch.launch.train`'s code path): llama3.2-3b at full
+   width and depth, random bf16 weights from the seed, B=2 x 4096 tokens of
+   `SyntheticLMData` (`train_4k`'s length; its global batch of 256 cut to
+   2), AdamW on the launcher's warmup-cosine schedule, 4 steps, counted
+   (`flash_attention` twice a layer a step under remat, its backward once),
+   then 3 steps on one fixed batch whose loss must fall; step time,
+   tokens/s, peak memory and one step's device time split into matmuls,
+   the attention forward and backward, the CE loss, the optimizer and the
+   elementwise rest, with the idle share. A float32 reduced llama (head dim
+   64, so both attention kernels run) takes one step on the card equal to
+   the CPU's (loss and grad norm within 1e-5, every gradient within 1e-4
+   of its leaf's scale, every parameter moved, and AdamW given the CPU's
+   gradients within 8 ulps of the CPU's update), and a reduced run resumed
+   from its checkpoint equals the uninterrupted run bit for bit. Then grok-1-314b cut to 1 of 64 layers (9.8 GB of bf16
+   weights with the untied embeddings), B=4 x 4096 in its grad_accum 4
+   microbatches summed in bf16, Adafactor, 2 steps, counted and timed the
+   same way (its attention softcapped).
+9. `[ssm]`: the SSM and hybrid serving paths at mamba2-1.3b's and
    zamba2-7b's full width (48 and 81 mamba2 layers, zamba2's 13 shared
    attention invocations at head dim 112; random bf16 weights from the
    seed), each as `[lm]`: `generate` of 32 greedy tokens after the B=4 x
@@ -86,7 +118,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    a prefill of as many tokens is held to that position of one causal
    forward over the prompt); a second `generate` identical; prefill and
    decode times, peak memory and one prefill's device time split.
-9. `[moe]`: the MoE serving path at grok-1-314b's and kimi-k2-1t-a32b's
+10. `[moe]`: the MoE serving path at grok-1-314b's and kimi-k2-1t-a32b's
    published width, cut to 8 of 64 and 1 of 61 layers (56.2 and 38.8 GB
    of random bf16 weights from the seed), each as `[lm]`: `generate` of 32
    greedy tokens after the B=4 x 4096 prompt, counted (`flash_attention`
@@ -103,20 +135,20 @@ Phases, each of which stops the script with a non-zero exit on failure:
    held in (b); prefill and decode times, peak memory, one prefill's
    device time split and one MoE layer's route, dispatch, expert products
    and combine timed alone.
-10. Print where one generation's time goes on each search path (its
+11. Print where one generation's time goes on each search path (its
    survivor selection run once under sync debug mode "error", its ranks
    held to the host loop's on the same pool).
-11. `[chunk]`: on the tree and MLP `har` paths, 8 generations chunked with
+12. `[chunk]`: on the tree and MLP `har` paths, 8 generations chunked with
    `checkpoint_every=4` (each chunk one captured CUDA graph, its warm-up
    step run under sync debug mode "error") must equal the per-generation
    loop element for element; one generation's host time, device busy time
    and idle share inside a captured chunk beside an eager step's; the
    graphs captured and the dispatches.
-12. `[resume]`: 8 tree `har` generations saving every 3; a fresh
+13. `[resume]`: 8 tree `har` generations saving every 3; a fresh
    `run_search` resuming from the step-6 save must equal the uninterrupted
    run, the step-8 saves (the CUDA generator's state included) leaf for
    leaf.
-13. `[sweep]`: the paper's campaign, `repro_torch.search.sweep.run_sweep`
+14. `[sweep]`: the paper's campaign, `repro_torch.search.sweep.run_sweep`
    over the ten datasets at their real sizes (six buckets, pop 64, 40
    generations, the CLI's defaults): batched with `verify_rtl` and the
    report, then the serial loop, equal array for array; per bucket its
@@ -131,7 +163,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    beside their bounds; then a mixed campaign (seeds and vertebral
    two-tree forests in one bucket, seeds and pendigits MLPs in another,
    pop 16, 4 generations), batched == serial.
-14. `[faults]`: the stuck-at campaign (`core.faults`, `search.robustness`,
+15. `[faults]`: the stuck-at campaign (`core.faults`, `search.robustness`,
    plain PyTorch on the card). The har tree's best point over all 3090
    test rows: its zero-fault lane == `netlist.simulate` == the argmax of
    `tree_infer_scores`' votes (`ops.classify`, the `--verify-rtl` leg);
@@ -151,7 +183,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    each `fault_report.json` == the CPU's but the pendigits MLP's. Its
    launches alone are the phase's count: the checks above launch kernels
    too, outside that window.
-15. `[mesh]`: the multi-device search (`core.dist`, `launch.mesh`), two
+16. `[mesh]`: the multi-device search (`core.dist`, `launch.mesh`), two
    ranks spawned on the one card over gloo (NCCL refuses two ranks on one
    GPU; this checks the code and its arithmetic, not NVLink): (a) the har
    tree, kernel backend, pop 512, `mesh="2"`, 8 generations with
@@ -159,7 +191,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    (b) the same run saved at generation 4 under the mesh and resumed on
    one card with no mesh == it; (c) islands on a 2-ring (256 an island,
    migrate_every 4) == the same islands run one after another in this
-   process; (d) the mixed sweep campaign of phase 13 on a 2x1 mesh == its
+   process; (d) the mixed sweep campaign of phase 14 on a 2x1 mesh == its
    batched single-card run. Each rank returns its launch counts (they are
    per process); the bool `domination_block` slab, each rank's (512,
    1024) rows of the sharded sort, must have launched. A sharded
@@ -167,7 +199,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    collectives a generation, one `all_reduce` alone, spawn and rendezvous
    s; the slab and `fitness_errors` at a rank's shapes timed beside their
    bounds (rows `domination_block[shard]`, `fitness_errors[shard]`).
-16. The kernel list, the card's name and power limit, one JSON line of
+17. The kernel list, the card's name and power limit, one JSON line of
    per-kernel results (each row names what it times in `what`; the rows
    `fitness_errors[bucket]` and `domination_block[bucket]` are the batched
    launches, the `[shard]` rows a mesh rank's), and last `{"ok": true,
@@ -191,6 +223,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -235,9 +269,17 @@ TPU_KERNELS = {  # kernel -> (port source, the TPU kernel it replaces,
                         "src/repro/kernels/flash_attn.py:70",
                         "bf16 LM prefill, q (4, 4096, 24, 128), k and v "
                         "(4, 4096, 8, 128), the model's layout"),
+    "flash_attention_backward": (
+        "src/repro_torch/csrc/flash_attn_bwd.cu",
+        "none: no TPU kernel (the Pallas flash_attention has no gradient; "
+        "the JAX package differentiates its jnp chunked_prefill_attention, "
+        "src/repro/models/attention.py:53)",
+        "bf16 llama3.2-3b training, q, o, dout (2, 4096, 24, 128), k and v "
+        "(2, 4096, 8, 128), the model's layout"),
 }
 LM_ARCH = "llama3.2-3b"            # full width; the repo's train_4k length
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 4096, 32
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096   # [train]: train_4k's length, B 256 -> 2
 SSM_ARCHS = ("mamba2-1.3b", "zamba2-7b")   # [ssm]: full width, same prompt
 SSD_CHUNK = 256                    # ssm_block's default chunk
 FLASH_112 = "flash_attention[hd 112]"      # the kernel line's zamba2 row
@@ -252,6 +294,26 @@ FLASH_F32_TOL = 2e-5               # tests/test_kernels.py:208-209
 # times its rms; the rows' magnitudes fall to ~0.03 at S=4096, so no one
 # absolute tolerance fits them (tests/test_torch_flash.py's module doc)
 FLASH_BF16_ROW_TOL = 2.0 ** -4
+# the backward (`flash_attention_backward`) against its plain version by
+# `grad_error` (a row error whose rows of near-zero true gradient are held
+# to GRAD_ERROR_FLOOR, 2^-4, of the tensor's scale): float32 within 2^-12.
+# dS = P (dP - D) cancels, so dq carries an absolute rounding of about 1e-5
+# of the tensor's scale in every row, row 0 (exactly zero) included, where
+# the floor turns it into ~1e-4: a second sound float32 computation
+# (autograd of the plain forward) reads up to 7.7e-5 against the plain
+# backward at the float32 cases below on the CPU, over 1e-4 / FAULT_MARGIN
+# (tests/test_torch_flash.py), and the kernel reads at most 5.9e-5 on an
+# H100; the planted faults of `flash_backward_ref` read 0.065 and more
+# wherever they change the equations. bfloat16 within FLASH_BF16_ROW_TOL:
+# the kernel rounds P and dS to bf16 as operands of its products, as the
+# forward rounds p, and the plain version keeps them float32 (that rounding
+# alone measures 0.019 against float64 on the CPU)
+FLASH_BWD_F32_TOL = 2.0 ** -12
+FLASH_LSE_TOL = 1e-4   # the kept log-sum-exp against the plain one (float32)
+FAULT_MARGIN = 1.5     # a planted fault reads at least this many limits
+FLASH_BWD = "flash_attention_backward"
+FLASH_BWD_112 = "flash_attention_backward[hd 112]"
+FLASH_BWD_SOFTCAP = "flash_attention_backward[softcap 30]"
 # decode against a fresh prefill in bfloat16: the two paths round their
 # activations at other places (the kernel rounds p to bf16, decode takes a
 # float32 softmax; cuBLAS sums a 4-row and a 16k-row product in other
@@ -461,7 +523,7 @@ def phase_build() -> float:
         f"for {', '.join(_build.SOURCES)}")
     for name in _build.SOURCES:
         log(f"[build] {name}: {ptxas_summary(name)}")
-    for name in ("fitness", "qmatmul", "flash_attn"):
+    for name in ("fitness", "qmatmul", "flash_attn", "flash_attn_bwd"):
         log(f"[build] {name} by kernel: " + "; ".join(ptxas_kernels(name)))
     return seconds
 
@@ -2109,6 +2171,272 @@ def phase_flash(rng) -> dict:
     return rows
 
 
+class BwdCase(NamedTuple):
+    """One check of `flash_attention_backward`: inputs (B, Sq, H, hd) and
+    (B, Skv, Hkv, hd), unit normal, q scaled by ``q_scale``; ``row`` names
+    the kernel line's row the case is timed for ("" timed without a row,
+    None not timed)."""
+    name: str
+    b: int
+    h: int
+    hkv: int
+    sq: int
+    skv: int
+    hd: int
+    dtype: torch.dtype
+    softcap: float = 0.0
+    q_scale: float = 1.0
+    row: str | None = None
+
+
+def flash_bwd_cases() -> list:
+    """The backward's checks, here and in `tests/test_torch_flash.py`'s card
+    tests: llama3.2-3b's training shape (B=2, S=4096, 24 / 8 heads, hd
+    128), zamba2-7b's hd 112, grok-1-314b's softcap 30 and kimi-k2's heads
+    (B=1, a training microbatch); MQA at hd 256, ragged S, Sq != Skv both
+    ways, one query, groups 1 to 8; and softcap 5 on q scaled by 2.5, whose
+    scores reach the cap (1 - tanh^2 down to ~0.1), in bf16 and float32."""
+    from repro_torch.configs import get_config
+
+    cfg, zcfg = get_config(LM_ARCH), get_config(SSM_ARCHS[1])
+    gcfg, kcfg = (get_config(arch) for arch, _ in MOE_ARCHS)
+    bf, f32 = torch.bfloat16, torch.float32
+    s = TRAIN_SEQ
+
+    def model(name, b, c, row, cap=0.0):
+        return BwdCase(name, b, c.n_heads, c.n_kv_heads, s, s, c.head_dim,
+                       bf, cap, row=row)
+
+    return [
+        model("llama train", TRAIN_BATCH, cfg, FLASH_BWD),
+        model("zamba2 hd 112", TRAIN_BATCH, zcfg, FLASH_BWD_112),
+        model("grok softcap", 1, gcfg, FLASH_BWD_SOFTCAP, gcfg.attn_softcap),
+        model("kimi", 1, kcfg, ""),
+        BwdCase("MQA hd 256", 1, 8, 1, 1024, 1024, 256, bf),
+        BwdCase("ragged", 2, 24, 8, 1000, 1000, 128, bf),
+        BwdCase("ragged hd 112", 1, 8, 8, 1000, 1000, 112, bf),
+        BwdCase("group 3 hd 64", 3, 6, 2, 777, 777, 64, bf),
+        BwdCase("softcap 30 hd 64", 2, 8, 8, 256, 256, 64, bf, 30.0),
+        BwdCase("Sq < Skv", 2, 4, 2, 300, 900, 128, bf),
+        BwdCase("Sq > Skv", 2, 4, 2, 900, 300, 128, bf),
+        BwdCase("one query", 1, 4, 2, 1, 1, 128, bf),
+        BwdCase("cap reached", 1, 8, 2, 512, 512, 64, bf, 5.0, 2.5),
+        BwdCase("float32", 1, 8, 4, 512, 512, 64, f32),
+        BwdCase("float32 softcap 30", 2, 6, 2, 333, 333, 128, f32, 30.0),
+        BwdCase("float32 hd 256 Sq < Skv", 1, 4, 1, 200, 517, 256, f32),
+        BwdCase("float32 hd 112", 1, 4, 4, 130, 130, 112, f32),
+        BwdCase("float32 cap reached", 1, 8, 2, 512, 512, 64, f32, 5.0, 2.5),
+    ]
+
+
+def flash_bwd_inputs(case: BwdCase, device):
+    """(q, k, v, do) of ``case`` in its dtype on ``device``, from SEED."""
+    rng = np.random.default_rng(SEED)
+
+    def draw(s, n, scale=1.0):
+        x = rng.standard_normal((case.b, s, n, case.hd), dtype=np.float32)
+        return torch.as_tensor(x * np.float32(scale)).to(device, case.dtype)
+
+    return (draw(case.sq, case.h, case.q_scale), draw(case.skv, case.hkv),
+            draw(case.skv, case.hkv), draw(case.sq, case.h))
+
+
+def flash_backward_ref(q, k, v, o, do, softcap: float, *,
+                       bf16_operands: bool = False, fault: str = "none"):
+    """(dq, dk, dv) by the backward's equations in float64, from model-layout
+    tensors and the forward's output ``o`` as the kernel gets it (D =
+    rowsum(do * o) reads the output in its dtype); with ``bf16_operands``, P
+    and dS rounded to bf16 as the kernel rounds the operands of its
+    products; with ``fault`` planted, "no_D" drops D and
+    "no_cap_derivative" drops 1 - tanh^2(u / cap): what a check must
+    tell from a sound kernel."""
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qf, kf, vf, dof = (t.double().permute(0, 2, 1, 3) for t in (q, k, v, do))
+    kf, vf = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
+    u = qf @ kf.transpose(-1, -2) * hd ** -0.5
+    sc = torch.tanh(u / softcap) * softcap if softcap else u
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(torch.where(mask, sc, -1e30), -1)
+    o = o.double().permute(0, 2, 1, 3)
+
+    def rnd(t):
+        return t.to(torch.bfloat16).double() if bf16_operands else t
+
+    d = 0.0 if fault == "no_D" else (dof * o).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - d)
+    if softcap and fault != "no_cap_derivative":
+        ds = ds * (1 - torch.tanh(u / softcap) ** 2)
+    ds, p = rnd(ds * hd ** -0.5), rnd(p)
+
+    def kv_heads(t):
+        return t.reshape(b, hkv, g, skv, hd).sum(2).permute(0, 2, 1, 3)
+
+    return ((ds @ kf).permute(0, 2, 1, 3), kv_heads(ds.transpose(-1, -2) @ qf),
+            kv_heads(p.transpose(-1, -2) @ dof))
+
+
+def check_flash_backward(case: BwdCase) -> dict:
+    """Hold `flash_attention_backward` at ``case`` on the card: the forward
+    with its log-sum-exp kept equal to the forward without, the log-sum-exp
+    within FLASH_LSE_TOL of the plain one; dq, dk and dv finite, two calls
+    bit-equal, each within its limit (float32 FLASH_BWD_F32_TOL, bf16
+    FLASH_BF16_ROW_TOL) of `flash_attention_backward_plain` by `grad_error`;
+    autograd through both wrappers giving the kernel's bits; and, where the
+    scores reach the cap, each planted fault of `flash_backward_ref` reading
+    at least FAULT_MARGIN limits on the same inputs. Returns the readings
+    and the case's tensors (q, k, v, o, lse, do)."""
+    from repro_torch.kernels import flash_attn as fa
+
+    q, k, v, do = flash_bwd_inputs(case, "cuda")
+    cap = case.softcap
+    where = (f"flash_attention_backward {case.name} B={case.b} H={case.h} "
+             f"Hkv={case.hkv} Sq={case.sq} Skv={case.skv} hd={case.hd} "
+             f"{str(case.dtype)[6:]} softcap={cap}"
+             + (f" q x {case.q_scale}" if case.q_scale != 1 else ""))
+    o, lse = fa.flash_attention_forward(q, k, v, softcap=cap)
+    check(torch.equal(o, fa.flash_attention_bshd(q, k, v, softcap=cap)),
+          f"{where}: the forward with its log-sum-exp kept differs from the "
+          f"forward without")
+    lse_err = float((lse - fa.flash_attention_lse_plain(
+        q, k, softcap=cap)).abs().max())
+    check(lse_err <= FLASH_LSE_TOL, f"{where}: the log-sum-exp differs from "
+          f"the plain one by {lse_err}")
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, softcap=cap)
+    again = fa.flash_attention_backward(q, k, v, o, lse, do, softcap=cap)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                             softcap=cap)
+    limit = FLASH_BWD_F32_TOL if case.dtype == torch.float32 \
+        else FLASH_BF16_ROW_TOL
+    errs, max_abs = [], 0.0
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        check(g.dtype == case.dtype and bool(torch.isfinite(g).all()),
+              f"{where}: {name} is not finite {str(case.dtype)[6:]}")
+        check(torch.equal(g, a), f"{where}: {name} differs between two calls")
+        max_abs = max(max_abs, float((g.float() - w.float()).abs().max()))
+        if name != "dv" and case.sq == 1:
+            # one query sees one key: a softmax over one score has zero
+            # gradient (dS = 0), so dq and dk are rounding alone
+            errs.append(float(g.float().abs().max()))
+            check(errs[-1] <= 1e-3, f"{where}: {name} of one query is "
+                  f"{errs[-1]}, not ~0")
+            continue
+        errs.append(fa.grad_error(g, w))
+        check(errs[-1] <= limit, f"{where}: {name} grad_error {errs[-1]} "
+              f"against the plain backward (limit {limit})")
+    text = ""
+    if case.q_scale > 1:
+        bf16 = case.dtype == torch.bfloat16
+        sound = flash_backward_ref(q, k, v, o, do, cap, bf16_operands=bf16)
+        text = "; the equations in float64 read " + ", ".join(
+            f"{fa.grad_error(a, w):.3g}" for a, w in zip(sound, want))
+        for fault in ("no_D", "no_cap_derivative"):
+            bad = flash_backward_ref(q, k, v, o, do, cap, bf16_operands=bf16,
+                                     fault=fault)
+            reads = [fa.grad_error(a, w) for a, w in zip(bad[:2], want[:2])]
+            check(min(reads) >= FAULT_MARGIN * limit, f"{where}: the planted "
+                  f"fault {fault} reads only {reads} (limit {limit})")
+            text += f"; {fault} reads dq {reads[0]:.3g} dk {reads[1]:.3g}"
+        del sound, bad
+    del want, again
+    # through autograd: the Function's backward is the kernel, in the
+    # model's layout and (one sequence) in the (H, S, hd) layout
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    fa.flash_attention_bshd(qg, kg, vg, softcap=cap).backward(do)
+    for name, t, g in zip(("dq", "dk", "dv"), (qg, kg, vg), got):
+        check(torch.equal(t.grad, g), f"{where}: autograd's {name} is not the "
+              f"kernel's")
+    if case.b == 1:
+        qh, kh, vh = (t[0].transpose(0, 1).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        fa.flash_attention(qh, kh, vh, group=case.h // case.hkv,
+                           softcap=cap).backward(do[0].transpose(0, 1))
+        for name, t, g in zip(("dq", "dk", "dv"), (qh, kh, vh), got):
+            check(torch.equal(t.grad, g[0].transpose(0, 1)), f"{where}: the "
+                  f"(H, S, hd) wrapper's {name} is not the kernel's")
+    del qg, kg, vg, got
+    log(f"[flash] {where}: lse within {lse_err:.3g}; grad_error dq "
+        f"{errs[0]:.4g}, dk {errs[1]:.4g}, dv {errs[2]:.4g} against the plain "
+        f"backward (limit {limit}){text}; two calls bit-equal; autograd == "
+        f"the kernel")
+    return dict(errs=errs, max_abs=max_abs, tensors=(q, k, v, o, lse, do))
+
+
+def phase_flash_backward(timing: bool = True) -> dict:
+    """`check_flash_backward` at every case of `flash_bwd_cases`; with
+    ``timing``, the timed cases beside the plain backward, the bound (5/2
+    of the forward's causal FLOPs at the bf16 tensor-core rate) and,
+    without a softcap, the backward of `scaled_dot_product_attention`
+    (causal, GQA; timed, never used). Returns the kernel line's rows."""
+    from repro_torch.kernels import flash_attn as fa
+
+    rows, err = {}, 0.0
+    for case in flash_bwd_cases():
+        res = check_flash_backward(case)
+        err = max(err, res["max_abs"])
+        q, k, v, o, lse, do = res.pop("tensors")
+        if case.row is None or not timing:
+            del q, k, v, o, lse, do
+            continue
+        b, h, hkv, s, hd, cap = (case.b, case.h, case.hkv, case.sq, case.hd,
+                                 case.softcap)
+        ms, plain_ms, text = timed(
+            lambda: fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                softcap=cap),
+            lambda: fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                      softcap=cap),
+            "flash_bwd", reps=10, plain_reps=1)
+        lib_ms, lib_text = None, "no library call (SDPA has no softcap)"
+        if not cap:
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            out_t = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            do_t = do.transpose(1, 2)
+
+            def sdpa_backward():
+                return torch.autograd.grad(out_t, (qt, kt, vt), do_t,
+                                           retain_graph=True)
+
+            lib_ms, lib_how = device_or_stream_ms(sdpa_backward, 10)
+            lib_text = (f"scaled_dot_product_attention's backward "
+                        f"{lib_ms:.4f} ms {lib_how} (the kernel "
+                        f"{ms / lib_ms:.2f}x)")
+            del qt, kt, vt, out_t, do_t
+        n_ops = 10 * attention_pairs(s, s) * hd * h * b
+        n_bytes = (4 * b * s * h * hd + 4 * b * s * hkv * hd) \
+            * q.element_size() + 4 * b * h * s
+        bms, by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        log(f"[flash] backward {case.name} shape: {text}; {lib_text}; bound "
+            f"{bms:.4f} ms ({by}; {n_ops:.4g} FLOPs at 989 TFLOP/s bf16, "
+            f"{n_bytes} bytes); kernel at {n_ops / ms / 1e9:.1f} TFLOP/s, "
+            f"{ms / bms:.2f}x its bound")
+        if case.row:
+            rows[case.row] = dict(
+                name=case.row, route="cuda",
+                source=TPU_KERNELS[FLASH_BWD][0],
+                replaces=TPU_KERNELS[FLASH_BWD][1], launches=0,
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    for r in rows.values():
+        r["max_abs_err"] = err
+    log(f"[flash] the backward's largest difference from its plain version "
+        f"over all cases is {err:.3g}")
+    return rows
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_lm() -> dict:
     """The LM serving path at llama3.2-3b width: random bf16 parameters and a
     B=4 x 4096-token prompt from the seed, greedy `generate` of 32 tokens,
@@ -2218,6 +2546,353 @@ def phase_lm() -> dict:
     prefill_profile("[lm]", lambda: lm.prefill(params, cfg, batch,
                                                 s_max=s_max), t_prefill)
     return dict(counts=counts)
+
+
+TRAIN_STEPS = 4           # [train]: llama3.2-3b steps through train_loop
+TRAIN_FIXED = 3           # then steps on one fixed batch: the loss falls
+GROK_TRAIN = ("grok-1-314b", 1, 4, 2)   # arch, layers, batch, steps
+# [train]: one float32 reduced step on the card against the CPU (head dim
+# 64, so both attention kernels run): its loss and grad norm within
+# TRAIN_RTOL, and every parameter's gradient (`train.loss_and_grads`)
+# within TRAIN_GRAD_REL of the CPU gradient's largest magnitude in that
+# leaf. Both sides are float32 throughout (TF32 off): only summation
+# orders differ (cuBLAS and the kernels against MKL and the plain
+# attention). The step's own parameters are not compared: AdamW's update is
+# lr m / (sqrt(v) + 1e-8), so a gradient within a few 1e-8 of zero, where
+# the sides' roundings differ by as much as the value, moves its update by
+# up to ~lr (1.78e-4 measured on an H100 against a 4e-4 update), as much as
+# an update left out would. So every parameter must move in the card's
+# step, and the update itself is held given the same gradients: the CPU's,
+# applied on each device from the same state, give parameters within
+# TRAIN_ULPS float32 ulps of the larger of the new and the old value (p -
+# lr upd can cancel) and moments within TRAIN_ULPS ulps of their value.
+# Each element takes the same float32 operations on both sides; `pow` (the
+# bias corrections) may differ by an ulp, which moves an update that
+# outweighs its parameter by up to 6 ulps (bias corrections moved an ulp
+# each way on the CPU); an update left out reads ~2.6e7 ulps. The clip is
+# held by the grad norm above.
+TRAIN_RTOL, TRAIN_GRAD_REL, TRAIN_ULPS = 1e-5, 1e-4, 8
+ATTN_FWD_NAMES = ("flash_attn_tc_kernel", "flash_attn_kernel")
+
+
+def _profile_split(fn, ranges=()):
+    """(device ms by category, the device span of each named
+    `record_function` range, busy ms, host ms, the eight largest device
+    activities by name) of one ``fn()`` call, from a profiler trace:
+    categories matmuls (cuBLAS), attention forward, attention backward and
+    the rest. A range shows on the device as an annotation spanning its
+    kernels, so it is read apart and not counted as busy time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    split = {"matmuls": 0.0, "attention forward": 0.0,
+             "attention backward": 0.0, "rest": 0.0}
+    by_name: dict[str, float] = {}
+    in_range = dict.fromkeys(ranges, 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        if e.name in in_range:   # a range's span on the device, not a kernel
+            in_range[e.name] += us / 1e3
+            continue
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        if "flash_bwd" in e.name:
+            split["attention backward"] += us
+        elif any(n in e.name for n in ATTN_FWD_NAMES):
+            split["attention forward"] += us
+        elif any(w in e.name.lower() for w in MATMUL_NAMES):
+            split["matmuls"] += us
+        else:
+            split["rest"] += us
+    split = {k: v / 1e3 for k, v in split.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return split, in_range, sum(split.values()), host, top
+
+
+def train_breakdown(tag, cfg, state, opt, batch, steady_ms: float):
+    """Where one training step's device time goes: a traced step whose
+    optimizer update runs in a `record_function` range, beside the CE loss
+    (`chunked_ce_loss` forward and backward, the table's gradient included,
+    on the step's shapes) traced alone: matmuls, the attention forward and
+    backward, the CE loss's own kernels (its matmuls counted under
+    matmuls), the optimizer and the elementwise rest; the idle share
+    against the untraced steady step's ``steady_ms``. Returns the state
+    after the traced step."""
+    from repro_torch import optim
+    from repro_torch.models import lm
+    from repro_torch.runtime import train
+
+    def update(*args):
+        with torch.profiler.record_function("optimizer.update"):
+            return opt.update(*args)
+
+    step_fn = train.make_train_step(
+        cfg, optimizer=optim.Optimizer(opt.init, update, opt.name))
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step_fn(holder[0], batch)
+
+    split, ranges, busy, host, top = _profile_split(one_step,
+                                                    ("optimizer.update",))
+    tokens = batch["tokens"]
+    table = state.params["embed" if cfg.tie_embeddings else "lm_head"]
+    hidden = torch.randn((*tokens.shape, cfg.d_model), device="cuda",
+                         dtype=table.dtype, requires_grad=True)
+    mask = torch.ones_like(tokens)
+
+    def ce():
+        table.requires_grad_(True)
+        loss, _ = lm.chunked_ce_loss(holder[0].params, cfg, hidden, tokens,
+                                     mask)
+        loss.backward()
+        table.requires_grad_(False)
+        table.grad = hidden.grad = None
+
+    ce()
+    ce_split, _, ce_busy, _, _ = _profile_split(ce)
+    ce_own = ce_busy - ce_split["matmuls"]
+    opt_ms = ranges["optimizer.update"]
+    parts = {"matmuls": split["matmuls"],
+             "attention forward": split["attention forward"],
+             "attention backward": split["attention backward"],
+             "CE loss (beside its matmuls)": ce_own,
+             "optimizer": opt_ms,
+             "elementwise rest": split["rest"] - ce_own - opt_ms}
+    log(f"{tag} one traced step's device time {busy:.1f} ms in {host:.1f} "
+        f"ms on the host clock (idle share {1 - busy / host:.3f}; the "
+        f"untraced steady step {steady_ms:.1f} ms): "
+        + ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})"
+                    for k, v in parts.items())
+        + f"; the CE loss alone {ce_busy:.1f} ms of device time, "
+        f"{ce_split['matmuls']:.1f} of it matmuls")
+    log(f"{tag} largest device activities of the step: " + "; ".join(
+        f"{n[:70]} {us / 1e3:.2f} ms" for n, us in top))
+    del hidden
+    return holder[0]
+
+
+def _ulps(got, want, before=None) -> float:
+    """The largest difference of ``got`` from ``want`` in float32 ulps of
+    ``want`` (of the larger of ``want`` and ``before`` when given)."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    mag = np.abs(w) if before is None else np.maximum(
+        np.abs(w), np.abs(before.cpu().numpy()))
+    return float((np.abs(g - w) / np.spacing(mag.astype(np.float32))).max())
+
+
+def reduced_step_check(device: str = "cuda") -> dict:
+    """One step of a float32 reduced llama3.2-3b (head dim 64, so both
+    attention kernels run) on ``device`` against the same step on the CPU:
+    the loss and grad norm within TRAIN_RTOL, every gradient within
+    TRAIN_GRAD_REL of its leaf's scale, every parameter moved by the step;
+    then the CPU's gradients applied by the optimizer on each device from
+    the same state, parameters and moments within TRAIN_ULPS ulps. Returns
+    the readings."""
+    from repro_torch import pytree
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime import train
+
+    cfg = reduced_config(get_config(LM_ARCH), head_dim=64)
+    data = SyntheticLMData(cfg.vocab_size, 128, 4, seed=0)
+    steps, start = 20, 12
+
+    def state_on(dev):
+        state = launch_train.build(cfg, steps=steps, device="cpu")[0]
+        return train.TrainState(
+            pytree.tree_map(lambda t: t.to(dev), state.params),
+            pytree.tree_map(lambda t: t.to(dev), state.opt_state),
+            torch.full((), start, dtype=torch.int32, device=dev))
+
+    step_fn = train.make_train_step(
+        cfg, optimizer=launch_train.optimizer_for(cfg, steps))
+    metrics, grads = {}, {}
+    for dev in ("cpu", device):
+        state = state_on(dev)
+        before = [t.clone() for t in pytree.leaves(state.params)]
+        batch = launch_train.device_batch(data, 0, cfg, 4, dev)
+        grads[dev] = train.loss_and_grads(cfg, state.params, batch)[2]
+        metrics[dev] = step_fn(state, batch)[1]
+        for (path, t), b in zip(pytree.leaves_with_paths(state.params),
+                                before):
+            check(not torch.equal(t, b), f"[train] reduced float32 step on "
+                  f"{dev}: {pytree.path_str(path)} did not move")
+        del before
+    worst = 0.0
+    for key in ("loss", "grad_norm"):
+        a, b = float(metrics["cpu"][key]), float(metrics[device][key])
+        worst = max(worst, abs(a - b) / abs(a))
+        check(abs(a - b) <= TRAIN_RTOL * abs(a), f"[train] reduced float32 "
+              f"step: {key} {b} on the card, {a} on the CPU")
+    rel = 0.0
+    for (path, a), b in zip(pytree.leaves_with_paths(grads["cpu"]),
+                            pytree.leaves(grads[device])):
+        err = float((a - b.cpu()).abs().max()) / max(
+            float(a.abs().max()), 1e-30)
+        rel = max(rel, err)
+        check(err <= TRAIN_GRAD_REL, f"[train] reduced float32 step: the "
+              f"gradient of {pytree.path_str(path)} on the card differs "
+              f"from the CPU's by {err} of its scale")
+    opt = launch_train.optimizer_for(cfg, steps)
+    updated = {}
+    for dev in ("cpu", device):
+        state = state_on(dev)
+        before = pytree.tree_map(lambda t: t.clone(), state.params)
+        g = pytree.tree_map(lambda t: t.to(dev, copy=True), grads["cpu"])
+        updated[dev] = opt.update(g, state.opt_state, state.params,
+                                  state.step)
+    p_ulps = max(_ulps(b, a, w) for (_, a), b, w in zip(
+        pytree.leaves_with_paths(updated["cpu"][0]),
+        pytree.leaves(updated[device][0]), pytree.leaves(before)))
+    s_ulps = max(_ulps(b, a) for a, b in zip(pytree.leaves(updated["cpu"][1]),
+                                            pytree.leaves(updated[device][1])))
+    check(max(p_ulps, s_ulps) <= TRAIN_ULPS, f"[train] reduced float32 "
+          f"step: {opt.name} given the CPU's gradients gives parameters "
+          f"within {p_ulps} ulps and moments within {s_ulps} ulps of the "
+          f"CPU's on the card, not {TRAIN_ULPS}")
+    log(f"[train] reduced float32 llama3.2-3b (hd 64, {cfg.n_layers} layers) "
+        f"one step on the card == the CPU's: loss and grad norm within "
+        f"{worst:.3g} (rtol {TRAIN_RTOL}), every gradient within {rel:.3g} "
+        f"of its leaf's scale (limit {TRAIN_GRAD_REL}), every parameter "
+        f"moved; {opt.name} on the CPU's gradients: parameters within "
+        f"{p_ulps:.3g} ulps, moments within {s_ulps:.3g} ulps of the CPU's "
+        f"(limit {TRAIN_ULPS})")
+    return dict(worst=worst, rel=rel, p_ulps=p_ulps, s_ulps=s_ulps)
+
+
+def reduced_train_checks(tmp: str, device: str = "cuda") -> None:
+    """`reduced_step_check` on ``device``; then six checkpointed steps of
+    the same reduced config, and a fresh state resumed from the save after
+    step 2 equal to them bit for bit."""
+    from repro_torch import pytree
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime import checkpoint, train
+
+    reduced_step_check(device)
+    cfg = reduced_config(get_config(LM_ARCH), head_dim=64)
+    data = SyntheticLMData(cfg.vocab_size, 128, 4, seed=0)
+
+    def run(start_state, start, steps, ckpt_dir=None):
+        step_fn = train.make_train_step(
+            cfg, optimizer=launch_train.optimizer_for(cfg, steps))
+        state, _ = launch_train.train_loop(
+            start_state, step_fn, data, cfg, start=start, steps=steps,
+            batch=4, device=device, ckpt_dir=ckpt_dir, ckpt_every=2,
+            log=lambda m: None)
+        return state
+
+    full = run(launch_train.build(cfg, steps=6, device=device)[0], 0, 6,
+               tmp)
+    fresh = launch_train.build(cfg, steps=6, device=device)[0]
+    fresh, label = checkpoint.restore_tree(tmp, 2, fresh)
+    resumed = run(fresh, int(fresh.step), 6)
+    same = all(torch.equal(a, b) for a, b in zip(pytree.leaves(full),
+                                                 pytree.leaves(resumed)))
+    check(same, "[train] a run resumed from its step-2 checkpoint differs "
+          "from the uninterrupted run")
+    log(f"[train] reduced float32 run of 6 steps resumed on the card from "
+        f"its checkpoint {label} (state step {int(fresh.step)} on restore) "
+        f"== the uninterrupted run, every parameter, moment and the step bit "
+        f"for bit")
+
+
+def phase_train() -> dict:
+    """LM training through `launch.train`'s code path on the card:
+    llama3.2-3b at full width and depth, B=2 x 4096 from `SyntheticLMData`,
+    AdamW on the launcher's warmup-cosine schedule, TRAIN_STEPS steps
+    through `train_loop`, counted (`flash_attention` twice a layer a step
+    under remat, `flash_attention_backward` once), then TRAIN_FIXED steps on
+    one fixed batch whose loss must fall, step time, tokens/s, peak memory
+    and the step's device time split; the reduced float32 checks
+    (`reduced_train_checks`); then grok-1-314b cut to 1 layer, B=4 x 4096
+    with its grad_accum 4 in bf16 and Adafactor, counted the same way."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import train as launch_train
+
+    counts = dict.fromkeys(kernels.launch_counts(), 0)
+    by_arch = {}
+    for arch, layers, batch, steps in ((LM_ARCH, None, TRAIN_BATCH,
+                                        TRAIN_STEPS), GROK_TRAIN):
+        cfg = launch_train.model_config(arch, layers=layers)
+        t0 = time.perf_counter()
+        state, step_fn = launch_train.build(cfg, steps=steps, device="cuda",
+                                            seed=SEED)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(state.params))
+        tag = f"[train] {arch}"
+        log(f"{tag}: {cfg.n_layers} of {get_config(arch).n_layers} layers, "
+            f"d_model {cfg.d_model}, {n_params:,} parameters in {cfg.dtype}, "
+            f"{cfg.optimizer}, grad_accum {cfg.grad_accum} in "
+            f"{cfg.grad_accum_dtype}, remat {cfg.remat}, loss_chunk "
+            f"{cfg.loss_chunk}; batch {batch} x {TRAIN_SEQ} "
+            f"({time.perf_counter() - t0:.1f} s to draw)")
+        data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, batch, seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        marks, losses, gnorms = [time.perf_counter()], [], []
+
+        def on_step(step, metrics):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+
+        state, _ = launch_train.train_loop(
+            state, step_fn, data, cfg, start=0, steps=steps, batch=batch,
+            device="cuda", log=lambda m: log(f"{tag} {m}"), on_step=on_step)
+        got = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for name, n in got.items():
+            counts[name] += n
+        by_arch[arch] = got
+        per = cfg.n_layers * max(cfg.grad_accum, 1) * steps
+        check(got["flash_attention"] == 2 * per and got[FLASH_BWD] == per,
+              f"{tag}: {got['flash_attention']} forward and {got[FLASH_BWD]} "
+              f"backward attention launches in {steps} steps, not "
+              f"{2 * per} and {per} (twice and once a layer a microbatch)")
+        check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+              f"{tag}: losses {losses}, grad norms {gnorms}")
+        step_s = np.diff(marks)
+        steady = float(np.median(step_s[1:])) if len(step_s) > 1 \
+            else float(step_s[0])
+        log(f"{tag}: {steps} steps, losses {[round(x, 4) for x in losses]}, "
+            f"grad norms {[round(x, 4) for x in gnorms]}; step time "
+            f"{[round(float(x) * 1e3, 1) for x in step_s]} ms on the host "
+            f"clock "
+            f"(synchronised; the first with warm-up), steady {steady * 1e3:.1f}"
+            f" ms = {batch * TRAIN_SEQ / steady:.0f} tokens/s; launches "
+            f"{got}; peak memory {peak / 2**30:.2f} GiB")
+
+        batch_t = launch_train.device_batch(data, 0, cfg, batch, "cuda")
+        if arch == LM_ARCH:
+            fixed = []
+            for _ in range(TRAIN_FIXED):
+                state, m = step_fn(state, batch_t)
+                fixed.append(float(m["loss"]))
+            check(fixed[-1] < fixed[0], f"{tag}: the loss on one fixed "
+                  f"batch did not fall over {TRAIN_FIXED} steps: {fixed}")
+            log(f"{tag}: {TRAIN_FIXED} more steps on one fixed batch: "
+                f"losses {[round(x, 4) for x in fixed]}, falling")
+        state = train_breakdown(tag, cfg, state,
+                                launch_train.optimizer_for(cfg, steps),
+                                batch_t, steady * 1e3)
+        del state, step_fn, batch_t
+        torch.cuda.empty_cache()
+        if arch == LM_ARCH:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+                reduced_train_checks(d)
+    return dict(counts=counts, by_arch=by_arch)
 
 
 def phase_ssm(arch: str) -> dict:
@@ -3063,6 +3738,8 @@ def main() -> None:
     results["qmatmul"] = phase_qmatmul(mlp_problems[MLP_RUNS[0][0]], rng)
     flash_rows = phase_flash(rng)
     results["flash_attention"] = flash_rows["flash_attention"]
+    bwd_rows = phase_flash_backward()
+    results[FLASH_BWD] = bwd_rows[FLASH_BWD]
     launches = dict.fromkeys(results, 0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         tree_path = phase_main_path(problem, out_dir)
@@ -3075,6 +3752,8 @@ def main() -> None:
         forest_path = phase_forest(rng, out_dir)
     lm_path = phase_lm()
     torch.cuda.empty_cache()
+    train_path = phase_train()
+    torch.cuda.empty_cache()
     ssm_paths = {arch: phase_ssm(arch) for arch in SSM_ARCHS}
     moe_paths = {arch: phase_moe(arch, n) for arch, n in MOE_ARCHS}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as d:
@@ -3086,7 +3765,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
         mesh_path = phase_mesh(problem, tree_path, sweep_path, d, rng)
     for path in (tree_path, *mlp_paths.values(), forest_path, lm_path,
-                 *ssm_paths.values(), *moe_paths.values(), sweep_path,
+                 train_path, *ssm_paths.values(), *moe_paths.values(), sweep_path,
                  faults_path, mesh_path):
         for name, count in path["counts"].items():
             launches[name] += count
@@ -3111,6 +3790,18 @@ def main() -> None:
         "bf16 grok-1-314b prefill, q (4, 4096, 48, 128), k and v (4, 4096, "
         "8, 128), the model's layout, tanh softcap 30; no library call (SDPA "
         "has no softcap); launches: the [moe] grok-1-314b generate's")
+    results[FLASH_BWD_112] = bwd_rows[FLASH_BWD_112]
+    results[FLASH_BWD_112]["what"] = (
+        "bf16 zamba2-7b shapes, q, o, dout, k and v (2, 4096, 32, 112), the "
+        "model's layout, no GQA grouping; launches 0: no zamba2 model is "
+        "trained on the card ([train] trains llama3.2-3b and grok-1-314b)")
+    results[FLASH_BWD_SOFTCAP] = bwd_rows[FLASH_BWD_SOFTCAP]
+    results[FLASH_BWD_SOFTCAP]["launches"] = \
+        train_path["by_arch"][GROK_TRAIN[0]][FLASH_BWD]
+    results[FLASH_BWD_SOFTCAP]["what"] = (
+        "bf16 grok-1-314b training microbatch, q, o, dout (1, 4096, 48, "
+        "128), k and v (1, 4096, 8, 128), tanh softcap 30; no library call "
+        "(SDPA has no softcap); launches: the [train] grok-1-314b steps'")
     results.update(sweep_path["rows"])
     results.update(mesh_path["rows"])
 
@@ -3131,12 +3822,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
         phase_resume(problem, d)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log("kernels: " + ", ".join(results))
-    log(smi.stdout.strip().splitlines()[0])
+    log(smi_line())
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

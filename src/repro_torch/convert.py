@@ -1,8 +1,8 @@
 """Carry state from numpy arrays into the port's objects.
 
 The tests run the JAX package and the port on identical inputs: they read
-a JAX `SearchProblem`, `MLPProblem`, `NSGA2State` or LM parameter tree out
-as numpy arrays and rebuild the port's counterpart here. (`pareto.json`
+a JAX `SearchProblem`, `MLPProblem`, `NSGA2State`, LM parameter tree or LM
+`TrainState` out as numpy arrays and rebuild the port's counterpart here. (`pareto.json`
 carries a design in both directions.) Nothing here imports the JAX
 package.
 """
@@ -147,3 +147,35 @@ def lm_params_from_arrays(params_np: dict, cfg, device="cuda") -> dict:
                                                           dtype=dtype)
 
     return convert(params_np)
+
+
+def train_state_from_arrays(params_np: dict, opt_np: dict, step: int, cfg,
+                            device="cuda"):
+    """The port's `runtime.train.TrainState` from a JAX `TrainState` read out
+    as numpy arrays: ``params_np`` as `lm_params_from_arrays` takes it,
+    ``opt_np`` the optimizer state (AdamW: {"m": tree, "v": tree} like the
+    params; Adafactor: a tree like the params whose leaves are {"vr", "vc"}
+    or {"v"}), every array float32, and ``step`` the step count. The
+    optimizer state's structure is checked against the params'."""
+    from repro_torch import pytree
+    from repro_torch.runtime.train import TrainState
+
+    dev = resolve_device(device)
+    params = lm_params_from_arrays(params_np, cfg, device=dev)
+    paths = [p for p, _ in pytree.leaves_with_paths(params)]
+    if cfg.optimizer == "adafactor":
+        for path in paths:
+            got = set(pytree.get(opt_np, path))
+            if got not in ({"vr", "vc"}, {"v"}):
+                raise ValueError(f"train_state_from_arrays: Adafactor state "
+                                 f"at {pytree.path_str(path)} has keys "
+                                 f"{sorted(got)}")
+    elif set(opt_np) != {"m", "v"} or any(
+            [p for p, _ in pytree.leaves_with_paths(opt_np[k])] != paths
+            for k in ("m", "v")):
+        raise ValueError("train_state_from_arrays: AdamW state must be "
+                         "{'m', 'v'} trees shaped like the params")
+    opt = pytree.tree_map(
+        lambda a: torch.as_tensor(np.array(a, np.float32)).to(dev), opt_np)
+    return TrainState(params, opt,
+                      torch.tensor(int(step), dtype=torch.int32, device=dev))

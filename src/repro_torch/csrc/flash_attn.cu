@@ -11,7 +11,14 @@
 //   to v's dtype before the PV product, which accumulates in float32
 //   out = acc / max(l, 1e-30) in q's dtype
 //
-// in that order. Both kernels below read q, k, v and write out as (batch,
+// in that order, and, when asked, each query row's log-sum-exp
+//
+//   lse = m + log(max(l, 1e-30))                   (natural log, float32)
+//
+// into lse (batch, heads, Sq), which the backward (flash_attn_bwd.cu) takes
+// to rebuild p without a second softmax pass; a null lse pointer stores
+// nothing and leaves the kernels as they were. Both kernels below read q,
+// k, v and write out as (batch,
 // seq, head, hd) with element strides for the first three axes and a
 // contiguous last axis: the model's (B, S, H, hd) projections where they lie,
 // and the JAX contract's (H, S, hd) as batch 1 with head stride S * hd. The
@@ -134,9 +141,9 @@ constexpr size_t smem_bytes() {
 template <int HD, int HDR>
 __global__ void __launch_bounds__(kThreads) flash_attn_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, Layout lq,
-    Layout lk, Layout lv, Layout lo, int sq, int skv, int group, float scale,
-    float softcap) {
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, Layout lq, Layout lk, Layout lv, Layout lo,
+    int sq, int skv, int group, float scale, float softcap) {
   constexpr int kQK = HD + 4;     // padded row stride of the q and k tiles
   constexpr int kVec = HD / 64;   // float4 accumulator columns per thread
   extern __shared__ float4 smem4[];
@@ -276,6 +283,9 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(
     const int q_pos = q0 + ty + 16 * i;
     if (q_pos >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(batch) * gridDim.y + head) * sq + q_pos] =
+          m[i] + logf(den);
     float* row = out + batch * lo.b + q_pos * lo.s + head * lo.h;
 #pragma unroll
     for (int u = 0; u < kVec; ++u) {
@@ -300,6 +310,7 @@ constexpr int kConsumers = 2;                 // warpgroups of 64 query rows
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kStages = 2;                    // K and V tiles in flight
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD>
 struct Shape {
@@ -591,7 +602,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attn_tc_kernel(
     __grid_constant__ const CUtensorMap tm_q,
     __grid_constant__ const CUtensorMap tm_k,
     __grid_constant__ const CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-    Layout lo, int sq, int skv, int group, float scale, float softcap) {
+    float* __restrict__ lse, Layout lo, int sq, int skv, int group,
+    float scale, float softcap) {
   using S = Shape<HD>;
   constexpr int kBK = S::kBK;
   constexpr int kChunks = HD / 64;   // 128-byte column chunks of a row
@@ -755,6 +767,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attn_tc_kernel(
       const int q_pos = qw + row + 8 * r;
       if (q_pos >= sq) continue;
       const float den = fmaxf(l[r], 1e-30f);
+      // m and the scores are in log2 units (log2(e) folded into the scale)
+      if (lse != nullptr && t % 4 == 0)
+        lse[(static_cast<long long>(batch) * gridDim.x + head) * sq + q_pos] =
+            (m[r] + log2f(den)) * kLn2;
       __nv_bfloat16* dst = out + batch * lo.b + q_pos * lo.s + head * lo.h;
 #pragma unroll
       for (int jb = 0; jb < HDR / 8; ++jb)
@@ -774,6 +790,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attn_tc_kernel(
 struct Args {
   const void *q, *k, *v;
   void* out;
+  float* lse;
   int b, h, hkv, sq, skv;
   Layout lq, lk, lv, lo;
   float scale, softcap;
@@ -847,7 +864,8 @@ int launch_tc(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   tc::flash_attn_tc_kernel<HD, HDR>
       <<<dim3(a.h, a.b, n_qt), tc::kThreads, S::kSmem, stream>>>(
-          mq, mk, mv, static_cast<__nv_bfloat16*>(a.out), a.lo, a.sq, a.skv,
+          mq, mk, mv, static_cast<__nv_bfloat16*>(a.out), a.lse, a.lo, a.sq,
+          a.skv,
           a.h / a.hkv, a.scale, a.softcap);
   return cudaGetLastError();
 }
@@ -864,8 +882,8 @@ int launch_f32(const Args& a, cudaStream_t stream) {
   f32::flash_attn_kernel<HD, HDR>
       <<<dim3(n_qt, a.h, a.b), f32::kThreads, smem, stream>>>(
           static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-          static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lq,
-          a.lk, a.lv, a.lo, a.sq, a.skv, a.h / a.hkv, a.scale, a.softcap);
+          static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse,
+          a.lq, a.lk, a.lv, a.lo, a.sq, a.skv, a.h / a.hkv, a.scale, a.softcap);
   return cudaGetLastError();
 }
 
@@ -883,17 +901,20 @@ int launch(const Args& a, bool bf16, cudaStream_t stream) {
 // 16-byte aligned rows and strides; one dtype: float32 (is_bf16 = 0, CUDA
 // cores) or bfloat16 (1, tensor cores). Query head i reads kv head
 // i / (h / hkv). hd is 64, 112, 128 or 256 (112 runs the 128-wide kernels
-// on zero-padded tiles); softcap <= 0 turns the cap off.
+// on zero-padded tiles); softcap <= 0 turns the cap off. lse, when not
+// null, receives each query row's natural-log log-sum-exp as float32
+// (b, h, sq), contiguous.
 // Returns the launch's CUDA error, or kNoEncoder / kMapError + CUresult when
 // a TMA map could not be made.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* out, int b, int h,
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int b, int h,
     int hkv, int sq, int skv, int hd, int is_bf16, int q_sb, int q_ss,
     int q_sh, int k_sb, int k_ss, int k_sh, int v_sb, int v_ss, int v_sh,
     int o_sb, int o_ss, int o_sh, float scale, float softcap, void* stream) {
   if (b <= 0 || h <= 0 || hkv <= 0 || sq <= 0 || skv <= 0 || h % hkv != 0)
     return cudaErrorInvalidValue;
-  const Args a{q, k, v, out, b, h, hkv, sq, skv,
+  const Args a{q, k, v, out, lse, b, h, hkv, sq, skv,
                Layout{q_sb, q_ss, q_sh}, Layout{k_sb, k_ss, k_sh},
                Layout{v_sb, v_ss, v_sh}, Layout{o_sb, o_ss, o_sh},
                scale, softcap};

@@ -2,8 +2,10 @@
 
 Each kernel module (`fitness`, `domination`, `tree_infer`, `qmatmul`,
 `flash_attn`) holds the CUDA wrapper, its plain PyTorch version, and a
-launch counter on the wrapper; `ops` holds the operand preparation and the call sites the
-search and the server use. `launch_counts` / `reset_launch_counts` read and
+launch counter on the wrapper (`flash_attn` two: the forward and
+`flash_attention_backward`, its gradient, which replaces no TPU kernel);
+`ops` holds the operand preparation and the call sites the search and the
+server use. `launch_counts` / `reset_launch_counts` read and
 clear the counters, so a run can show that it went through the kernels;
 a launch captured in a CUDA graph counts at each replay of the graph
 (`rewind_launches`, `add_launches`).
@@ -21,6 +23,7 @@ KERNEL_WRAPPERS = {
     "tree_infer_scores": tree_infer.tree_infer_scores,
     "qmatmul": qmatmul.qmatmul,
     "flash_attention": flash_attn.flash_attention,
+    "flash_attention_backward": flash_attn.flash_attention_backward,
 }
 
 

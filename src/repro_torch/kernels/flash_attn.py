@@ -45,6 +45,20 @@ launch the kernel or raise.
 causal mask query row i averages i + 1 values, so its magnitude falls as
 1 / sqrt(i + 1) (about 0.03 at row 4096 for unit-normal inputs) and one
 absolute tolerance cannot fit both the first rows and the last.
+`grad_error` is its counterpart for the gradients.
+
+The gradient. On a CUDA tensor that requires grad, both wrappers go
+through a `torch.autograd.Function`: its forward launches the same kernel
+with each query row's log-sum-exp kept (float32 (B, H, Sq), natural log),
+its backward launches `flash_attention_backward`, two kernels of
+`csrc/flash_attn_bwd.cu` (no TPU kernel: the JAX package differentiates its
+jnp attention) counted on ``flash_attention_backward.launches``. Its plain
+version `flash_attention_backward_plain` computes the same equations in
+float32 PyTorch, and `flash_attention_lse_plain` the log-sum-exp; on the
+CPU the wrappers run the plain forward and autograd differentiates it.
+Without grad the wrappers launch the forward as before, keeping no
+log-sum-exp. A backward that fails raises `KernelLaunchError`; nothing
+falls back to autograd of the plain version.
 """
 from __future__ import annotations
 
@@ -157,6 +171,23 @@ def row_error(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((g - w).abs().amax(-1) / rms).max())
 
 
+# `grad_error` holds a row to at least this share of the tensor's root mean
+# square: a row whose true gradient is near zero (dq of query 0 is exactly
+# zero: a softmax over one key) holds only the rounding of dP - D, whose
+# size follows the tensor's scale, not the row's
+GRAD_ERROR_FLOOR = 2.0 ** -4
+
+
+def grad_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """`row_error` for a gradient: a row's largest difference over the
+    larger of that row's root mean square in ``want`` and GRAD_ERROR_FLOOR
+    times the whole tensor's."""
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    rms = w.square().mean(-1).sqrt()
+    rms = rms.clamp_min(float(w.square().mean().sqrt()) * GRAD_ERROR_FLOOR)
+    return float(((g - w).abs().amax(-1) / rms.clamp_min(1e-30)).max())
+
+
 def _strides(t: torch.Tensor) -> list[int]:
     """(batch, seq, head) element strides of a (B, S, H, hd) operand; an
     axis of length 1 gets the tensor's size, a valid stride it never
@@ -168,9 +199,10 @@ def _strides(t: torch.Tensor) -> list[int]:
     return out
 
 
-def _launch(q, k, v, out, softcap: float) -> None:
-    """One launch on (B, S, heads, hd) operands, the output ``out`` written
-    in place."""
+def _launch(q, k, v, out, softcap: float, lse=None) -> None:
+    """One launch on (B, S, heads, hd) operands, the output ``out`` (and,
+    when given, the float32 (B, heads, S) log-sum-exp ``lse``) written in
+    place."""
     dev = q.device
     b, sq, h, hd = q.shape
     _, skv, hkv, _ = k.shape
@@ -183,8 +215,9 @@ def _launch(q, k, v, out, softcap: float) -> None:
                              f"q on {dev}")
     if sq == 0:
         return
-    fn = _build.function("flash_attn", "repro_flash_attention", 4, 19, 2)
+    fn = _build.function("flash_attn", "repro_flash_attention", 5, 19, 2)
     rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+            _build.ptr(lse) if lse is not None else None,
             b, h, hkv, sq, skv, hd, int(q.dtype == torch.bfloat16),
             *_strides(q), *_strides(k), *_strides(v), *_strides(out),
             hd ** -0.5, float(softcap), _build.stream(dev))
@@ -198,15 +231,57 @@ def _bshd(t: torch.Tensor) -> torch.Tensor:
     return t.unsqueeze(0).transpose(1, 2)
 
 
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, softcap: float = 0.0):
+    """(out, lse): `flash_attention_bshd` on CUDA model-layout operands with
+    each query row's float32 (B, H, Sq) log-sum-exp kept, what the backward
+    takes; one launch of the forward kernel, counted."""
+    _check_bshd(q, k, v)
+    _check_layout(("q", q), ("k", k), ("v", v))
+    b, sq, h, _ = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch(q, k, v, out, softcap, lse)
+    return out, lse
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _Attention(torch.autograd.Function):
+    """The kernel with its gradient, on (B, S, heads, hd) operands: the
+    forward keeps each row's log-sum-exp, the backward launches
+    `flash_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, softcap: float):
+        out, lse = flash_attention_forward(q, k, v, softcap=softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.softcap = softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
+                                              softcap=ctx.softcap)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     group: int = 1, softcap: float = 0.0) -> torch.Tensor:
     """(H, Sq, hd) causal attention of q over k, v (Hkv, Skv, hd), query
     head h on kv head h // group, tanh softcap when ``softcap`` > 0; in q's
-    dtype. Counts its kernel launches in ``flash_attention.launches``."""
+    dtype. Counts its kernel launches in ``flash_attention.launches``; on
+    the card, differentiable through `flash_attention_backward`."""
     _check(q, k, v, group)
     _check_layout(("q", q), ("k", k), ("v", v))
     if not _build.on_cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, group=group, softcap=softcap)
+    if _needs_grad(q, k, v):
+        out = _Attention.apply(_bshd(q), _bshd(k), _bshd(v), softcap)
+        return out[0].transpose(0, 1)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(_bshd(q), _bshd(k), _bshd(v), _bshd(out), softcap)
     return out
@@ -222,9 +297,137 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_layout(("q", q), ("k", k), ("v", v))
     if not _build.on_cuda(q, "flash_attention"):
         return flash_attention_bshd_plain(q, k, v, softcap=softcap)
+    if _needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, softcap)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(q, k, v, out, softcap)
     return out
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the gradient
+# ---------------------------------------------------------------------------
+
+def _scores_plain(q, k, softcap: float):
+    """(u, s, mask) of the model-layout operands in float32, (B, H, Sq,
+    Skv): the scaled dot, the (capped) score, and the causal mask."""
+    sq, h, hd = q.shape[1:]
+    g = h // k.shape[2]
+    qf = q.to(torch.float32).permute(0, 2, 1, 3)
+    kf = k.to(torch.float32).permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    u = (qf @ kf.transpose(-1, -2)) * (hd ** -0.5)
+    s = torch.tanh(u / softcap) * softcap if softcap > 0 else u
+    pos = torch.arange(max(sq, k.shape[1]), device=q.device)
+    mask = pos[:sq, None] >= pos[None, :k.shape[1]]
+    return u, s, mask
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
+                              softcap: float = 0.0) -> torch.Tensor:
+    """Each query row's natural-log log-sum-exp of its masked scores,
+    float32 (B, H, Sq), for model-layout q (B, Sq, H, hd) and k (B, Skv,
+    Hkv, hd): what the kernel's forward keeps for the backward."""
+    _, s, mask = _scores_plain(q, k, softcap)
+    return torch.logsumexp(torch.where(mask, s, NEG_INF), dim=-1)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   lse: torch.Tensor, do: torch.Tensor, *,
+                                   softcap: float = 0.0):
+    """Plain float32 PyTorch version of `flash_attention_backward`: (dq,
+    dk, dv) in the inputs' dtypes from the model-layout operands, the
+    forward's output ``o`` and log-sum-exp ``lse`` (B, H, Sq), and the
+    output's gradient ``do``:
+
+        P = exp(s - lse) (0 where masked), D = rowsum(do * o),
+        dV = P^T do, dP = do V^T,
+        dS = P (dP - D) (1 - tanh^2(u / cap) with a cap) * hd^-0.5,
+        dK = dS^T q, dQ = dS k,
+
+    dK and dV summed over each kv head's query heads."""
+    _check_bshd(q, k, v)
+    b, _, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    u, s, mask = _scores_plain(q, k, softcap)
+
+    def heads(t, rep=1):
+        t = t.to(torch.float32).permute(0, 2, 1, 3)
+        return t.repeat_interleave(rep, dim=1) if rep > 1 else t
+
+    qf, kf, vf = heads(q), heads(k, g), heads(v, g)
+    of, dof = heads(o), heads(do)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    d = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - d)
+    if softcap > 0:
+        ds = ds * (1.0 - torch.square(torch.tanh(u / softcap)))
+    ds = ds * (hd ** -0.5)
+
+    def kv_heads(t):   # (B, H, Skv, hd) -> (B, Skv, Hkv, hd), group summed
+        return t.reshape(b, hkv, g, skv, hd).sum(2).permute(0, 2, 1, 3)
+
+    dq = (ds @ kf).permute(0, 2, 1, 3)
+    dk = kv_heads(ds.transpose(-1, -2) @ qf)
+    dv = kv_heads(p.transpose(-1, -2) @ dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             softcap: float = 0.0):
+    """(dq, dk, dv) of the causal attention in the model's layout: q, o, do
+    (B, Sq, H, hd), k, v (B, Skv, Hkv, hd), lse the forward's float32 (B,
+    H, Sq) log-sum-exp; new contiguous tensors in the inputs' dtype. On a
+    CUDA tensor it launches the two kernels of `csrc/flash_attn_bwd.cu`
+    (counted once in ``flash_attention_backward.launches``), on a CPU
+    tensor it runs `flash_attention_backward_plain`."""
+    _check_bshd(q, k, v)
+    b, sq, h, hd = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_backward: o {tuple(o.shape)} and "
+                         f"do {tuple(do.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_backward: lse {tuple(lse.shape)} "
+                         f"{lse.dtype}, expected float32 {(b, h, sq)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_backward: o {o.dtype} and do "
+                         f"{do.dtype} must be q's dtype {q.dtype}")
+    if not _build.on_cuda(q, "flash_attention_backward"):
+        return flash_attention_backward_plain(q, k, v, o, lse, do,
+                                              softcap=softcap)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_backward: head dim {hd} has no "
+                         f"kernel (head dims {HEAD_DIMS})")
+    for name, t in (("k", k), ("v", v), ("o", o), ("lse", lse), ("do", do)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention_backward: {name} is on "
+                             f"{t.device}, q on {q.device}")
+    lse, do = lse.contiguous(), do.contiguous()
+    _check_layout(("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_attn_bwd", "repro_flash_attention_backward",
+                         10, 22, 2)
+    rc = fn(*(_build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv,
+                                      delta)),
+            b, h, k.shape[2], sq, k.shape[1], hd,
+            int(q.dtype == torch.bfloat16), *_strides(q), *_strides(k),
+            *_strides(v), *_strides(o), *_strides(do), hd ** -0.5,
+            float(softcap), _build.stream(q.device))
+    _build.check_launch(rc, "flash_attention_backward")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0

@@ -1,23 +1,88 @@
-"""LM serving steps and decode caches.
+"""LM head: the chunked CE loss, decode caches and the serving steps.
 
-Counterpart of the serving half of `repro.models.lm` for every layer kind
-(`attn_mlp`, `attn_moe`, `ssm`): `init_caches` and `extend_caches`,
-`prefill` and `decode_step`. The caches keep the JAX package's layout: a
+Counterpart of `repro.models.lm` for every layer kind (`attn_mlp`,
+`attn_moe`, `ssm`): the training loss (`chunked_ce_loss`, `lm_loss`, over
+`transformer.forward_train`), `init_caches` and `extend_caches`, `prefill`
+and `decode_step`.
+
+The CE loss runs over sequence chunks of `cfg.loss_chunk` positions
+(halved until they divide S), each chunk under a non-reentrant
+`torch.utils.checkpoint`, so the backward rebuilds one chunk's (B, chunk,
+vocab) float32 logits at a time and no chunk's logits stay saved: at
+llama3.2-3b's vocab the whole sequence's would take 8 GB at B=2 x 4096.
+The target's log-probability is the JAX package's iota-compare-reduce
+(`sum(where(iota == target, logits, 0))`), taken as a gather: a sum of one
+value and zeros is that value, bit for bit, and its gradient is the same
+one-hot scatter, without a (B, chunk, vocab) mask.
+
+The caches keep the JAX package's layout: a
 (k, v) pair of (L, B, S_max, KV, hd) tensors for attention layers; a
 (conv (L, B, K-1, C), state (L, B, NH, HD, N)) pair for SSM layers, the
 states float32 in every model dtype; and for the hybrid, a (k, v) pair of (n_super, B, S_max,
 KV, hd), one slot a super-block's shared block. Decode writes each new
 token into them in place at its position. Serving prefills straight into
 the decode layout (`prefill(..., s_max=...)`), so no exact-length caches
-are made and copied by `extend_caches`. The training loss
-(`chunked_ce_loss`, `lm_loss`) comes with LM training.
+are made and copied by `extend_caches`.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+
+
+def _ce_chunk(hc, table, tc, mc):
+    """sum((logsumexp(logits) - logits[target]) * mask) over one chunk."""
+    logits = (hc @ table.T).to(torch.float32)          # (B, cs, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, tc[..., None].to(torch.int64))[..., 0]
+    return torch.sum((logz - ll) * mc)
+
+
+def chunked_ce_loss(params, cfg, hidden, targets, mask):
+    """hidden (B, S, D); targets/mask (B, S). Returns (mean_loss, n_tokens),
+    both float32 0-dim: the masked token losses summed chunk by chunk in
+    sequence order, over max(n_tokens, 1)."""
+    s = hidden.shape[1]
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    cs = min(cfg.loss_chunk, s)
+    while s % cs != 0:
+        cs //= 2
+    cs = max(cs, 1)
+    maskf = mask.to(torch.float32)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    remat = torch.is_grad_enabled()
+    for c0 in range(0, s, cs):
+        args = (hidden[:, c0:c0 + cs], table, targets[:, c0:c0 + cs],
+                maskf[:, c0:c0 + cs])
+        part = (checkpoint(_ce_chunk, *args, use_reentrant=False) if remat
+                else _ce_chunk(*args))
+        loss_sum = loss_sum + part
+        cnt = cnt + args[3].sum()
+    return loss_sum / torch.clamp(cnt, min=1.0), cnt
+
+
+def lm_loss(params, cfg, batch: dict, aux_weight: float = 0.01):
+    """Causal LM loss. batch: tokens (B, S) [+ prefix_embed (B, P, D)].
+    Returns (loss, {"ce_loss", "aux_loss", "tokens"}): loss the CE over the
+    text positions (hidden[i] predicts tokens[i + 1]) plus aux_weight times
+    the MoE load-balance loss over the layer count."""
+    tokens = batch["tokens"]
+    prefix = batch.get("prefix_embed")
+    hidden, aux = transformer.forward_train(params, cfg, tokens,
+                                            prefix_embed=prefix)
+    if prefix is not None:
+        hidden = hidden[:, prefix.shape[1]:, :]   # text positions only
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                        dim=1)
+    mask = torch.cat([torch.ones_like(tokens[:, 1:]),
+                      torch.zeros_like(tokens[:, :1])], dim=1)
+    loss, cnt = chunked_ce_loss(params, cfg, hidden, targets, mask)
+    return loss + aux_weight * aux / max(cfg.n_layers, 1), {
+        "ce_loss": loss, "aux_loss": aux, "tokens": cnt}
 
 
 def init_caches(cfg, batch_size: int, s_max: int, dtype=None,

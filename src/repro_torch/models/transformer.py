@@ -14,10 +14,22 @@ them). Prefill writes each layer's caches into stacked tensors: (L, B, S,
 KV, hd) k and v pairs, (L, B, K-1, C) conv and (L, B, NH, HD, N) float32
 SSM states, and the hybrid's (n_super, B, S, KV, hd) shared-block pair;
 decode updates the given caches in place.
+
+Training runs `forward_train`, which writes no cache (a cache copy under
+autograd would keep every layer's k and v alive) and, when `cfg.remat`,
+rematerialises each layer (the hybrid: each super-block, and each tail
+layer) with `torch.utils.checkpoint` (non-reentrant): only the layer inputs
+stay saved, as under the JAX package's `jax.checkpoint(...,
+nothing_saveable)` scan bodies. Its per-layer parameters are the stacked
+tensors split by one `torch.unbind` each, so the backward stacks each
+leaf's gradient once instead of adding a zero-padded full-size gradient a
+layer.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, lm_mlp, moe, ssm
@@ -188,6 +200,88 @@ def _ssm_at(params, cfg, x, stacks, layer: int, decoding: bool):
     return x
 
 
+def _embed(params, cfg, tokens, prefix_embed):
+    # a gather (B, S_text, D); `F.embedding`'s backward sums each row's
+    # gradients in a fixed order, where indexing's `index_put_` does not
+    x = F.embedding(tokens, params["embed"])
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if prefix_embed is not None:
+        x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
+    return x
+
+
+def _unbind_layers(tree, n: int) -> list:
+    """``n`` trees of views, tree l the row l of every stacked leaf."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][layer] for k in tree} for layer in range(n)]
+    return list(torch.unbind(tree))
+
+
+def forward_train(params, cfg, tokens, *, prefix_embed=None):
+    """The training forward: (hidden (B, S, D) after the final norm, aux),
+    aux the MoE layers' load-balance losses summed in float32 (0.0 for the
+    other layer kinds), as the JAX package's `forward` returns them for a
+    training step; no caches. Each layer (the hybrid: each super-block and
+    each tail layer) is rematerialised in the backward when `cfg.remat`
+    and autograd is recording."""
+    x = _embed(params, cfg, tokens, prefix_embed)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def run(fn, *args):
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    kind = layer_kind(cfg)
+    layers = _unbind_layers(params["layers"], cfg.n_layers)
+    if kind != "ssm":
+        use_moe = kind == "attn_moe"
+
+        def block(h, p):
+            h, _, aux = _attn_mlp_block(p, cfg, h, positions,
+                                        use_moe=use_moe)
+            return (h, aux) if use_moe else h
+
+        for p in layers:
+            if use_moe:
+                x, aux = run(block, x, p)
+                aux_total = aux_total + aux
+            else:
+                x = run(block, x, p)
+        x = apply_norm(params["final_norm"], x, cfg.norm)
+        return x, aux_total
+
+    def ssm_layers(h, *ps):
+        for p in ps:
+            h, _ = _ssm_layer(p, cfg, h)
+        return h
+
+    if cfg.family == "ssm":
+        for p in layers:
+            x = run(ssm_layers, x, p)
+    else:  # hybrid (zamba2)
+        n_super, per, _ = hybrid_layout(cfg)
+        shared = _unbind_layers(params["shared"], cfg.n_shared_blocks)
+
+        def super_block(h, sp, *ps):
+            h = ssm_layers(h, *ps)
+            h, _, _ = _attn_mlp_block(sp, cfg, h, positions)
+            return h
+
+        for sb in range(n_super):
+            x = run(super_block, x, shared[sb % cfg.n_shared_blocks],
+                    *layers[sb * per:(sb + 1) * per])
+        for p in layers[n_super * per:]:
+            x = run(ssm_layers, x, p)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return x, aux_total
+
+
 def forward(params, cfg, tokens, *, prefix_embed=None, caches=None,
             pos0=None, s_max=None):
     """Shared forward for prefill (caches=None: fresh caches are returned)
@@ -203,11 +297,7 @@ def forward(params, cfg, tokens, *, prefix_embed=None, caches=None,
     float32 over a prefill, a 0-dim tensor; 0.0 in decode and for the
     other layer kinds, as the JAX package returns it.
     """
-    x = params["embed"][tokens]                    # gather (B, S_text, D)
-    if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-    if prefix_embed is not None:
-        x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
+    x = _embed(params, cfg, tokens, prefix_embed)
     b, s, _ = x.shape
 
     decoding = caches is not None

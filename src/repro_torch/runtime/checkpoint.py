@@ -1,14 +1,21 @@
-"""Checkpoints of a search: atomic, retained, checked before a restore.
+"""Checkpoints: atomic, retained, checked before a restore.
 
 The counterpart of `repro.runtime.checkpoint`, in the same on-disk layout:
 one ``ckpt_XXXXXXXX/`` directory per save holding ``arrays.npz`` (every
-leaf, keyed by its position: ``"0"``, ``"1"``, ...) and ``manifest.json``
-(step, keys, shapes, dtypes, ``"shards": "full"`` and the producer's
-``meta``). A save is written into a temporary directory and renamed into
-place, the last ``keep`` saves are retained, and `latest_step` skips a
-truncated archive or a corrupt manifest, so a crash mid-write never breaks
-a resume. The JAX package flattens a pytree; here the leaves are a tuple
-(or list) of tensors and arrays, in the order the caller gives them.
+leaf) and ``manifest.json`` (step, keys, shapes, dtypes, ``"shards":
+"full"`` and the producer's ``meta``). A save is written into a temporary
+directory and renamed into place, the last ``keep`` saves are retained,
+and `latest_step` skips a truncated archive or a corrupt manifest, so a
+crash mid-write never breaks a resume.
+
+Two forms. The search's `save` / `restore` keep a sequence of tensors and
+arrays keyed by position (``"0"``, ``"1"``, ...). `save_tree` /
+`restore_tree` keep a tree (a `runtime.train.TrainState`: params, optimizer
+state, step) keyed by the JAX package's path strings ("0/embed",
+"1/m/layers/attn/wq", "2"), so a checkpoint the JAX package wrote for the
+same config restores into the port. A bfloat16 leaf is stored as the JAX
+package stores one: its raw 2-byte words as a numpy ``V2`` array, the
+manifest's dtype "bfloat16".
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ import warnings
 
 import numpy as np
 import torch
+
+from repro_torch import pytree
 
 
 def _as_numpy(leaf) -> np.ndarray:
@@ -35,13 +44,71 @@ def save(ckpt_dir: str, step: int, leaves, keep: int = 3,
     ``step``; ``meta`` is JSON-serialisable producer metadata kept in the
     manifest (the search records its family, pop size and RNG there, so a
     resume with another layout fails with a clear error)."""
-    os.makedirs(ckpt_dir, exist_ok=True)
     arrays = {str(i): _as_numpy(leaf) for i, leaf in enumerate(leaves)}
+    return _write(ckpt_dir, step, arrays,
+                  {k: str(v.dtype) for k, v in arrays.items()}, keep, meta)
+
+
+def _tree_leaf(leaf) -> tuple[np.ndarray, str]:
+    """(array to store, manifest dtype) of a tree leaf; bfloat16 as raw
+    2-byte words."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.dtype("V2")), \
+                "bfloat16"
+        return t.numpy(), str(t.dtype).removeprefix("torch.")
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def save_tree(ckpt_dir: str, step: int, tree, keep: int = 3,
+              meta: dict | None = None) -> str:
+    """Write every leaf of ``tree`` (dicts, sequences, dataclasses of
+    tensors) as checkpoint ``step``, keyed by the JAX package's path
+    strings."""
+    arrays, dtypes = {}, {}
+    for path, leaf in pytree.leaves_with_paths(tree):
+        key = pytree.path_str(path)
+        arrays[key], dtypes[key] = _tree_leaf(leaf)
+    return _write(ckpt_dir, step, arrays, dtypes, keep, meta)
+
+
+def restore_tree(ckpt_dir: str, step: int, like):
+    """(like, step): every leaf of ``like`` overwritten in place with the
+    checkpoint's array of its path, cast to the leaf's dtype (a bfloat16
+    array read from its raw words); the shapes must match."""
+    path = os.path.join(ckpt_dir, f"ckpt_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        for p, leaf in pytree.leaves_with_paths(like):
+            key = pytree.path_str(p)
+            if key not in data:
+                raise KeyError(f"checkpoint {path} has no leaf {key!r}")
+            arr = data[key]
+            if manifest["dtypes"].get(key) == "bfloat16":
+                t = torch.from_numpy(arr.view(np.int16).copy()).view(
+                    torch.bfloat16)
+            else:
+                t = torch.from_numpy(np.array(arr))
+            if tuple(t.shape) != tuple(leaf.shape):
+                raise ValueError(f"checkpoint {path} leaf {key!r} has shape "
+                                 f"{tuple(t.shape)}, expected "
+                                 f"{tuple(leaf.shape)}")
+            with torch.no_grad():
+                leaf.copy_(t.to(leaf.dtype))
+    return like, manifest["step"]
+
+
+def _write(ckpt_dir: str, step: int, arrays: dict, dtypes: dict, keep: int,
+           meta: dict | None) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
     manifest = {
         "step": int(step),
         "keys": sorted(arrays.keys()),
         "shapes": {k: list(v.shape) for k, v in arrays.items()},
-        "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+        "dtypes": dtypes,
         "shards": "full",
         "meta": meta or {},
     }

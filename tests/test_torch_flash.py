@@ -20,26 +20,48 @@ Tolerances:
   the second half of the rows (0.13 for p rounded to float8, 0.59 to 15
   for the others), where the median output is 0.020.
 
+The gradient (`flash_attention_backward`, its plain version and the
+wrappers' autograd Function): the plain backward equals autograd of the
+plain forward and `jax.vjp` of the JAX package's chunked attention within
+1e-5 (float32, GQA groups 2 to 4, with and without a softcap). On the card
+the kernels are held to the plain backward by `flash_attn.grad_error` (a
+row error whose near-zero rows are held to 2^-4 of the tensor's scale) at
+`chip_smoke.flash_bwd_cases`, by `chip_smoke.check_flash_backward`:
+float32 within 2^-12, bfloat16 within 2^-4 (`chip_smoke.py` states why).
+`test_grad_error_limits_separate_planted_faults` holds both limits, at the
+inputs of the card's cases whose scores reach the cap (softcap 5, q x
+2.5), between a float64 computation of the equations (for bf16 inputs,
+with P and dS rounded to bf16 as the kernel rounds its operands) and the
+same computation with one fault planted (D dropped; the softcap's
+derivative dropped), 1.5 limits from each;
+`test_float32_limit_passes_a_second_float32_backward` holds a second sound
+float32 computation within the float32 limit by the same margin.
+
 The JAX package is imported by a fixture, not at the top: the machine with
 the card has no JAX, and runs this file's card tests alone with
 ``python -m pytest -m torch_cuda tests/test_torch_flash.py``.
 """
 from __future__ import annotations
 
+import pathlib
+import sys
 import types
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import kernels
-from repro_torch.configs import get_config, reduced_config
-from repro_torch.kernels import _build
-from repro_torch.kernels import flash_attn as t_fa
-from repro_torch.models import attention as t_attn
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402  (the card's cases, limits, checks)
+from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attn as t_fa  # noqa: E402
+from repro_torch.models import attention as t_attn  # noqa: E402
 
 F32_TOL = 2e-5
 BF16_ROW_TOL = 2.0 ** -4
+BWD_TOL = 1e-5                 # the plain backward against autograd / JAX
 
 
 @pytest.fixture(scope="module")
@@ -293,6 +315,162 @@ def test_registered_with_build_and_counters():
         t_fa.flash_attention(meta, meta, meta)
 
 
+# ---------------------------------------------------------------------------
+# the gradient
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [  # (b, s, kv, g, hd, softcap)
+    (2, 64, 2, 2, 16, 0.0),      # reduced llama: GQA group 2
+    (1, 128, 1, 4, 32, 30.0),    # MQA with grok's softcap
+    (2, 64, 2, 3, 16, 2.0),      # a cap the scores reach
+]
+
+
+def _bshd_inputs(seed, b, s, kv, g, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, s, kv, g, hd)).astype(np.float32),
+            rng.normal(size=(b, s, kv, hd)).astype(np.float32),
+            rng.normal(size=(b, s, kv, hd)).astype(np.float32),
+            rng.normal(size=(b, s, kv, g, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,s,kv,g,hd,softcap", BWD_CASES)
+def test_backward_plain_matches_autograd_and_jax(jref, b, s, kv, g, hd,
+                                                 softcap):
+    """`flash_attention_backward_plain` from the forward's output and
+    log-sum-exp equals autograd of the plain forward and `jax.vjp` of the
+    JAX package's `chunked_prefill_attention` (what the JAX package trains
+    through), dq of the grouped query heads and dk, dv summed over each kv
+    head's group."""
+    import jax
+
+    q, k, v, do = _bshd_inputs(b + s + g, b, s, kv, g, hd)
+    qt, kt, vt = (torch.as_tensor(a).requires_grad_(True) for a in (q, k, v))
+    q4 = qt.reshape(b, s, kv * g, hd)
+    out = t_fa.flash_attention_bshd(q4, kt, vt, softcap=softcap)
+    do4 = torch.as_tensor(do).reshape(b, s, kv * g, hd)
+    out.backward(do4)
+    lse = t_fa.flash_attention_lse_plain(q4.detach(), kt.detach(),
+                                         softcap=softcap)
+    got = t_fa.flash_attention_backward_plain(
+        q4.detach(), kt.detach(), vt.detach(), out.detach(), lse, do4,
+        softcap=softcap)
+    assert [t.shape for t in got] == [q4.shape, kt.shape, vt.shape]
+    for a, w in zip(got, (qt.grad.reshape(q4.shape), kt.grad, vt.grad)):
+        torch.testing.assert_close(a, w, rtol=BWD_TOL, atol=BWD_TOL)
+    cfg = reduced_config(get_config("llama3.2-3b"))
+    _, vjp = jax.vjp(lambda a, c, e: jref.attention.chunked_prefill_attention(
+        cfg, a, c, e, chunk=min(512, s), softcap=softcap),
+        *(jref.jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jref.jnp.asarray(do))
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.reshape(w.shape).numpy(), np.asarray(w),
+                                   rtol=BWD_TOL, atol=BWD_TOL)
+
+
+def test_lse_plain_is_the_forward_normaliser():
+    """exp(s - lse) sums to one over each row's visible keys, and row 0's
+    log-sum-exp is its one score."""
+    q, k, _, _ = _bshd_inputs(1, 2, 40, 2, 2, 16)
+    q4 = torch.as_tensor(q).reshape(2, 40, 4, 16)
+    kt = torch.as_tensor(k)
+    lse = t_fa.flash_attention_lse_plain(q4, kt)
+    _, sc, mask = t_fa._scores_plain(q4, kt, 0.0)
+    p = torch.where(mask, torch.exp(sc - lse[..., None]), 0.0)
+    torch.testing.assert_close(p.sum(-1), torch.ones_like(lse))
+    torch.testing.assert_close(lse[..., 0], sc[..., 0, 0])
+
+
+CAP_CASES = {str(c.dtype)[6:]: c for c in cs.flash_bwd_cases()
+             if c.q_scale > 1}   # softcap 5 on scores that reach the cap
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fault", ["none", "no_D", "no_cap_derivative"])
+def test_grad_error_limits_separate_planted_faults(dtype, fault):
+    """The card's limits pass the equations computed apart (float32: in
+    float64; bf16: with the kernel's bf16 rounding of P and dS) and fail
+    the same with one fault planted, on every one of dq and dk, at the
+    inputs of the card's cases whose scores reach the cap."""
+    case = CAP_CASES[dtype]
+    q, k, v, do = cs.flash_bwd_inputs(case, "cpu")
+    cap = case.softcap
+    o = t_fa.flash_attention_bshd_plain(q, k, v, softcap=cap)
+    lse = t_fa.flash_attention_lse_plain(q, k, softcap=cap)
+    want = t_fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                               softcap=cap)
+    bf16 = dtype == "bfloat16"
+    got = cs.flash_backward_ref(q, k, v, o, do, cap, bf16_operands=bf16,
+                                fault=fault)
+    limit = cs.FLASH_BF16_ROW_TOL if bf16 else cs.FLASH_BWD_F32_TOL
+    errs = [t_fa.grad_error(a, w) for a, w in zip(got, want)]
+    if fault == "none":
+        assert max(errs) <= limit / cs.FAULT_MARGIN, errs
+    else:   # dv does not see dS
+        assert min(errs[:2]) >= cs.FAULT_MARGIN * limit, errs
+
+
+def test_float32_limit_passes_a_second_float32_backward():
+    """Autograd of the plain forward, a second sound float32 computation
+    (D as the sum of P dP, not of dO O), reads within the card's float32
+    limit of the plain backward, with the margin the planted-fault test
+    asks, at every float32 case of the card small enough for the CPU."""
+    for case in cs.flash_bwd_cases():
+        if case.dtype != torch.float32:
+            continue
+        q, k, v, do = cs.flash_bwd_inputs(case, "cpu")
+        cap = case.softcap
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o = t_fa.flash_attention_bshd_plain(qg, kg, vg, softcap=cap)
+        o.backward(do)
+        lse = t_fa.flash_attention_lse_plain(q, k, softcap=cap)
+        want = t_fa.flash_attention_backward_plain(q, k, v, o.detach(), lse,
+                                                   do, softcap=cap)
+        errs = [t_fa.grad_error(t.grad, w) for t, w in zip((qg, kg, vg),
+                                                           want)]
+        assert max(errs) <= cs.FLASH_BWD_F32_TOL / cs.FAULT_MARGIN, \
+            (case.name, errs)
+
+
+@pytest.mark.parametrize("bad", ["lse_shape", "lse_dtype", "o_shape",
+                                 "do_dtype"])
+def test_backward_refuses_bad_operands(bad):
+    q = torch.zeros((1, 8, 4, 64))
+    k = v = torch.zeros((1, 8, 2, 64))
+    o, do = q.clone(), q.clone()
+    lse = torch.zeros((1, 4, 8))
+    if bad == "lse_shape":
+        lse = torch.zeros((1, 8, 4))
+    elif bad == "lse_dtype":
+        lse = lse.double()
+    elif bad == "o_shape":
+        o = torch.zeros((1, 8, 4, 32))
+    else:
+        do = do.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        t_fa.flash_attention_backward(q, k, v, o, lse, do)
+
+
+def test_backward_registered_with_build_and_counters():
+    """The backward's source is built with the others and counted under
+    its own name; on the CPU the wrapper runs the plain version."""
+    assert "flash_attn_bwd" in _build.SOURCES
+    assert (_build.CSRC / "flash_attn_bwd.cu").exists()
+    assert kernels.KERNEL_WRAPPERS["flash_attention_backward"] is \
+        t_fa.flash_attention_backward
+    kernels.reset_launch_counts()
+    q, k = torch.zeros((1, 8, 4, 64)), torch.zeros((1, 8, 2, 64))
+    lse = t_fa.flash_attention_lse_plain(q, k)
+    out = t_fa.flash_attention_backward(q, k, k, q, lse, q)
+    assert all(float(t.abs().max()) == 0 for t in out)
+    assert kernels.launch_counts()["flash_attention_backward"] == 0
+    meta = torch.empty((1, 8, 4, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        t_fa.flash_attention_backward(meta, meta[:, :, :2], meta[:, :, :2],
+                                      meta, torch.empty((1, 4, 8),
+                                                        device="meta"), meta)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -417,3 +595,36 @@ class TestFlashAttentionOnCuda:
         q = torch.zeros((2, 8, 96), device=cuda_device)
         with pytest.raises(ValueError, match="head dim"):
             t_fa.flash_attention(q, q, q)
+
+
+@pytest.mark.torch_cuda
+class TestFlashBackwardOnCuda:
+    """The backward kernels equal their plain version on the card, give the
+    same bits twice, and are what autograd runs through the wrappers."""
+
+    @pytest.mark.parametrize("case", cs.flash_bwd_cases(),
+                             ids=lambda c: c.name.replace(" ", "_"))
+    def test_backward_matches_plain(self, cuda_device, case):
+        """`chip_smoke.check_flash_backward`: the log-sum-exp, dq, dk and
+        dv within their limits, two calls bit-equal, autograd through both
+        wrappers == the kernel, planted faults read where the cap is
+        reached."""
+        launches = t_fa.flash_attention_backward.launches
+        res = cs.check_flash_backward(case)
+        assert len(res["errs"]) == 3
+        assert t_fa.flash_attention_backward.launches > launches + 1
+
+    def test_autograd_runs_the_kernels(self, cuda_device):
+        q, k, v = _model_layout(cuda_device, 8, 2, 300, 300, 128,
+                                torch.bfloat16, fused=False)
+        do = torch.randn_like(q)
+        o, lse = t_fa.flash_attention_forward(q, k, v)
+        want = t_fa.flash_attention_backward(q, k, v, o, lse, do)
+        fwd = t_fa.flash_attention.launches
+        bwd = t_fa.flash_attention_backward.launches
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        t_fa.flash_attention_bshd(qg, kg, vg).backward(do)
+        assert t_fa.flash_attention.launches == fwd + 1
+        assert t_fa.flash_attention_backward.launches == bwd + 1
+        for t, w in zip((qg, kg, vg), want):
+            assert torch.equal(t.grad, w)
