@@ -75,10 +75,12 @@ Phases, each of which stops the script with a non-zero exit on failure:
    hd 112, grok-1-314b's softcap 30 and kimi-k2-1t-a32b's heads (B=1), MQA
    at hd 256, ragged S, Sq != Skv, one query, and softcap 5 on scores that
    reach the cap in bf16 and float32, where two planted faults (D dropped,
-   the cap's derivative dropped) must read 1.5 limits or more
-   (`flash_bwd_cases`); the model shapes timed beside the plain backward,
-   the bound (5/2 of the forward's causal FLOPs at the bf16 rate) and SDPA's
-   backward where there is no cap.
+   the cap's derivative dropped) must read 1.5 limits or more, and the
+   edges of the bf16 kernels' tiles, keys that no query sees getting zero
+   rows (`flash_bwd_cases`); the model shapes timed beside the plain
+   backward, the bound (5/2 of the forward's causal FLOPs at the bf16 rate)
+   and SDPA's backward where there is no cap, and split by kernel (the dQ
+   and the dK/dV kernel, each with its issued TFLOP/s).
 7. `[lm]`: the LM serving path at llama3.2-3b's full width (28 layers,
    random bf16 weights from the seed): `generate` of 32 greedy tokens after
    a B=4 x 4096-token prompt (the repo's `train_4k` length; `prefill_32k`
@@ -348,12 +350,10 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def device_ms(fn, reps: int, kernel: str | None = None) -> float | None:
-    """Device time of one call of ``fn``, read from a `torch.profiler` trace
-    of ``reps`` back-to-back calls after a warm-up call: the summed time of
-    the device activities (kernels, copies, fills) whose name holds
-    ``kernel`` (every one of them when None), over ``reps``. None when the
-    trace holds no such activity."""
+def device_events(fn, reps: int) -> list:
+    """(name, us) of every device activity (kernels, copies, fills) in a
+    `torch.profiler` trace of ``reps`` back-to-back calls of ``fn`` after a
+    warm-up call."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -362,10 +362,26 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and (kernel is None or kernel in e.name)]
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int, kernel: str | None = None) -> float | None:
+    """Device time of one call of ``fn``: the summed time of the device
+    activities of `device_events` whose name holds ``kernel`` (every one of
+    them when None), over ``reps``. None when the trace holds no such
+    activity."""
+    us = [t for name, t in device_events(fn, reps)
+          if kernel is None or kernel in name]
     return sum(us) / reps / 1e3 if us else None
+
+
+def device_split_ms(fn, reps: int, names) -> dict:
+    """Device time per call of ``fn`` of the kernels whose names hold each
+    of ``names``, from one trace of `device_events`."""
+    events = device_events(fn, reps)
+    return {n: sum(t for name, t in events if n in name) / reps / 1e3
+            for n in names}
 
 
 def stream_ms(fn, reps: int) -> float:
@@ -2194,8 +2210,9 @@ def flash_bwd_cases() -> list:
     tests: llama3.2-3b's training shape (B=2, S=4096, 24 / 8 heads, hd
     128), zamba2-7b's hd 112, grok-1-314b's softcap 30 and kimi-k2's heads
     (B=1, a training microbatch); MQA at hd 256, ragged S, Sq != Skv both
-    ways, one query, groups 1 to 8; and softcap 5 on q scaled by 2.5, whose
-    scores reach the cap (1 - tanh^2 down to ~0.1), in bf16 and float32."""
+    ways, one query, groups 1 to 8; softcap 5 on q scaled by 2.5, whose
+    scores reach the cap (1 - tanh^2 down to ~0.1), in bf16 and float32;
+    and, in bf16, the edges of the wgmma kernels' 128- and 64-row tiles."""
     from repro_torch.configs import get_config
 
     cfg, zcfg = get_config(LM_ARCH), get_config(SSM_ARCHS[1])
@@ -2221,6 +2238,13 @@ def flash_bwd_cases() -> list:
         BwdCase("Sq > Skv", 2, 4, 2, 900, 300, 128, bf),
         BwdCase("one query", 1, 4, 2, 1, 1, 128, bf),
         BwdCase("cap reached", 1, 8, 2, 512, 512, 64, bf, 5.0, 2.5),
+        # the wgmma kernels' tile edges: one row past a 128-row tile, one
+        # 64-row tile, the largest group at hd 64, and kv tiles of 128
+        # keys that no query sees
+        BwdCase("S 129", 1, 8, 2, 129, 129, 128, bf),
+        BwdCase("S 64 hd 112", 2, 4, 4, 64, 64, 112, bf),
+        BwdCase("group 8 hd 64", 1, 16, 2, 640, 640, 64, bf),
+        BwdCase("Sq 200 < Skv 517", 1, 8, 2, 200, 517, 128, bf),
         BwdCase("float32", 1, 8, 4, 512, 512, 64, f32),
         BwdCase("float32 softcap 30", 2, 6, 2, 333, 333, 128, f32, 30.0),
         BwdCase("float32 hd 256 Sq < Skv", 1, 4, 1, 200, 517, 256, f32),
@@ -2283,6 +2307,7 @@ def check_flash_backward(case: BwdCase) -> dict:
     within FLASH_LSE_TOL of the plain one; dq, dk and dv finite, two calls
     bit-equal, each within its limit (float32 FLASH_BWD_F32_TOL, bf16
     FLASH_BF16_ROW_TOL) of `flash_attention_backward_plain` by `grad_error`;
+    dk and dv exactly zero at keys past the last query (Skv > Sq);
     autograd through both wrappers giving the kernel's bits; and, where the
     scores reach the cap, each planted fault of `flash_backward_ref` reading
     at least FAULT_MARGIN limits on the same inputs. Returns the readings
@@ -2311,6 +2336,12 @@ def check_flash_backward(case: BwdCase) -> dict:
     limit = FLASH_BWD_F32_TOL if case.dtype == torch.float32 \
         else FLASH_BF16_ROW_TOL
     errs, max_abs = [], 0.0
+    unseen = ""
+    if case.skv > case.sq:   # keys past the last query: no query sees them
+        rows = [float(g[:, case.sq:].abs().max()) for g in got[1:]]
+        check(max(rows) == 0.0, f"{where}: dk, dv of the keys past the last "
+              f"query reach {rows}, not zero")
+        unseen = f"; dk, dv of the {case.skv - case.sq} unseen keys zero"
     for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
         check(g.dtype == case.dtype and bool(torch.isfinite(g).all()),
               f"{where}: {name} is not finite {str(case.dtype)[6:]}")
@@ -2359,8 +2390,8 @@ def check_flash_backward(case: BwdCase) -> dict:
     del qg, kg, vg, got
     log(f"[flash] {where}: lse within {lse_err:.3g}; grad_error dq "
         f"{errs[0]:.4g}, dk {errs[1]:.4g}, dv {errs[2]:.4g} against the plain "
-        f"backward (limit {limit}){text}; two calls bit-equal; autograd == "
-        f"the kernel")
+        f"backward (limit {limit}){text}{unseen}; two calls bit-equal; "
+        f"autograd == the kernel")
     return dict(errs=errs, max_abs=max_abs, tensors=(q, k, v, o, lse, do))
 
 
@@ -2413,6 +2444,22 @@ def phase_flash_backward(timing: bool = True) -> dict:
             f"{bms:.4f} ms ({by}; {n_ops:.4g} FLOPs at 989 TFLOP/s bf16, "
             f"{n_bytes} bytes); kernel at {n_ops / ms / 1e9:.1f} TFLOP/s, "
             f"{ms / bms:.2f}x its bound")
+        # by kernel: the dQ kernel (D too) forms S, dP and dS K, 3/2 of the
+        # forward's causal FLOPs; the dK/dV kernel S^T, dP^T, P^T dO and
+        # dS^T q, 2; on the tiles' width (hd 112 runs 128 columns)
+        split = device_split_ms(
+            lambda: fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                softcap=cap),
+            10, ("flash_bwd_dq", "flash_bwd_dkv"))
+        fwd = 4 * attention_pairs(s, s) * (128 if hd == 112 else hd) * h * b
+        issued = {"flash_bwd_dq": 1.5 * fwd, "flash_bwd_dkv": 2 * fwd}
+        log(f"[flash] backward {case.name} by kernel (device time, "
+            f"profiler): " + "; ".join(
+                f"{name} {t:.4f} ms, {issued[name] / max(t, 1e-9) / 1e9:.1f} "
+                f"TFLOP/s issued ({issued[name] / fwd:g}x the forward's FLOPs)"
+                for name, t in split.items())
+            + f"; both issue {sum(issued.values()) / fwd:g}x the forward's "
+            f"FLOPs where 5/2 are needed")
         if case.row:
             rows[case.row] = dict(
                 name=case.row, route="cuda",

@@ -416,11 +416,15 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # D and the log-sum-exp in log2 units of every query row, rows padded
+    # to the query-tile kernel's 128 (csrc/flash_attn_bwd.cu, tc::padded)
+    rows = -(-sq // 128) * 128
+    scratch = torch.empty(2 * b * h * rows, dtype=torch.float32,
+                          device=q.device)
     fn = _build.function("flash_attn_bwd", "repro_flash_attention_backward",
                          10, 22, 2)
     rc = fn(*(_build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv,
-                                      delta)),
+                                      scratch)),
             b, h, k.shape[2], sq, k.shape[1], hd,
             int(q.dtype == torch.bfloat16), *_strides(q), *_strides(k),
             *_strides(v), *_strides(o), *_strides(do), hd ** -0.5,

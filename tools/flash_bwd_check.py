@@ -5,7 +5,8 @@
     python3 tools/flash_bwd_check.py --quick   # checks only, no timing
 
 Builds `src/repro_torch/csrc/flash_attn.cu` and `flash_attn_bwd.cu`,
-prints nvcc's registers and spills for each kernel, then runs
+prints nvcc's registers and spills for each kernel and ptxas's warnings
+(wgmma serialised for want of registers among them), then runs
 `chip_smoke.py`'s backward phase alone: `check_flash_backward` at every
 case of `flash_bwd_cases` (the kept log-sum-exp, dq, dk and dv against the
 plain backward by `grad_error`, two calls bit-equal, autograd through both
@@ -39,6 +40,9 @@ def main() -> None:
     for name in ("flash_attn", "flash_attn_bwd"):
         cs.log(f"[build] {name} by kernel: "
                + "; ".join(cs.ptxas_kernels(name)))
+        for ln in _build.build_log(name).splitlines():
+            if "warning" in ln.lower() or "Performance Loss" in ln:
+                cs.log(f"[build] {name}: {ln.strip()}")
     cs.phase_flash_backward(timing="--quick" not in sys.argv)
     cs.log(cs.smi_line())
     cs.log("flash_bwd_check: ok")
