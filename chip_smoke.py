@@ -201,7 +201,25 @@ Phases, each of which stops the script with a non-zero exit on failure:
    collectives a generation, one `all_reduce` alone, spawn and rendezvous
    s; the slab and `fitness_errors` at a rank's shapes timed beside their
    bounds (rows `domination_block[shard]`, `fitness_errors[shard]`).
-17. The kernel list, the card's name and power limit, one JSON line of
+17. `[lm-mesh]`: sharded LM training (`runtime.train.make_train_step(
+   rules=...)`, `sharding/`, `core.comm`) on a (data=2, model=2) mesh of 4
+   ranks (sharing the one card over gloo; a card a rank over NCCL with
+   four): (a) llama3.2-3b at full width cut to 2 layers, B=4 x 1024,
+   AdamW on the launcher's schedule, 3 steps through `train_loop`, the
+   loss, grad norm and every gathered parameter after each step held to
+   the single-card step from the same seed within 4x the spread the
+   single-card step shows against the same step in float32 (printed), each
+   rank's attention launches (twice and once a layer a step) on its local
+   12 of 24 query and 4 of 8 kv heads; step time, tokens/s, peak memory
+   and collectives a rank, one traced step's device time split with the
+   collectives' share; (b) reduced float32 configs in both head modes
+   ("sharded" and "replicated") on the ranks: every gradient within 1e-4
+   of its leaf's scale and a step's loss and grad norm within 1e-5 of the
+   CPU's single-device step; (c) (a)'s state saved sharded and restored
+   onto one card and onto (data=1, model=2), equal to the gathered state
+   bit for bit; (d) `compressed_psum` over a 2-rank pod axis equal to the
+   CPU's arithmetic.
+18. The kernel list, the card's name and power limit, one JSON line of
    per-kernel results (each row names what it times in `what`; the rows
    `fitness_errors[bucket]` and `domination_block[bucket]` are the batched
    launches, the `[shard]` rows a mesh rank's), and last `{"ok": true,
@@ -270,14 +288,17 @@ TPU_KERNELS = {  # kernel -> (port source, the TPU kernel it replaces,
     "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
                         "src/repro/kernels/flash_attn.py:70",
                         "bf16 LM prefill, q (4, 4096, 24, 128), k and v "
-                        "(4, 4096, 8, 128), the model's layout"),
+                        "(4, 4096, 8, 128), the model's layout; launches "
+                        "include [lm-mesh]'s ranks, each on its local 12 "
+                        "query and 4 kv heads"),
     "flash_attention_backward": (
         "src/repro_torch/csrc/flash_attn_bwd.cu",
         "none: no TPU kernel (the Pallas flash_attention has no gradient; "
         "the JAX package differentiates its jnp chunked_prefill_attention, "
         "src/repro/models/attention.py:53)",
         "bf16 llama3.2-3b training, q, o, dout (2, 4096, 24, 128), k and v "
-        "(2, 4096, 8, 128), the model's layout"),
+        "(2, 4096, 8, 128), the model's layout; launches include "
+        "[lm-mesh]'s ranks, each on its local 12 query and 4 kv heads"),
 }
 LM_ARCH = "llama3.2-3b"            # full width; the repo's train_4k length
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 4096, 32
@@ -2622,13 +2643,16 @@ TRAIN_RTOL, TRAIN_GRAD_REL, TRAIN_ULPS = 1e-5, 1e-4, 8
 ATTN_FWD_NAMES = ("flash_attn_tc_kernel", "flash_attn_kernel")
 
 
-def _profile_split(fn, ranges=()):
+def _profile_split(fn, ranges=(), comm: bool = False):
     """(device ms by category, the device span of each named
     `record_function` range, busy ms, host ms, the eight largest device
     activities by name) of one ``fn()`` call, from a profiler trace:
     categories matmuls (cuBLAS), attention forward, attention backward and
-    the rest. A range shows on the device as an annotation spanning its
-    kernels, so it is read apart and not counted as busy time."""
+    the rest, and with ``comm`` the collectives' device work (NCCL's
+    kernels, or the host copies that stage gloo's). A range shows on the
+    device as an annotation spanning its kernels, so it is read apart and
+    not counted as busy time; so do the profiler's ``nccl:*`` annotations,
+    which span NCCL's kernels."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -2638,6 +2662,8 @@ def _profile_split(fn, ranges=()):
         host = (time.perf_counter() - t0) * 1e3
     split = {"matmuls": 0.0, "attention forward": 0.0,
              "attention backward": 0.0, "rest": 0.0}
+    if comm:
+        split["collectives"] = 0.0
     by_name: dict[str, float] = {}
     in_range = dict.fromkeys(ranges, 0.0)
     for e in prof.events():
@@ -2647,8 +2673,12 @@ def _profile_split(fn, ranges=()):
         if e.name in in_range:   # a range's span on the device, not a kernel
             in_range[e.name] += us / 1e3
             continue
+        if e.name.startswith(NCCL_ANNOTATION):
+            continue
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-        if "flash_bwd" in e.name:
+        if comm and any(n in e.name for n in COMM_NAMES):
+            split["collectives"] += us
+        elif "flash_bwd" in e.name:
             split["attention backward"] += us
         elif any(n in e.name for n in ATTN_FWD_NAMES):
             split["attention forward"] += us
@@ -3729,6 +3759,542 @@ def phase_mesh(problem, tree_path: dict, sweep_path: dict, root: str,
     return dict(counts=counts, rows=rows)
 
 
+LM_MESH_RANKS = 4     # [lm-mesh]: a (data=2, model=2) mesh
+LM_MESH_PLAN = dict(arch=LM_ARCH, layers=2, batch=4, seq=1024, steps=3)
+# [lm-mesh] (a)'s limits: each reading of the sharded bf16 run against the
+# single-card bf16 step within LM_MESH_SAFETY times the spread the
+# single-card path itself shows when the same sums run in float32 (the
+# step's own bf16 rounding; for the loss and grad norm its largest over the
+# steps so far, as one step's may come near 0 by chance: 2.19e-5 at step
+# 1 against 3.0e-4 at step 0 on an H100), at least one bf16
+# ulp of a parameter leaf's largest magnitude and 1e-6 of a metric (float32's rounding, for a config
+# in float32 already). A reordering on one card (grad_accum 1 against 2)
+# spreads less than the sharded run's own roundings: its row-parallel
+# products round each rank's partial sum to bf16 before they are added
+# (as GSPMD's do), which one card never does (on an H100: that spread 0
+# to 9.4e-5, the sharded run's differences 7e-5 to 9.8e-4).
+LM_MESH_SAFETY = 4
+# (b): the reduced float32 configs of reduced_step_check, in both head
+# modes at tp 2 (4 heads over 2 kv heads: "sharded"; 3 heads: "replicated")
+LM_MESH_REDUCED = (dict(head_dim=64), dict(head_dim=64, n_heads=3,
+                                           n_kv_heads=1))
+LM_MESH_PSUM = ((64, 33), (1000,))   # (d): the leaves of the pod mean
+# the collectives' device work: NCCL's kernels, and the copies that stage
+# gloo's through the host (the step uploads its batch before it starts)
+COMM_NAMES = ("ncclDevKernel", "ncclKernel", "Memcpy DtoH", "Memcpy HtoD")
+NCCL_ANNOTATION = "nccl:"   # the profiler's span of a collective's kernels
+
+
+def _on(dev, fn, default=None):
+    """``fn()`` when ``dev`` is a card (the synchronising and memory
+    calls), else ``default``: [lm-mesh]'s ranks also rehearse on the CPU."""
+    return fn() if torch.device(dev).type == "cuda" else default
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def lm_mesh_reference(cfg, data, plan: dict, dev) -> dict:
+    """The single-card step that [lm-mesh] (a) is held to, from the same
+    seed through `launch.train.build`: run A (the config as the sharded run
+    takes it) and run B (the same sums in float32, with ``plan``'s
+    ``ref_accum`` microbatches, 1 by default: the single-card path's own
+    bf16 rounding). Returns A's loss, grad norm and parameters (on the
+    host) after each step, and the spread |A - B| of each."""
+    from repro_torch import pytree
+    from repro_torch.launch import train as launch_train
+
+    runs = {"A": [], "spread": []}
+    ref = dataclasses.replace(cfg, dtype="float32",
+                              grad_accum=plan.get("ref_accum", 1))
+    for name, c in (("A", cfg), ("B", ref)):
+        state, step_fn = launch_train.build(c, steps=plan["steps"],
+                                            device=dev, seed=SEED)
+        for step in range(plan["steps"]):
+            state, m = step_fn(state, launch_train.device_batch(
+                data, step, c, plan["batch"], dev))
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            if name == "A":
+                runs["A"].append((loss, gn, {
+                    pytree.path_str(p): t.cpu().clone()
+                    for p, t in pytree.leaves_with_paths(state.params)}))
+                continue
+            a = runs["A"][step]
+            runs["spread"].append((abs(a[0] - loss), abs(a[1] - gn), {
+                pytree.path_str(p): float(
+                    (a[2][pytree.path_str(p)].to(t.device).float() - t)
+                    .abs().max())
+                for p, t in pytree.leaves_with_paths(state.params)}))
+        del state, step_fn
+        _on(dev, torch.cuda.empty_cache)
+    return runs
+
+
+def _reduced_cpu_refs() -> list:
+    """[lm-mesh] (b)'s CPU side: for each reduced float32 config, the
+    single-device step on the CPU from `launch.train.build`'s state (seed
+    0): its parameters as numpy, the batch, the gradients and one step's
+    loss and grad norm."""
+    from repro_torch import pytree
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime import train
+
+    refs = []
+    for over in LM_MESH_REDUCED:
+        cfg = reduced_config(get_config(LM_ARCH), **over)
+        data = SyntheticLMData(cfg.vocab_size, 128, 4, seed=0)
+        state, step_fn = launch_train.build(cfg, steps=20, device="cpu")
+        params = pytree.tree_map(lambda t: t.numpy().copy(), state.params)
+        batch = launch_train.device_batch(data, 0, cfg, 4, "cpu")
+        grads = train.loss_and_grads(cfg, state.params, batch)[2]
+        _, m = step_fn(state, batch)
+        refs.append(dict(over=over, params=params,
+                         tokens=batch["tokens"].numpy(),
+                         grads=pytree.tree_map(lambda t: t.numpy(), grads),
+                         loss=float(m["loss"]),
+                         grad_norm=float(m["grad_norm"])))
+    return refs
+
+
+def _psum_input(pod: int, i: int) -> torch.Tensor:
+    rng = np.random.default_rng(100 + 10 * pod + i)
+    return torch.as_tensor((rng.normal(size=LM_MESH_PSUM[i]) * 10 ** i)
+                           .astype(np.float32))
+
+
+def _psum_plain() -> list:
+    """(d)'s CPU side: the int8 pod mean of the two pods' leaves, written
+    out: the scale maxed over the pods, the codes summed in int32, times
+    the scale over 2."""
+    out = []
+    for i in range(len(LM_MESH_PSUM)):
+        g = [_psum_input(pod, i) for pod in (0, 1)]
+        scale = torch.stack([torch.clamp(x.abs().max() / 127.0, min=1e-30)
+                             for x in g]).max()
+        total = sum(torch.clamp(torch.round(x / scale), -127, 127)
+                    .to(torch.int32) for x in g)
+        out.append((total.to(torch.float32) * scale / 2).numpy())
+    return out
+
+
+def lm_mesh_rank(plan: dict | None, extras: dict) -> dict:
+    """One rank of `[lm-mesh]` (a (data=2, model=2) mesh): (a) with
+    ``plan`` (`_lm_mesh_a`), and with ``extras``: (c) (a)'s state through a
+    sharded checkpoint (``ckpt_dir``), (b) the reduced float32 configs
+    (``reduced``, `_lm_mesh_b`), (d) the int8 mean over a 2-rank pod axis
+    (``psum``). Returns readings to the parent (counters are per
+    process)."""
+    t_enter = time.time()
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as launch_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = launch_mesh.rank_device((plan or extras).get("device", "cuda"))
+    out = {"t_enter": t_enter, "device": str(dev), "rank": dist.get_rank(),
+           "backend": dist.get_backend(),
+           "marks": {"enter": time.perf_counter()}}
+    mesh = launch_mesh.make_host_mesh(LM_MESH_RANKS, ("data", "model"),
+                                      device=dev)
+    if plan:
+        _lm_mesh_a(plan, mesh, dev, out, extras.get("ckpt_dir"))
+    if "reduced" in extras:
+        out["b"] = _lm_mesh_b(extras["reduced"], mesh, dev)
+        out["marks"]["(b)"] = time.perf_counter()
+    if extras.get("psum"):
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from repro_torch.optim import compress
+
+        pods = init_device_mesh(dev.type, (2, 2),
+                                mesh_dim_names=("pod", "model"))
+        pod = pods.get_local_rank("pod")
+        mean = compress.make_crosspod_mean(pods, "pod")(
+            [_psum_input(pod, i).to(dev) for i in range(len(LM_MESH_PSUM))])
+        out["d"] = [t.cpu().numpy() for t in mean]
+        out["marks"]["(d)"] = time.perf_counter()
+    return out
+
+
+def _lm_mesh_a(plan: dict, mesh, dev, out: dict, ckpt_dir) -> None:
+    """(a) on this rank: ``plan``'s model trained ``plan["steps"]`` steps
+    through `launch.train.train_loop` with the sharded step, counted, every
+    parameter gathered after each step and, on rank 0, held to the
+    single-card step (rank 0 runs it first, `lm_mesh_reference`); one more
+    step traced on rank 0; then, with ``ckpt_dir``, (c): the state saved
+    sharded and restored onto one card (rank 0) and onto (data=1,
+    model=2), each against the gathered state. Fills ``out``."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import kernels, pytree
+    from repro_torch.core import comm
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import attention
+    from repro_torch.runtime import checkpoint
+    from repro_torch.sharding import params as sp
+    from repro_torch.sharding.rules import MeshRules
+
+    marks_t, rank = out["marks"], out["rank"]
+    cfg = launch_train.model_config(plan["arch"], plan.get("reduced", False),
+                                    plan["layers"])
+    data = SyntheticLMData(cfg.vocab_size, plan["seq"], plan["batch"],
+                           seed=0)
+    ref = lm_mesh_reference(cfg, data, plan, dev) if rank == 0 else None
+    marks_t["reference"] = time.perf_counter()
+    if ref is not None:
+        out["spread"] = [(a, b) for a, b, _ in ref["spread"]]
+    rules = launch_mesh.rules_for(mesh)
+    specs = sp.train_state_specs(cfg, rules, sp.mesh_axes(mesh),
+                                 cfg.optimizer)
+    state, step_fn = launch_train.build_sharded(cfg, rules,
+                                                steps=plan["steps"] + 1,
+                                                device=dev, seed=SEED)
+    params = state.params          # updated in place by every step
+    marks_t["init"] = time.perf_counter()
+    heads = []
+    kernel = attention.flash_attention_bshd
+
+    def counted(q, k, v, **kw):
+        heads.append((q.shape[2], k.shape[2]))
+        return kernel(q, k, v, **kw)
+
+    attention.flash_attention_bshd = counted
+    _on(dev, torch.cuda.synchronize)
+    _on(dev, torch.cuda.reset_peak_memory_stats)
+    losses, gnorms, errs, coll, step_s = [], [], [], [], []
+    marks = [time.perf_counter()]
+    kernels.reset_launch_counts()
+    comm.reset_collectives()
+
+    def on_step(step, m):
+        _on(dev, torch.cuda.synchronize)
+        step_s.append(time.perf_counter() - marks[-1])
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        coll.append((dict(comm.COLLECTIVES), dict(comm.COLLECTIVE_BYTES)))
+        full = sp.gather_tree(params, specs.params, mesh)
+        if ref is not None:
+            want = ref["A"][step][2]
+            errs.append({pytree.path_str(p): float(
+                (t.float() - want[pytree.path_str(p)].to(dev).float())
+                .abs().max()) for p, t in pytree.leaves_with_paths(full)})
+        del full
+        comm.reset_collectives()
+        marks.append(time.perf_counter())
+
+    state, _ = launch_train.train_loop(
+        state, step_fn, data, cfg, start=0, steps=plan["steps"],
+        batch=plan["batch"], device=dev, log=lambda m: None,
+        on_step=on_step)
+    out["counts"] = kernels.launch_counts()
+    attention.flash_attention_bshd = kernel
+    marks_t["steps"] = time.perf_counter()
+    out.update(heads=sorted(set(heads)), losses=losses, gnorms=gnorms,
+               step_s=step_s, coll=coll,
+               peak=_on(dev, torch.cuda.max_memory_allocated, 0))
+    if ref is not None:
+        out["ref"] = [(a, b) for a, b, _ in ref["A"]]
+        out["errs"] = errs
+        out["limits"] = [{k: max(LM_MESH_SAFETY * s,
+                                 _bf16_ulp(float(ref["A"][i][2][k].float()
+                                                 .abs().max())))
+                          for k, s in sp_[2].items()}
+                         for i, sp_ in enumerate(ref["spread"])]
+        del ref
+    _on(dev, torch.cuda.empty_cache)
+
+    # one more step, traced on rank 0
+    batch = launch_train.device_batch(data, plan["steps"], cfg,
+                                      plan["batch"], dev)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step_fn(holder[0], batch)
+
+    if rank == 0 and dev.type == "cuda":
+        out["split"] = _profile_split(one_step, comm=True)
+    else:
+        one_step()
+        _on(dev, torch.cuda.synchronize)
+    state = holder[0]
+    marks_t["traced step"] = time.perf_counter()
+    if not ckpt_dir:
+        return
+
+    # (c) the state saved sharded, restored onto one card and onto (1, 2)
+    checkpoint.save_tree(ckpt_dir, int(state.step), state, specs=specs,
+                         mesh=mesh)
+    marks_t["(c) save"] = time.perf_counter()
+    gathered = sp.gather_tree(state, specs, mesh)
+    del state, step_fn, holder, batch
+    _on(dev, torch.cuda.empty_cache)
+    # (data=1, model=2) on ranks 0 and 1 (every rank makes the mesh)
+    mesh12 = DeviceMesh(dev.type, torch.tensor([[0, 1]]),
+                        mesh_dim_names=("data", "model"))
+    if rank < 2:
+        rules12 = MeshRules(tp=2, mesh=mesh12)
+        specs12 = sp.train_state_specs(cfg, rules12, sp.mesh_axes(mesh12),
+                                       cfg.optimizer)
+        like = launch_train.build_sharded(cfg, rules12, steps=1, device=dev,
+                                          seed=SEED + 1)[0]
+        like, _ = checkpoint.restore_tree(ckpt_dir, int(gathered.step),
+                                          like, specs=specs12, mesh=mesh12)
+        # the restored blocks against this rank's blocks of the gathered
+        # state
+        out["c_1x2"] = all(torch.equal(a, b) for a, b in zip(
+            pytree.leaves(like),
+            pytree.leaves(sp.shard_tree(gathered, specs12, mesh12))))
+        del like
+    if rank == 0:
+        one = launch_train.build(cfg, steps=1, device=dev, seed=SEED + 1)[0]
+        one, _ = checkpoint.restore_tree(ckpt_dir, int(gathered.step), one)
+        out["c_one"] = all(torch.equal(a, b) for a, b in zip(
+            pytree.leaves(one), pytree.leaves(gathered)))
+        out["c_leaves"] = len(pytree.leaves(one))
+        del one
+    del gathered
+    _on(dev, torch.cuda.empty_cache)
+    marks_t["(c) restores"] = time.perf_counter()
+
+
+def _lm_mesh_b(refs: list, mesh, dev) -> list:
+    """(b) on this rank: each reduced float32 config's gradients (the
+    sharded step's, gathered) and one sharded step's loss and grad norm,
+    from the CPU's parameters (`_reduced_cpu_refs`) cut to this rank's
+    blocks; the per-leaf error against the CPU's gradient over its
+    scale."""
+    from repro_torch import pytree
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime import train
+    from repro_torch.sharding import params as sp
+    from repro_torch.sharding.rules import MeshRules, head_sharding
+
+    got = []
+    for ref in refs:
+        c = reduced_config(get_config(LM_ARCH), **ref["over"])
+        r = MeshRules(tp=2, mesh=mesh)
+        p_local = pytree.tree_map(lambda t: t.to(dev), sp.shard_tree(
+            pytree.tree_map(torch.as_tensor, ref["params"]),
+            sp.param_specs(c, r, sp.mesh_axes(mesh)), mesh))
+        batch = {"tokens": torch.as_tensor(ref["tokens"], device=dev)}
+        _, _, g = train.make_sharded_grads(c, r, c.optimizer)(p_local,
+                                                              batch)
+        g = sp.gather_tree(g, train.grad_specs(c, r, c.optimizer), mesh)
+        rel = {}
+        for p, t in pytree.leaves_with_paths(g):
+            want = np.asarray(pytree.get(ref["grads"], p))
+            rel[pytree.path_str(p)] = float(
+                np.abs(t.cpu().numpy() - want).max()) / max(
+                    float(np.abs(want).max()), 1e-30)
+        opt = launch_train.optimizer_for(c, 20)
+        st = train.init_sharded_train_state(p_local, opt, c, r)
+        _, m = train.make_train_step(c, rules=r, optimizer=opt)(st, batch)
+        got.append(dict(mode=head_sharding(c, r)[0], rel=rel,
+                        loss=float(m["loss"]),
+                        grad_norm=float(m["grad_norm"])))
+    return got
+
+
+def check_lm_mesh_b(tag: str, refs: list, got: list) -> None:
+    """(b)'s checks: every gradient within TRAIN_GRAD_REL of its leaf's
+    scale, the step's loss and grad norm within TRAIN_RTOL of the CPU's."""
+    for ref, g in zip(refs, got):
+        rel = max(g["rel"].values())
+        for key in ("loss", "grad_norm"):
+            check(abs(g[key] - ref[key]) <= TRAIN_RTOL * abs(ref[key]),
+                  f"{tag} (b) {g['mode']}: {key} {g[key]} sharded on the "
+                  f"card, {ref[key]} on the CPU")
+        check(rel <= TRAIN_GRAD_REL, f"{tag} (b) {g['mode']}: a gradient "
+              f"differs from the CPU's by {rel:.3g} of its scale")
+        log(f"{tag} (b) reduced float32 {LM_ARCH} {ref['over']} "
+            f"({g['mode']} heads at tp 2): loss {g['loss']:.7f} / CPU "
+            f"{ref['loss']:.7f}, grad norm {g['grad_norm']:.7f} / "
+            f"{ref['grad_norm']:.7f} (rtol {TRAIN_RTOL}); every gradient "
+            f"within {rel:.3g} of its leaf's scale (limit {TRAIN_GRAD_REL})")
+
+
+def reduced_mesh_check(device: str = "cuda") -> list:
+    """[lm-mesh] (b) alone: LM_MESH_RANKS ranks spawned on ``device``, the
+    reduced float32 configs in both head modes against the CPU's
+    single-device step. Returns the ranks' readings."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    refs = _reduced_cpu_refs()
+    outs = launch_mesh.spawn(lm_mesh_rank, LM_MESH_RANKS, device,
+                             (None, dict(reduced=refs, device=device)))
+    check_lm_mesh_b("[lm-mesh]", refs, outs[0]["b"])
+    return outs[0]["b"]
+
+
+def _check_lm_mesh_a(tag: str, outs: list, plan: dict) -> dict:
+    """(a)'s checks and readings, from the ranks' results: the sharded
+    run's losses, grad norms and every gathered parameter after each step
+    against the single-card step (rank 0's), within LM_MESH_SAFETY times
+    the single-card spread; the launches and their head counts."""
+    from repro_torch.configs import get_config
+
+    from repro_torch.launch.train import model_config
+
+    o = outs[0]
+    cfg = model_config(plan["arch"], plan.get("reduced", False),
+                       plan["layers"])
+    for r in outs:
+        check(r["losses"] == o["losses"] and r["gnorms"] == o["gnorms"],
+              f"{tag} the ranks report different losses or grad norms")
+    worst = {"loss": 0.0, "grad_norm": 0.0, "params": 0.0}
+    top = [0.0, 0.0]    # the spreads' running maxima over the steps
+    for i, ((a_loss, a_gn), (s_loss, s_gn)) in enumerate(zip(o["ref"],
+                                                           o["spread"])):
+        top = [max(top[0], s_loss), max(top[1], s_gn)]
+        for key, got, want, spread in (("loss", o["losses"][i], a_loss,
+                                        top[0]),
+                                       ("grad_norm", o["gnorms"][i], a_gn,
+                                        top[1])):
+            limit = max(LM_MESH_SAFETY * spread, 1e-6 * abs(want))
+            worst[key] = max(worst[key], abs(got - want) / limit)
+            check(abs(got - want) <= limit,
+                  f"{tag} step {i}: {key} {got} sharded, {want} on one card "
+                  f"(limit {limit:.3g}: {LM_MESH_SAFETY} x the single-card "
+                  f"bf16-to-float32 spread {spread:.3g})")
+        for leaf, err in o["errs"][i].items():
+            limit = max(o["limits"][i][leaf], 1e-30)
+            worst["params"] = max(worst["params"], err / limit)
+            check(err <= limit, f"{tag} step {i}: {leaf} differs from the "
+                  f"single-card step by {err:.3g}, limit {limit:.3g}")
+        log(f"{tag} step {i}: loss {o['losses'][i]:.6f} sharded / "
+            f"{a_loss:.6f} one card (spread {s_loss:.3g}), grad norm "
+            f"{o['gnorms'][i]:.6f} / {a_gn:.6f} (spread {s_gn:.3g}); "
+            f"parameters: largest error / limit "
+            f"{max(e / o['limits'][i][k] for k, e in o['errs'][i].items()):.3f}"
+            f" (limits: {LM_MESH_SAFETY} x each leaf's single-card bf16-to-"
+            f"float32 spread, at least one bf16 ulp of its largest value; "
+            f"e.g. embed "
+            f"{o['errs'][i]['embed']:.3g} / {o['limits'][i]['embed']:.3g})")
+    per = cfg.n_layers * plan["steps"]
+    h_l, kv_l = cfg.n_heads // 2, cfg.n_kv_heads // 2
+    on_card = plan.get("device", "cuda") == "cuda"   # else plain versions
+    for r in outs:
+        c = r["counts"]
+        check(not on_card or (c["flash_attention"] == 2 * per
+                              and c[FLASH_BWD] == per),
+              f"{tag} rank {r['rank']}: {c['flash_attention']} forward and "
+              f"{c[FLASH_BWD]} backward attention launches, not {2 * per} "
+              f"and {per} (twice and once a layer a step)")
+        check(r["heads"] == [(h_l, kv_l)], f"{tag} rank {r['rank']}: the "
+              f"attention ran on {r['heads']} (query, kv) heads, not the "
+              f"rank's ({h_l}, {kv_l})")
+    return worst
+
+
+def _log_lm_mesh_timing(tag: str, outs: list, plan: dict) -> None:
+    o = outs[0]
+    steady = statistics.median(o["step_s"][1:]) if len(o["step_s"]) > 1 \
+        else o["step_s"][0]
+    tokens = plan["batch"] * plan["seq"]
+    coll, nbytes = o["coll"][-1]
+    peaks = ", ".join(f"{r['peak'] / 2**30:.2f}" for r in outs)
+    log(f"{tag} a step {[round(s * 1e3, 1) for s in o['step_s']]} ms on "
+        f"rank 0's host clock (the first with warm-up), steady "
+        f"{steady * 1e3:.1f} ms = {tokens / steady:.0f} tokens/s, "
+        f"{tokens / steady / len(outs):.0f} a rank; peak memory a rank "
+        f"{peaks} GiB; "
+        f"collectives a step on a rank: " + ", ".join(
+            f"{coll[k]} {k} ({nbytes[k] / 1e6:.1f} MB)" for k in coll))
+    if "split" not in o:
+        return
+    split, _, busy, host, top = o["split"]
+    log(f"{tag} one traced step on rank 0: {busy:.1f} ms of device time in "
+        f"{host:.1f} ms on the host clock (idle share "
+        f"{1 - busy / host:.3f}): " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in split.items())
+        + "; largest: " + "; ".join(f"{n[:60]} {us / 1e3:.2f} ms"
+                                    for n, us in top[:5]))
+    # the step's kernels and copies run one after another (a collective's
+    # stream waits on the step's and the step's on it): more device time
+    # than the host waited counts something twice
+    check(busy <= host, f"{tag} the traced step's device time {busy:.1f} ms "
+          f"exceeds its {host:.1f} ms on the host clock (idle share "
+          f"{1 - busy / host:.3f} < 0)")
+
+
+def phase_lm_mesh(root: str, plan: dict = LM_MESH_PLAN,
+                  extras: bool = True) -> dict:
+    """`[lm-mesh]`: sharded LM training on a (data=2, model=2) mesh of
+    LM_MESH_RANKS ranks spawned on the cards (gloo where they share one,
+    NCCL with a card a rank): (a) llama3.2-3b at full width, 2 layers,
+    B=4 x 1024, AdamW on the launcher's schedule, 3 steps through
+    `launch.train.train_loop`, held to the single-card step from the same
+    seed (`_check_lm_mesh_a`), counted: each rank's attention launches
+    (twice and once a layer a step) on its local heads, 12 of 24 query and
+    4 of 8 kv; (b) the reduced float32 configs (`LM_MESH_REDUCED`, both
+    head modes) on the ranks: every gradient within TRAIN_GRAD_REL of its
+    leaf's scale and a step's loss and grad norm within TRAIN_RTOL of the
+    CPU's single-device step; (c) (a)'s state saved sharded and restored
+    onto one card and onto (data=1, model=2): equal to the gathered state
+    bit for bit; (d) `compress.compressed_psum` over a 2-rank pod axis ==
+    the CPU's arithmetic. Step time, tokens/s, peak memory and collectives
+    a rank, and one traced step's device time split."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    tag = "[lm-mesh]"
+    extras = dict(ckpt_dir=str(pathlib.Path(root) / "ckpt"),
+                  reduced=_reduced_cpu_refs(), psum=True) if extras else {}
+    device = plan.get("device", "cuda")
+    t0 = time.time()
+    outs = launch_mesh.spawn(lm_mesh_rank, LM_MESH_RANKS, device,
+                             (plan, extras))
+    devices = sorted({o["device"] for o in outs})
+    how = ("a card a rank" if len(devices) == LM_MESH_RANKS else
+           "sharing a card: this checks the code and its arithmetic, not "
+           "NVLink")
+    log(f"{tag} {LM_MESH_RANKS} ranks on {devices} over "
+        f"{outs[0]['backend']} ({how}): rendezvous "
+        f"{max(o['t_enter'] for o in outs) - t0:.1f} s, the ranks' whole "
+        f"work {time.time() - t0:.1f} s")
+    names = list(outs[0]["marks"])
+    log(f"{tag} rank 0's time by part: " + ", ".join(
+        f"{b} {outs[0]['marks'][b] - outs[0]['marks'][a]:.1f} s"
+        for a, b in zip(names, names[1:])))
+    o = outs[0]
+    if "step_s" in o:
+        log(f"{tag} (a) steps {[round(x * 1e3, 1) for x in o['step_s']]} ms, "
+            f"losses {o['losses']} sharded / {[r[0] for r in o['ref']]} one "
+            f"card")
+    log(f"{tag} (a) {plan['arch']} {plan['layers'] or 'all'} layers, "
+        f"B={plan['batch']} x {plan['seq']}, AdamW, {plan['steps']} steps "
+        f"on a (data=2, model=2) mesh through train_loop")
+    worst = _check_lm_mesh_a(tag, outs, plan)
+    log(f"{tag} (a) == the single-card step: worst error / limit: loss "
+        f"{worst['loss']:.3f}, grad norm {worst['grad_norm']:.3f}, "
+        f"parameters {worst['params']:.3f}; launches a rank "
+        f"{outs[0]['counts']} on (query, kv) heads {outs[0]['heads']}")
+    _log_lm_mesh_timing(tag, outs, plan)
+    counts = {k: sum(o["counts"][k] for o in outs) for k in outs[0]["counts"]}
+    if not extras:
+        return dict(counts=counts, outs=outs)
+
+    check_lm_mesh_b(tag, extras["reduced"], outs[0]["b"])
+    check(outs[0]["c_1x2"] and outs[1]["c_1x2"] and outs[0]["c_one"],
+          f"{tag} (c) a restored checkpoint differs from the gathered state")
+    log(f"{tag} (c) (a)'s state saved sharded ({outs[0]['c_leaves']} "
+        f"leaves), restored onto one card and onto (data=1, model=2): "
+        f"== the gathered state, bit for bit")
+    want = _psum_plain()
+    check(all(all(np.array_equal(a, b) for a, b in zip(o["d"], want))
+              for o in outs), f"{tag} (d) compressed_psum differs from the "
+          f"CPU's arithmetic")
+    log(f"{tag} (d) compressed_psum over a 2-rank pod axis, leaves "
+        f"{LM_MESH_PSUM}: == the CPU's int8 mean on every rank")
+    return dict(counts=counts, outs=outs)
+
+
 MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
 
 
@@ -3811,9 +4377,12 @@ def main() -> None:
                                    forest_path["art"], d)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
         mesh_path = phase_mesh(problem, tree_path, sweep_path, d, rng)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_mesh_") as d:
+        lm_mesh_path = phase_lm_mesh(d)
     for path in (tree_path, *mlp_paths.values(), forest_path, lm_path,
                  train_path, *ssm_paths.values(), *moe_paths.values(), sweep_path,
-                 faults_path, mesh_path):
+                 faults_path, mesh_path, lm_mesh_path):
         for name, count in path["counts"].items():
             launches[name] += count
     check(all(v > 0 for v in launches.values()),

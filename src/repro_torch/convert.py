@@ -150,17 +150,32 @@ def lm_params_from_arrays(params_np: dict, cfg, device="cuda") -> dict:
 
 
 def train_state_from_arrays(params_np: dict, opt_np: dict, step: int, cfg,
-                            device="cuda"):
+                            device="cuda", rules=None):
     """The port's `runtime.train.TrainState` from a JAX `TrainState` read out
     as numpy arrays: ``params_np`` as `lm_params_from_arrays` takes it,
     ``opt_np`` the optimizer state (AdamW: {"m": tree, "v": tree} like the
     params; Adafactor: a tree like the params whose leaves are {"vr", "vc"}
     or {"v"}), every array float32, and ``step`` the step count. The
-    optimizer state's structure is checked against the params'."""
+    optimizer state's structure is checked against the params'.
+
+    With ``rules`` (bound to the mesh of the ranks), this rank's blocks of
+    that state under `sharding.params.train_state_specs`, on ``device``:
+    the state the sharded train step takes."""
     from repro_torch import pytree
     from repro_torch.runtime.train import TrainState
 
     dev = resolve_device(device)
+    if rules is not None:
+        from repro_torch.sharding import params as sp
+
+        full = train_state_from_arrays(params_np, opt_np, step, cfg, "cpu")
+        specs = sp.train_state_specs(cfg, rules, sp.mesh_axes(rules.mesh),
+                                     cfg.optimizer)
+        local = sp.shard_tree(full, specs, rules.mesh)
+        return TrainState(pytree.tree_map(lambda t: t.to(dev), local.params),
+                          pytree.tree_map(lambda t: t.to(dev),
+                                          local.opt_state),
+                          local.step.to(dev))
     params = lm_params_from_arrays(params_np, cfg, device=dev)
     paths = [p for p, _ in pytree.leaves_with_paths(params)]
     if cfg.optimizer == "adafactor":

@@ -41,7 +41,8 @@ through a host copy for the collective; NCCL takes it on the card.
    receiver's worst. `run_islands_serial` is the same campaign in one
    process, the oracle the ring is held to.
 
-`COLLECTIVES` counts the collectives this process issued, by kind.
+The transport is `core.comm`'s (re-exported here): `COLLECTIVES` counts
+the collectives this process issued, by kind.
 """
 from __future__ import annotations
 
@@ -51,54 +52,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import nsga2
+from repro_torch.core.comm import (  # noqa: F401  (re-exported)
+    COLLECTIVES, all_gather_cat, all_reduce_sum, reset_collectives,
+)
 from repro_torch.kernels import domination as _dom
 from repro_torch.sharding import search as _specs
-
-# torch >= 2.13 names it all_gather_single (all_gather_into_tensor warns)
-_gather_single = (getattr(dist, "all_gather_single", None)
-                  or dist.all_gather_into_tensor)
-
-COLLECTIVES = {"all_gather": 0, "all_reduce": 0}
-
-
-def reset_collectives() -> None:
-    for k in COLLECTIVES:
-        COLLECTIVES[k] = 0
-
-
-def _comm_device(group, t: torch.Tensor) -> torch.device:
-    """Where ``t`` must lie for the group's transport: the current card for
-    NCCL, the host for gloo."""
-    if dist.get_backend(group) == "nccl":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
-
-
-def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along ``dim`` in group-rank order
-    (JAX's ``all_gather(x, axis, tiled=True)``)."""
-    n = dist.get_world_size(group)
-    if n == 1:
-        return x
-    xm = x.movedim(dim, 0)
-    src = xm.to(_comm_device(group, x)).contiguous()
-    out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=src.dtype,
-                      device=src.device)
-    _gather_single(out, src, group=group)
-    COLLECTIVES["all_gather"] += 1
-    return out.to(x.device).movedim(0, dim)
-
-
-def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The elementwise sum of every rank's ``x`` (JAX's ``psum``)."""
-    if dist.get_world_size(group) == 1:
-        return x
-    buf = x.to(_comm_device(group, x)).contiguous()
-    if buf is x:
-        buf = x.clone()
-    dist.all_reduce(buf, group=group)
-    COLLECTIVES["all_reduce"] += 1
-    return buf.to(x.device)
 
 
 def assert_replicated(t: torch.Tensor, group, what: str) -> None:

@@ -6,14 +6,16 @@ a training loss falls, unlike on uniform noise), and the batch of any
 (step, shard) is regenerated from the seed alone, so a restart needs no
 data state beyond the step. The same arguments give the JAX package's
 tokens, array for array. Batches are numpy int32 arrays; the caller moves
-them to its device. `make_batch_specs` (the dry run's `jax.ShapeDtypeStruct`
-stand-ins) comes with sharding and launch.
+them to its device. `make_batch_specs` gives every model input of a shape
+cell as meta tensors (the JAX package's `jax.ShapeDtypeStruct` stand-ins:
+shapes and dtypes, no memory).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -49,3 +51,19 @@ class SyntheticLMData:
             nxt = self._succ[toks[:, t - 1], pick[:, t]]
             toks[:, t] = np.where(follow[:, t], nxt, fresh[:, t])
         return {"tokens": toks}
+
+
+def make_batch_specs(cfg, shape_cfg, prefix_dtype="float32") -> dict:
+    """Meta tensors of every model input of a shape cell: ``tokens`` (B,
+    S - prefix) int32 and, for a vlm, ``prefix_embed`` (B, prefix, D) of
+    ``prefix_dtype``."""
+    b, s = shape_cfg.global_batch, shape_cfg.seq_len
+    text = s - cfg.prefix_len
+    specs = {"tokens": torch.empty((b, text), dtype=torch.int32,
+                                   device="meta")}
+    if cfg.prefix_len:
+        specs["prefix_embed"] = torch.empty(
+            (b, cfg.prefix_len, cfg.d_model), dtype=getattr(torch,
+                                                           prefix_dtype),
+            device="meta")
+    return specs

@@ -1,6 +1,9 @@
-"""The search mesh: one `torch.distributed` rank per shard.
+"""Meshes of `torch.distributed` ranks: the search mesh, the production
+and host meshes of LM training, and the rank launcher.
 
-The counterpart of `repro.launch.mesh.make_search_mesh`. Where the JAX
+The counterpart of `repro.launch.mesh`: `make_search_mesh`, and
+`make_production_mesh` (16x16 ``("data", "model")``, or 2x16x16 with
+``"pod"``), `rules_for` and `make_host_mesh` for the sharded train step. Where the JAX
 package lays a `shard_map` over the devices of one process, the port runs
 one process per shard: each rank of a process group computes its slab on
 its own device and the collectives of `core.dist` join them. A mesh is a
@@ -28,6 +31,7 @@ device.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import pickle
@@ -152,6 +156,70 @@ def make_search_mesh(spec: str | None = None, axes=("pop",),
     return init_device_mesh(device_type, shape, mesh_dim_names=tuple(axes))
 
 
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def _device_mesh(shape: tuple, axes: tuple, device):
+    """A `DeviceMesh` of ``shape`` named ``axes`` over the first ranks of
+    the process group (a group of one made here if none exists and one
+    rank will do); raises `ValueError` when the group is too small."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    device_type = resolve_device(device).type
+    n = math.prod(shape)
+    if not dist.is_initialized() and n == 1:
+        _init_single(device_type)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n > world:
+        raise ValueError(
+            f"a {'x'.join(map(str, shape))} mesh {axes} needs {n} ranks, the "
+            f"process group has {world}: one rank a device (start them with "
+            f"torchrun or repro_torch.launch.mesh.spawn)")
+    if device_type == "cuda":
+        torch.cuda.set_device(rank_device("cuda"))
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The production mesh: (data=16, model=16) on 256 ranks, or (pod=2,
+    data=16, model=16) on 512, over the process group that exists (one
+    rank a card, torchrun's). Raises `ValueError` naming both counts on a
+    group of any other size, as `jax.make_mesh` fails without the
+    devices."""
+    shape, axes = PRODUCTION[multi_pod]
+    n = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise ValueError(
+            f"the production mesh {'x'.join(map(str, shape))} {axes} needs "
+            f"{n} ranks, the process group has {world}")
+    return _device_mesh(shape, axes, device)
+
+
+def rules_for(mesh):
+    """`RULES_3D` on a mesh with a ``pod`` axis, else `RULES_2D`, bound to
+    ``mesh``, with ``tp`` the mesh's model-axis size (16 on the production
+    meshes, as the JAX package's rules have it on any mesh)."""
+    from repro_torch.sharding.rules import RULES_2D, RULES_3D, mesh_axes
+
+    sizes = mesh_axes(mesh)
+    base = RULES_3D if "pod" in sizes else RULES_2D
+    return dataclasses.replace(base, tp=sizes.get("model", 1), mesh=mesh)
+
+
+def make_host_mesh(n: int | None = None, axes=("data",), device="cuda"):
+    """A small mesh for tests and examples on the group's ranks: ``n``
+    (default: the group's size) ranks on one axis, or ``n // len(axes)``
+    on each of several (the JAX package's rule)."""
+    if n is None:
+        n = dist.get_world_size() if dist.is_initialized() else 1
+    per = n // len(axes) if len(axes) > 1 else n
+    shape = tuple([per] * len(axes)) if len(axes) > 1 else (n,)
+    return _device_mesh(shape, tuple(axes), device)
+
+
 def _rank_main(rank: int, world_size: int, backend: str, device_type: str,
                tmp: str, fn, args) -> None:
     """One spawned rank: join the group, run ``fn(*args)``, keep its
@@ -196,21 +264,29 @@ def spawn(fn, world_size: int, device="cuda", args=()) -> list:
     return out
 
 
+def join_group(device="cuda") -> None:
+    """Join torchrun's process group (``WORLD_SIZE`` set, rendezvous
+    through ``env://``) if this process is a rank of one and has not
+    joined yet; nothing otherwise."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return
+    device_type = resolve_device(device).type
+    world = int(os.environ["WORLD_SIZE"])
+    backend = collective_backend(device_type, world,
+                                 auto_extent(device_type))
+    if device_type == "cuda":
+        torch.cuda.set_device(rank_device("cuda", int(os.environ.get(
+            "LOCAL_RANK", os.environ.get("RANK", 0)))))
+    dist.init_process_group(backend, init_method="env://")
+
+
 def run_ranks(fn, world_size: int, device="cuda", args=()):
     """Run ``fn(*args)`` on every rank of a ``world_size`` group: in this
     process when it is a rank of such a group already (torchrun's
     ``WORLD_SIZE`` makes one through ``env://``) or when one rank will
     do, else on ranks started by `spawn`. Returns this process's result
     (rank 0's when spawned)."""
-    device_type = resolve_device(device).type
-    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
-        world = int(os.environ["WORLD_SIZE"])
-        backend = collective_backend(device_type, world,
-                                     auto_extent(device_type))
-        if device_type == "cuda":
-            torch.cuda.set_device(rank_device("cuda", int(os.environ.get(
-                "LOCAL_RANK", os.environ.get("RANK", 0)))))
-        dist.init_process_group(backend, init_method="env://")
+    join_group(device)
     if _in_group():
         if dist.get_world_size() != world_size:
             raise ValueError(

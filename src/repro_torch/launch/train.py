@@ -19,9 +19,18 @@ JAX package's keys) is written after every step that is a multiple of
 A resume continues from the restored state's own step, the one after the
 checkpointed step, so a run resumed from ``--ckpt-dir`` equals the
 uninterrupted run. (The JAX launcher restarts at the checkpoint's label,
-the step it already took, and takes that step twice.) ``--production-mesh``
-exits with status 2: the production mesh comes with the port's sharding
-and launch (ROADMAP Queue 1 item 13.5).
+the step it already took, and takes that step twice.)
+
+``--production-mesh`` trains on the 16x16 (data, model) mesh, one rank a
+card, under torchrun with 256 ranks (``torchrun --nproc-per-node 8
+--nnodes 32 ... -m repro_torch.launch.train --production-mesh``):
+`launch.mesh.rules_for` its rules, each rank's shards of the same
+parameters (`sharding.params.init_sharded_params`), the sharded step
+(`runtime.train.make_train_step(rules=...)`), and the same loop, log
+lines (the writer's) and checkpoints (gathered by `checkpoint.save_tree`,
+restored by cutting). On a group of any other size it exits with status
+2 and one line naming the 256 ranks it needs. The global batch must
+divide over the 16 data ranks.
 """
 from __future__ import annotations
 
@@ -35,9 +44,11 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.data import SyntheticLMData
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models import transformer
 from repro_torch.optim import get_optimizer, warmup_cosine_schedule
 from repro_torch.runtime import checkpoint, train
+from repro_torch.sharding import params as sharding_params
 
 
 def model_config(arch: str, reduced: bool = False,
@@ -67,6 +78,18 @@ def build(cfg, *, steps: int, device, seed: int = 0):
             train.make_train_step(cfg, optimizer=opt))
 
 
+def build_sharded(cfg, rules, *, steps: int, device, seed: int = 0):
+    """`build` on a rank of ``rules.mesh``: this rank's shards of the
+    parameters `build` draws from ``seed``, the optimizer's state for
+    them, the sharded train step."""
+    from repro_torch.sharding.params import init_sharded_params
+
+    params = init_sharded_params(seed, cfg, rules, rules.mesh, device=device)
+    opt = optimizer_for(cfg, steps)
+    return (train.init_sharded_train_state(params, opt, cfg, rules),
+            train.make_train_step(cfg, rules=rules, optimizer=opt))
+
+
 def device_batch(data: SyntheticLMData, step: int, cfg, batch: int,
                  device) -> dict:
     """Step ``step``'s tokens on ``device``, with the vlm's zero prefix."""
@@ -81,16 +104,20 @@ def device_batch(data: SyntheticLMData, step: int, cfg, batch: int,
 
 def train_loop(state, step_fn, data, cfg, *, start: int, steps: int,
                batch: int, device, ckpt_dir: str | None = None,
-               ckpt_every: int = 50, log=print, on_step=None):
+               ckpt_every: int = 50, log=print, on_step=None, specs=None,
+               mesh=None):
     """Steps ``start`` .. ``steps`` - 1; returns (state, the last step's
-    metrics or None). ``on_step(step, metrics)`` runs after each step."""
+    metrics or None). ``on_step(step, metrics)`` runs after each step.
+    A sharded state (a rank's blocks) comes with its spec tree ``specs``
+    and ``mesh``, which the checkpoints gather it by."""
     t0 = time.time()
     metrics = None
     for step in range(start, steps):
         state, metrics = step_fn(
             state, device_batch(data, step, cfg, batch, device))
         if ckpt_dir and step % ckpt_every == 0:
-            checkpoint.save_tree(ckpt_dir, step, state)
+            checkpoint.save_tree(ckpt_dir, step, state, specs=specs,
+                                 mesh=mesh)
         if on_step is not None:
             on_step(step, metrics)
         if step % 5 == 0:
@@ -98,7 +125,8 @@ def train_loop(state, step_fn, data, cfg, *, start: int, steps: int,
                 f"({(time.time() - t0) / max(step - start + 1, 1):.2f} "
                 f"s/step)")
     if ckpt_dir:
-        checkpoint.save_tree(ckpt_dir, steps - 1, state)
+        checkpoint.save_tree(ckpt_dir, steps - 1, state, specs=specs,
+                             mesh=mesh)
     return state, metrics
 
 
@@ -113,8 +141,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="16x16 mesh (needs 256 devices; not in the port "
-                         "yet)")
+                    help="16x16 (data, model) mesh: 256 ranks under "
+                         "torchrun, one a card")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the kernels' "
                          "plain versions)")
@@ -123,31 +151,46 @@ def main(argv=None) -> int:
                          "of the published config; every width as "
                          "published)")
     args = ap.parse_args(argv)
+    specs = mesh = None
     if args.production_mesh:
-        print("--production-mesh: the production mesh and its sharding "
-              "rules are not in the port yet (ROADMAP Queue 1 item 13.5)",
-              file=sys.stderr)
-        return 2
+        launch_mesh.join_group(args.device)
+        try:
+            mesh = launch_mesh.make_production_mesh(device=args.device)
+        except ValueError as e:
+            print(f"--production-mesh: {e} (start 256 ranks, one a card, "
+                  f"with torchrun)", file=sys.stderr)
+            return 2
     dev = resolve_device(args.device)
     cfg = model_config(args.arch, args.reduced, args.layers)
-    state, step_fn = build(cfg, steps=args.steps, device=dev)
+    if mesh is not None:
+        rules = launch_mesh.rules_for(mesh)
+        dev = launch_mesh.rank_device(dev)
+        state, step_fn = build_sharded(cfg, rules, steps=args.steps,
+                                       device=dev)
+        specs = sharding_params.train_state_specs(
+            cfg, rules, sharding_params.mesh_axes(mesh), cfg.optimizer)
+    else:
+        state, step_fn = build(cfg, steps=args.steps, device=dev)
+    say = print if launch_mesh.is_writer() else (lambda *a, **k: None)
 
     start = 0
     if args.ckpt_dir and (last := checkpoint.latest_step(args.ckpt_dir)) \
             is not None:
-        state, _ = checkpoint.restore_tree(args.ckpt_dir, last, state)
+        state, _ = checkpoint.restore_tree(args.ckpt_dir, last, state,
+                                           specs=specs, mesh=mesh)
         start = int(state.step)
-        print(f"resumed from checkpoint step {last}")
+        say(f"resumed from checkpoint step {last}")
 
     n_text = args.seq - cfg.prefix_len
     data = SyntheticLMData(cfg.vocab_size, n_text, args.batch, seed=0)
     state, metrics = train_loop(
         state, step_fn, data, cfg, start=start, steps=args.steps,
         batch=args.batch, device=dev, ckpt_dir=args.ckpt_dir,
-        ckpt_every=args.ckpt_every, log=lambda m: print(m, flush=True))
+        ckpt_every=args.ckpt_every, log=lambda m: say(m, flush=True),
+        specs=specs, mesh=mesh)
     final = "" if metrics is None else \
         f", final loss {float(metrics['loss']):.4f}"
-    print(f"done: {max(args.steps - start, 0)} steps{final}")
+    say(f"done: {max(args.steps - start, 0)} steps{final}")
     return 0
 
 

@@ -14,6 +14,11 @@ import torch.nn.functional as F
 
 def normal_init(gen: torch.Generator, shape, std: float,
                 dtype: torch.dtype) -> torch.Tensor:
+    """``std`` times float32 normal draws from ``gen``, cast to ``dtype``;
+    on a generator of the meta device (`transformer.param_shapes`) an
+    empty meta tensor, drawing nothing."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device) * std).to(dtype)
 

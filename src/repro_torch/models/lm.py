@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import comm
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 
@@ -41,12 +42,43 @@ def _ce_chunk(hc, table, tc, mc):
     return torch.sum((logz - ll) * mc)
 
 
-def chunked_ce_loss(params, cfg, hidden, targets, mask):
+def _ce_chunk_sharded(hc, table, tc, mc, lay):
+    """`_ce_chunk` with the table's rows (the vocabulary) sharded over
+    ``model``: the log-sum-exp's max and sum reduced over ``model``, the
+    target's logit taken on the rank that holds its row."""
+    group, rows = lay.model_group, table.shape[0]
+    logits = (hc @ table.T).to(torch.float32)          # (B, cs, V/tp)
+    top = comm.all_reduce_max(logits.detach().amax(-1), group)
+    se = comm.reduce_from_group(torch.exp(logits - top[..., None]).sum(-1),
+                                group)
+    logz = torch.log(se) + top
+    local = tc.to(torch.int64) - lay.model_rank * rows
+    hit = (local >= 0) & (local < rows)
+    ll = logits.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+    ll = comm.reduce_from_group(torch.where(hit, ll, 0.0), group)
+    return torch.sum((logz - ll) * mc)
+
+
+def chunked_ce_loss(params, cfg, hidden, targets, mask, rules=None):
     """hidden (B, S, D); targets/mask (B, S). Returns (mean_loss, n_tokens),
     both float32 0-dim: the masked token losses summed chunk by chunk in
-    sequence order, over max(n_tokens, 1)."""
+    sequence order, over max(n_tokens, 1).
+
+    With ``rules`` (a rank of a mesh: ``hidden`` its batch rows, whole
+    along the sequence, the table its rows of the vocabulary) the logits
+    are vocab-parallel (`_ce_chunk_sharded`), n_tokens is the count summed
+    over the batch axes, and mean_loss is this rank's share: its rows'
+    losses over that count, which the shares of the batch axes' ranks sum
+    to the mean (not a mean of per-rank means: ranks may count unequally)."""
     s = hidden.shape[1]
-    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    table = params[key]
+    lay = None
+    if rules is not None:
+        from repro_torch.sharding.spmd import layout
+
+        lay = layout(cfg, rules)
+        table = lay.weight(table, lay.specs[key])
     cs = min(cfg.loss_chunk, s)
     while s % cs != 0:
         cs //= 2
@@ -55,32 +87,38 @@ def chunked_ce_loss(params, cfg, hidden, targets, mask):
     loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     remat = torch.is_grad_enabled()
+    fn = _ce_chunk if lay is None else \
+        (lambda *a: _ce_chunk_sharded(*a, lay))
     for c0 in range(0, s, cs):
         args = (hidden[:, c0:c0 + cs], table, targets[:, c0:c0 + cs],
                 maskf[:, c0:c0 + cs])
-        part = (checkpoint(_ce_chunk, *args, use_reentrant=False) if remat
-                else _ce_chunk(*args))
+        part = (checkpoint(fn, *args, use_reentrant=False) if remat
+                else fn(*args))
         loss_sum = loss_sum + part
         cnt = cnt + args[3].sum()
+    if lay is not None:
+        for group in lay.batch_groups:
+            cnt = comm.all_reduce_sum(cnt, group)
     return loss_sum / torch.clamp(cnt, min=1.0), cnt
 
 
-def lm_loss(params, cfg, batch: dict, aux_weight: float = 0.01):
+def lm_loss(params, cfg, batch: dict, rules=None, aux_weight: float = 0.01):
     """Causal LM loss. batch: tokens (B, S) [+ prefix_embed (B, P, D)].
     Returns (loss, {"ce_loss", "aux_loss", "tokens"}): loss the CE over the
     text positions (hidden[i] predicts tokens[i + 1]) plus aux_weight times
-    the MoE load-balance loss over the layer count."""
+    the MoE load-balance loss over the layer count. With ``rules`` the
+    batch is this rank's rows and the CE its share (`chunked_ce_loss`)."""
     tokens = batch["tokens"]
     prefix = batch.get("prefix_embed")
     hidden, aux = transformer.forward_train(params, cfg, tokens,
-                                            prefix_embed=prefix)
+                                            prefix_embed=prefix, rules=rules)
     if prefix is not None:
         hidden = hidden[:, prefix.shape[1]:, :]   # text positions only
     targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
                         dim=1)
     mask = torch.cat([torch.ones_like(tokens[:, 1:]),
                       torch.zeros_like(tokens[:, :1])], dim=1)
-    loss, cnt = chunked_ce_loss(params, cfg, hidden, targets, mask)
+    loss, cnt = chunked_ce_loss(params, cfg, hidden, targets, mask, rules)
     return loss + aux_weight * aux / max(cfg.n_layers, 1), {
         "ce_loss": loss, "aux_loss": aux, "tokens": cnt}
 

@@ -1,11 +1,14 @@
 """Dense LM MLP blocks: SwiGLU / GeGLU / GELU / squared-ReLU.
 
-Counterpart of `repro.models.lm_mlp` on one device (no sharding).
+Counterpart of `repro.models.lm_mlp`: `mlp_block` on one device,
+`mlp_block_sharded` on a rank of a mesh (`sharding.spmd`): ``wi`` and
+``wg`` column-parallel, ``wo`` row-parallel over ``model``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import comm
 from repro_torch.models.common import activation, is_glu, normal_init
 
 
@@ -29,3 +32,14 @@ def mlp_block(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     else:
         h = act(h)
     return h @ params["wo"]
+
+
+def mlp_block_sharded(params: dict, cfg, z: torch.Tensor, lay,
+                      specs: dict) -> torch.Tensor:
+    """``z`` (B, S/tp, D) this rank's sequence block; gathered along the
+    sequence into the rank's d_ff columns, and the row-parallel product's
+    partial sums reduce-scattered back: (B, S/tp, D)."""
+    zf = comm.gather_along(z, lay.model_group, 1)
+    w = {k: lay.weight(params[k], specs[k]) for k in params}
+    y = mlp_block(w, cfg, zf)
+    return comm.reduce_scatter_along(y, lay.model_group, 1)

@@ -8,8 +8,9 @@ JAX package runs without a mesh). The names are the JAX package's:
 the expert id, `_expert_ffn` runs the three batched products, and
 `_combine` (inline in the JAX package's `_moe_local`) adds the weighted
 expert outputs back per token. The
-expert-parallel paths (`_moe_ep`, `quantized_all_to_all`) are not ported,
-so `moe_block` takes no sharding rules and the config's `moe_a2a_int8`,
+expert-parallel paths (`_moe_ep`, `quantized_all_to_all`) are not ported
+(only `_dispatch_size` and `_ep_mode`, which `sharding.params` needs to
+lay the expert weights out), so `moe_block` takes no sharding rules and the config's `moe_a2a_int8`,
 which acts only there, is ignored, as the JAX package's local path ignores
 it.
 
@@ -44,6 +45,8 @@ def _fill_normal(gen: torch.Generator, shape, std: float,
     51.5 GB) would not fit beside the model; one slice of it is 0.8 GB."""
     *outer, rows, cols = shape
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if out.is_meta:
+        return out
     for idx in itertools.product(*(range(n) for n in outer)):
         out[idx].copy_(torch.randn((rows, cols), generator=gen,
                                    dtype=torch.float32, device=gen.device)
@@ -172,6 +175,27 @@ def _moe_local(params: dict, cfg, x: torch.Tensor):
                           params["wo"])
     y = _combine(out_buf, gates, eids, keep, slot)
     return y.reshape(b, s, d), aux
+
+
+def _dispatch_size(rules) -> int:
+    """Ranks of the expert all-to-all: the product of ``rules.expert``'s
+    axis sizes on ``rules.mesh``."""
+    from repro_torch.sharding.rules import mesh_axes
+
+    if not rules.expert:
+        return 1
+    sizes = mesh_axes(rules.mesh)
+    return math.prod(int(sizes[a]) for a in rules.expert)
+
+
+def _ep_mode(cfg, rules) -> str:
+    """"alltoall" when the experts divide over the dispatch ranks, else
+    "gathered" (each rank holds every expert, its d_ff over
+    ``rules.ff_wide``)."""
+    dp = _dispatch_size(rules)
+    if cfg.n_experts >= dp and cfg.n_experts % dp == 0 and dp > 1:
+        return "alltoall"
+    return "gathered"
 
 
 def moe_block(params: dict, cfg, x: torch.Tensor):

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import comm
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, lm_mlp, moe, ssm
 from repro_torch.models.common import apply_norm, init_norm, normal_init
@@ -52,42 +53,70 @@ def torch_dtype(cfg) -> torch.dtype:
 # init
 # ---------------------------------------------------------------------------
 
+class _MetaGenerator:
+    """Stands in for a `torch.Generator` on the meta device, which torch
+    does not make: the init functions draw nothing from it."""
+    device = torch.device("meta")
+
+
 def init_params(seed: int, cfg, dtype: torch.dtype | None = None,
-                device="cuda") -> dict:
+                device="cuda", take=None) -> dict:
     """Random parameters from a `torch.Generator` seeded with ``seed`` on
     ``device`` (float32 draws, then cast to ``dtype``, default the
-    config's; the MoE router stays float32)."""
+    config's; the MoE router stays float32).
+
+    ``take(path, subtree)``, when given, is applied to each subtree as
+    soon as it is drawn (the embedding, the final norm, each stacked
+    block's norms, attention and MLP, the head) and its result is kept:
+    the sharded init (`sharding.params.init_sharded_params`) keeps a
+    rank's slices, so every rank draws the same numbers and holds at most
+    one full subtree at a time. On the meta device the leaves are empty
+    meta tensors (`param_shapes`)."""
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = _MetaGenerator() if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
+    keep = take or (lambda path, tree: tree)
     vp, d, lead = cfg.padded_vocab, cfg.d_model, (cfg.n_layers,)
     params = {
-        "embed": normal_init(gen, (vp, d), 0.02, dtype),
-        "final_norm": init_norm(cfg, dtype, dev),
+        "embed": keep(("embed",), normal_init(gen, (vp, d), 0.02, dtype)),
+        "final_norm": keep(("final_norm",), init_norm(cfg, dtype, dev)),
     }
     if layer_kind(cfg) == "ssm":
-        params["layers"] = {"ln1": init_norm(cfg, dtype, dev, lead),
-                            "ssm": ssm.init_ssm(gen, cfg, dtype, lead)}
+        params["layers"] = {
+            "ln1": keep(("layers", "ln1"), init_norm(cfg, dtype, dev, lead)),
+            "ssm": keep(("layers", "ssm"),
+                        ssm.init_ssm(gen, cfg, dtype, lead))}
     else:
         params["layers"] = _init_attn_mlp(
-            gen, cfg, dtype, dev, lead,
+            gen, cfg, dtype, dev, lead, keep, ("layers",),
             use_moe=layer_kind(cfg) == "attn_moe")
     if cfg.family == "hybrid" and cfg.n_shared_blocks:
         params["shared"] = _init_attn_mlp(gen, cfg, dtype, dev,
-                                          (cfg.n_shared_blocks,))
+                                          (cfg.n_shared_blocks,), keep,
+                                          ("shared",))
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal_init(gen, (vp, d), d ** -0.5, dtype)
+        params["lm_head"] = keep(("lm_head",),
+                                 normal_init(gen, (vp, d), d ** -0.5, dtype))
     return params
 
 
-def _init_attn_mlp(gen, cfg, dtype, dev, lead, use_moe: bool = False) -> dict:
-    return {
-        "ln1": init_norm(cfg, dtype, dev, lead),
-        "attn": attention.init_attention(gen, cfg, dtype, lead),
-        "ln2": init_norm(cfg, dtype, dev, lead),
-        "ffn": moe.init_moe(gen, cfg, dtype, lead) if use_moe
-        else lm_mlp.init_mlp(gen, cfg, dtype, lead),
-    }
+def param_shapes(cfg, dtype: torch.dtype | None = None) -> dict:
+    """The tree `init_params` makes for ``cfg``, as meta tensors of the
+    same shapes and dtypes (no memory, no draws)."""
+    return init_params(0, cfg, dtype, device="meta")
+
+
+def _init_attn_mlp(gen, cfg, dtype, dev, lead, keep, path,
+                   use_moe: bool = False) -> dict:
+    out = {"ln1": keep(path + ("ln1",), init_norm(cfg, dtype, dev, lead))}
+    out["attn"] = keep(path + ("attn",),
+                       attention.init_attention(gen, cfg, dtype, lead))
+    out["ln2"] = keep(path + ("ln2",), init_norm(cfg, dtype, dev, lead))
+    out["ffn"] = keep(path + ("ffn",),
+                      moe.init_moe(gen, cfg, dtype, lead) if use_moe
+                      else lm_mlp.init_mlp(gen, cfg, dtype, lead))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -219,13 +248,24 @@ def _unbind_layers(tree, n: int) -> list:
     return list(torch.unbind(tree))
 
 
-def forward_train(params, cfg, tokens, *, prefix_embed=None):
+def forward_train(params, cfg, tokens, *, prefix_embed=None, rules=None):
     """The training forward: (hidden (B, S, D) after the final norm, aux),
     aux the MoE layers' load-balance losses summed in float32 (0.0 for the
     other layer kinds), as the JAX package's `forward` returns them for a
     training step; no caches. Each layer (the hybrid: each super-block and
     each tail layer) is rematerialised in the backward when `cfg.remat`
-    and autograd is recording."""
+    and autograd is recording.
+
+    With ``rules`` (`sharding.rules.MeshRules` bound to the mesh of the
+    ranks), ``params`` are this rank's blocks and ``tokens`` its batch
+    rows: the `attn_mlp` kind on a (data, model) mesh
+    (`_forward_train_sharded`); the hidden comes back whole along the
+    sequence, as the vocab-parallel loss takes it."""
+    if rules is not None:
+        from repro_torch.sharding.spmd import layout
+
+        return _forward_train_sharded(params, layout(cfg, rules),
+                                      tokens, prefix_embed)
     x = _embed(params, cfg, tokens, prefix_embed)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -280,6 +320,62 @@ def forward_train(params, cfg, tokens, *, prefix_embed=None):
             x = run(ssm_layers, x, p)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return x, aux_total
+
+
+def _embed_sharded(params, lay, tokens, prefix_embed):
+    """This rank's sequence block (B, S/tp, D) of the embedded input: the
+    vocab-parallel lookup (the rank's rows of the table, zeros for a token
+    it does not hold), the vlm prefix added on model rank 0 alone, the
+    partial sums reduce-scattered over ``model`` along the sequence. A
+    token's row comes from its one owner plus zeros, so the sum is the
+    row, bit for bit."""
+    cfg = lay.cfg
+    table = lay.weight(params["embed"], lay.specs["embed"])
+    rows = table.shape[0]
+    local = tokens - lay.model_rank * rows
+    hit = (local >= 0) & (local < rows)
+    x = F.embedding(local.clamp(0, rows - 1), table)
+    x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if prefix_embed is not None:
+        pre = prefix_embed.to(x.dtype)
+        x = torch.cat([pre if lay.model_rank == 0 else torch.zeros_like(pre),
+                       x], dim=1)
+    lay.check_seq(x.shape[1])
+    return comm.reduce_scatter_along(x, lay.model_group, 1)
+
+
+def _forward_train_sharded(params, lay, tokens, prefix_embed):
+    """`forward_train` on a rank of a mesh (`sharding.spmd`): the residual
+    stream sequence-sharded over ``model`` between the blocks, each block
+    `attention.attention_block_sharded` and `lm_mlp.mlp_block_sharded`
+    after norms on the rank's sequence block, the final norm too, then
+    the hidden gathered along the sequence."""
+    cfg = lay.cfg
+    x = _embed_sharded(params, lay, tokens, prefix_embed)
+    specs = lay.layer_specs()
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def norm(p, h, spec):
+        return apply_norm({k: lay.weight(p[k], spec[k]) for k in p}, h,
+                          cfg.norm)
+
+    def block(h, p):
+        z = norm(p["ln1"], h, specs["ln1"])
+        h = h + attention.attention_block_sharded(p["attn"], cfg, z, lay,
+                                                  specs["attn"])
+        z = norm(p["ln2"], h, specs["ln2"])
+        return h + lm_mlp.mlp_block_sharded(p["ffn"], cfg, z, lay,
+                                            specs["ffn"])
+
+    for p in _unbind_layers(params["layers"], cfg.n_layers):
+        x = checkpoint(block, x, p, use_reentrant=False) if remat \
+            else block(x, p)
+    x = norm(params["final_norm"], x, lay.specs["final_norm"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return comm.gather_along(x, lay.model_group, 1), aux
 
 
 def forward(params, cfg, tokens, *, prefix_embed=None, caches=None,

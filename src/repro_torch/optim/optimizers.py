@@ -28,6 +28,7 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import pytree
 
@@ -46,16 +47,40 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == F32 else t.to(F32)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def _global_sums(sums: list, specs: list, mesh) -> list:
+    """Each leaf's sum of squares over the whole leaf, from this rank's
+    block's ``sums``: summed over every axis its spec shards it on, and
+    counted once over the others (rank 0 of the axis alone adds it)."""
+    from repro_torch.core import comm
+    from repro_torch.sharding.params import spec_axes
+
+    vec = torch.stack(sums)
+    used = [spec_axes(s) for s in specs]
+    for axis in sorted(set().union(*used)):
+        own = torch.tensor([axis in u for u in used], device=vec.device)
+        first = mesh.get_local_rank(axis) == 0
+        vec = comm.all_reduce_sum(
+            torch.where(own | first, vec, torch.zeros_like(vec)),
+            mesh.get_group(axis))
+    return list(vec.unbind())
+
+
+def clip_by_global_norm(grads, max_norm: float, specs=None, mesh=None):
     """Scale every leaf of ``grads`` in place by min(1, max_norm / max(gnorm,
     1e-9)); returns (grads, gnorm). gnorm is the square root of the
     per-leaf float32 sums of squares added in the JAX package's leaf order;
     a bfloat16 leaf is scaled in float32 and rounded back, as JAX's
-    `(g.astype(f32) * scale).astype(g.dtype)`."""
+    `(g.astype(f32) * scale).astype(g.dtype)`. With ``specs`` (a spec tree
+    like ``grads``) and ``mesh``, ``grads`` are a rank's blocks: each
+    leaf's sum is taken over the whole leaf (`_global_sums`) before the
+    leaves are added in that order, so every rank gets the same gnorm."""
     leaves = pytree.leaves(grads)
+    sums = [torch.sum(torch.square(_f32(g))) for g in leaves]
+    if specs is not None:
+        sums = _global_sums(sums, [pytree.get(specs, p) for p, _ in
+                                   pytree.leaves_with_paths(grads)], mesh)
     total = None
-    for g in leaves:
-        s = torch.sum(torch.square(_f32(g)))
+    for s in sums:
         total = s if total is None else total + s
     gnorm = torch.sqrt(total)
     limit = torch.full_like(gnorm, max_norm)
@@ -164,22 +189,28 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
         return pytree.tree_map(state_for, params)
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, groups=None):
+        """``groups``: for a rank's blocks, a tree like ``params`` giving
+        for each dim the process groups of the axes it is sharded on; the
+        row and column means and the RMS of the update then sum over
+        them (`_mean`)."""
         stepf = step.to(F32) + 1.0
         beta = 1.0 - torch.pow(stepf, -decay)
         lr_t = lr_fn(step)
         for path, p in pytree.leaves_with_paths(params):
             s = pytree.get(state, path)
+            dims = () if groups is None else pytree.get(groups, path)
             gf = _f32(_take(grads, path))
             # g2 = gf * gf + eps
             g2 = gf * gf
             g2.add_(eps)
             if p.dim() >= 2:
                 # vr = beta * vr + (1 - beta) * mean(g2, -1); vc over -2
-                s["vr"].mul_(beta).add_((1 - beta) * g2.mean(-1))
-                s["vc"].mul_(beta).add_((1 - beta) * g2.mean(-2))
+                s["vr"].mul_(beta).add_((1 - beta) * _mean(g2, -1, dims))
+                s["vc"].mul_(beta).add_((1 - beta) * _mean(g2, -2, dims))
                 vr = s["vr"][..., None]
-                row = vr / torch.clamp(vr.mean(-2, keepdim=True), min=eps)
+                row = vr / torch.clamp(_mean(vr, -2, dims, keepdim=True),
+                                       min=eps)
                 # upd = gf * rsqrt(max(row * vc, eps))
                 torch.mul(row, s["vc"][..., None, :], out=g2)
             else:
@@ -189,7 +220,7 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
             gf.mul_(g2)
             # update clipping: upd / max(1, sqrt(mean(upd^2) + 1e-30) / clip)
             torch.mul(gf, gf, out=g2)
-            rms = torch.sqrt(g2.mean() + 1e-30)
+            rms = torch.sqrt(_mean(g2, None, dims) + 1e-30)
             gf.div_(torch.clamp(rms / clip_threshold, min=1.0))
             if weight_decay:
                 g2.copy_(p)
@@ -200,6 +231,26 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
         return params, state
 
     return Optimizer(init, update, "adafactor")
+
+
+def _mean(x: torch.Tensor, dim, dims: tuple,
+          keepdim: bool = False) -> torch.Tensor:
+    """``x.mean(dim)`` (every dim when None) of a whole tensor whose block
+    ``x`` is: ``dims[d]`` the process groups dim d is sharded over (empty
+    on one device, where this is ``x.mean``). A sharded mean is the local
+    sum, summed over the groups, over the whole size."""
+    from repro_torch.core import comm
+
+    over = range(x.dim()) if dim is None else [dim % x.dim()]
+    grps = [g for d in over if d < len(dims) for g in dims[d]]
+    if not grps:
+        return x.mean() if dim is None else x.mean(dim, keepdim=keepdim)
+    total = x.sum() if dim is None else x.sum(dim, keepdim=keepdim)
+    n = x.numel() if dim is None else x.shape[dim]
+    for g in grps:
+        total = comm.all_reduce_sum(total, g)
+        n *= dist.get_world_size(g)
+    return total / n
 
 
 def get_optimizer(cfg, schedule=None) -> Optimizer:

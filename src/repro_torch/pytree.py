@@ -57,9 +57,12 @@ def path_str(path: tuple) -> str:
 
 
 def get(tree, path: tuple):
-    """The subtree at ``path`` of dicts and lists."""
+    """The subtree at ``path`` of dicts, sequences and dataclasses."""
     for key in path:
-        tree = tree[key]
+        if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+            tree = getattr(tree, dataclasses.fields(tree)[key].name)
+        else:
+            tree = tree[key]
     return tree
 
 

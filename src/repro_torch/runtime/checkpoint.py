@@ -15,7 +15,11 @@ state, step) keyed by the JAX package's path strings ("0/embed",
 "1/m/layers/attn/wq", "2"), so a checkpoint the JAX package wrote for the
 same config restores into the port. A bfloat16 leaf is stored as the JAX
 package stores one: its raw 2-byte words as a numpy ``V2`` array, the
-manifest's dtype "bfloat16".
+manifest's dtype "bfloat16". A sharded state (a rank's blocks, with its
+spec tree and mesh) is saved gathered, a leaf at a time, by one writer,
+so it equals the unsharded state's checkpoint, and restores onto any
+mesh, or none, by cutting each saved leaf (`restore_tree(..., specs=,
+mesh=)`).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import re
 import shutil
 import tempfile
 import warnings
+import zipfile
 
 import numpy as np
 import torch
@@ -44,9 +49,9 @@ def save(ckpt_dir: str, step: int, leaves, keep: int = 3,
     ``step``; ``meta`` is JSON-serialisable producer metadata kept in the
     manifest (the search records its family, pop size and RNG there, so a
     resume with another layout fails with a clear error)."""
-    arrays = {str(i): _as_numpy(leaf) for i, leaf in enumerate(leaves)}
-    return _write(ckpt_dir, step, arrays,
-                  {k: str(v.dtype) for k, v in arrays.items()}, keep, meta)
+    items = ((str(i), arr, str(arr.dtype))
+             for i, arr in enumerate(map(_as_numpy, leaves)))
+    return _write(ckpt_dir, step, items, keep, meta)
 
 
 def _tree_leaf(leaf) -> tuple[np.ndarray, str]:
@@ -63,21 +68,48 @@ def _tree_leaf(leaf) -> tuple[np.ndarray, str]:
 
 
 def save_tree(ckpt_dir: str, step: int, tree, keep: int = 3,
-              meta: dict | None = None) -> str:
+              meta: dict | None = None, specs=None, mesh=None) -> str:
     """Write every leaf of ``tree`` (dicts, sequences, dataclasses of
     tensors) as checkpoint ``step``, keyed by the JAX package's path
-    strings."""
-    arrays, dtypes = {}, {}
-    for path, leaf in pytree.leaves_with_paths(tree):
-        key = pytree.path_str(path)
-        arrays[key], dtypes[key] = _tree_leaf(leaf)
-    return _write(ckpt_dir, step, arrays, dtypes, keep, meta)
+    strings.
+
+    With ``specs`` (a spec tree like ``tree``, `sharding.params`) and
+    ``mesh``, ``tree`` is a rank's blocks of a sharded state and every
+    rank of the mesh must call this: each leaf is gathered whole, one leaf
+    at a time, the writer (`launch.mesh.is_writer`) writes it and drops
+    it, and the ranks meet at a barrier once the save is published. The
+    checkpoint equals the unsharded state's, key for key and bit for
+    bit."""
+    from repro_torch.launch.mesh import barrier, is_writer
+
+    writer = specs is None or is_writer()
+
+    def items():
+        for path, leaf in pytree.leaves_with_paths(tree):
+            if specs is not None:
+                from repro_torch.sharding.params import gather
+                leaf = gather(leaf, pytree.get(specs, path), mesh)
+            if writer:
+                yield (pytree.path_str(path), *_tree_leaf(leaf))
+
+    if not writer:
+        for _ in items():
+            pass
+        barrier()
+        return os.path.join(ckpt_dir, f"ckpt_{step:08d}")
+    out = _write(ckpt_dir, step, items(), keep, meta)
+    if specs is not None:
+        barrier()
+    return out
 
 
-def restore_tree(ckpt_dir: str, step: int, like):
+def restore_tree(ckpt_dir: str, step: int, like, specs=None, mesh=None):
     """(like, step): every leaf of ``like`` overwritten in place with the
     checkpoint's array of its path, cast to the leaf's dtype (a bfloat16
-    array read from its raw words); the shapes must match."""
+    array read from its raw words); the shapes must match. With ``specs``
+    and ``mesh``, ``like`` is a rank's blocks and each leaf gets its block
+    of the saved array (`sharding.params.shard`): the elastic restore, onto
+    any mesh the layout divides over."""
     path = os.path.join(ckpt_dir, f"ckpt_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -92,6 +124,9 @@ def restore_tree(ckpt_dir: str, step: int, like):
                     torch.bfloat16)
             else:
                 t = torch.from_numpy(np.array(arr))
+            if specs is not None:
+                from repro_torch.sharding.params import shard
+                t = shard(t, pytree.get(specs, p), mesh)
             if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"checkpoint {path} leaf {key!r} has shape "
                                  f"{tuple(t.shape)}, expected "
@@ -101,20 +136,30 @@ def restore_tree(ckpt_dir: str, step: int, like):
     return like, manifest["step"]
 
 
-def _write(ckpt_dir: str, step: int, arrays: dict, dtypes: dict, keep: int,
+def _write(ckpt_dir: str, step: int, items, keep: int,
            meta: dict | None) -> str:
+    """Publish checkpoint ``step`` from ``items``, (key, array, manifest
+    dtype) triples written into ``arrays.npz`` one at a time (numpy's
+    own layout: one ``.npy`` member a key), then the manifest."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    manifest = {
-        "step": int(step),
-        "keys": sorted(arrays.keys()),
-        "shapes": {k: list(v.shape) for k, v in arrays.items()},
-        "dtypes": dtypes,
-        "shards": "full",
-        "meta": meta or {},
-    }
+    shapes, dtypes = {}, {}
     final = os.path.join(ckpt_dir, f"ckpt_{step:08d}")
     with tempfile.TemporaryDirectory(dir=ckpt_dir) as tmp:
-        np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+        with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), "w",
+                             allowZip64=True) as zf:
+            for key, arr, dtype in items:
+                with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, np.asanyarray(arr),
+                                              allow_pickle=False)
+                shapes[key], dtypes[key] = list(arr.shape), dtype
+        manifest = {
+            "step": int(step),
+            "keys": sorted(shapes),
+            "shapes": shapes,
+            "dtypes": dtypes,
+            "shards": "full",
+            "meta": meta or {},
+        }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         os.makedirs(final + ".tmp", exist_ok=True)

@@ -135,9 +135,15 @@ def test_three_steps_match_jax(jx, arch, accum, acc_dtype, m_rel, s_rel,
 
 
 def test_make_train_step_refuses_rules():
-    cfg = reduced_config(get_config("llama3.2-3b"))
-    with pytest.raises(NotImplementedError, match="13.5"):
-        train.make_train_step(cfg, rules=object())
+    """The sharded step runs the attn_mlp kind; SSM, hybrid and MoE
+    configs are refused, naming the ROADMAP item of their sharded forward
+    (the attn_mlp step itself: tests/test_torch_lm_mesh.py)."""
+    from repro_torch.sharding.rules import MeshRules
+
+    for arch in ("mamba2-1.3b", "zamba2-7b", "grok-1-314b"):
+        cfg = reduced_config(get_config(arch))
+        with pytest.raises(NotImplementedError, match=r"13\.5b"):
+            train.make_train_step(cfg, rules=MeshRules(tp=2))
 
 
 def test_jax_checkpoint_restores_into_the_port(jx, tmp_path):
@@ -219,9 +225,12 @@ def test_cli_resume_equals_uninterrupted(tmp_path, capsys):
 
 
 def test_cli_production_mesh_names_the_roadmap_item(capsys):
+    """On one process (no torchrun group of 256 ranks) the production mesh
+    exits 2 with one line naming the ranks it needs."""
     assert launch_train.main(["--production-mesh"]) == 2
     err = capsys.readouterr().err
-    assert len(err.strip().splitlines()) == 1 and "13.5" in err
+    assert len(err.strip().splitlines()) == 1
+    assert "needs 256 ranks" in err and "has 1" in err
 
 
 def test_cli_defaults_to_cuda():
@@ -261,3 +270,12 @@ class TestTrainOnCuda:
         counts = kernels.launch_counts()
         assert counts["flash_attention"] == 4 * n_layers
         assert counts["flash_attention_backward"] == 2 * n_layers
+
+    def test_sharded_reduced_steps_match_cpu(self, cuda_device):
+        """`chip_smoke.reduced_mesh_check` ([lm-mesh] (b)): 4 ranks of a
+        (data=2, model=2) mesh on the card(s), the reduced float32 configs
+        in both head modes: every gradient of the sharded step within
+        1e-4 of its leaf's scale, a step's loss and grad norm within 1e-5
+        of the CPU's single-device step."""
+        got = cs.reduced_mesh_check(str(cuda_device))
+        assert [g["mode"] for g in got] == ["sharded", "replicated"]
