@@ -218,7 +218,15 @@ Phases, each of which stops the script with a non-zero exit on failure:
    CPU's single-device step; (c) (a)'s state saved sharded and restored
    onto one card and onto (data=1, model=2), equal to the gathered state
    bit for bit; (d) `compressed_psum` over a 2-rank pod axis equal to the
-   CPU's arithmetic.
+   CPU's arithmetic. On the same ranks, (a) again for mamba2-1.3b at full
+   width, 2 layers, 2 steps (the sharded Mamba2 block), and (b) for the
+   other layer kinds: reduced float32 mamba2-1.3b and zamba2-7b (7 layers,
+   its head dim 112) against the CPU's single-device step (the SSMs'
+   gradients within 2^-7 of their scale, their bf16 SSD block's rounding),
+   and the MoE in both expert-parallel modes (kimi's int8 all-to-all,
+   grok's gathered d_ff) against the same sharded step on CPU tensors;
+   each rank's attention launches counted (the hybrid's feed the kernel
+   line's hd-112 backward row).
 18. The kernel list, the card's name and power limit, one JSON line of
    per-kernel results (each row names what it times in `what`; the rows
    `fitness_errors[bucket]` and `domination_block[bucket]` are the batched
@@ -289,8 +297,9 @@ TPU_KERNELS = {  # kernel -> (port source, the TPU kernel it replaces,
                         "src/repro/kernels/flash_attn.py:70",
                         "bf16 LM prefill, q (4, 4096, 24, 128), k and v "
                         "(4, 4096, 8, 128), the model's layout; launches "
-                        "include [lm-mesh]'s ranks, each on its local 12 "
-                        "query and 4 kv heads"),
+                        "include [lm-mesh]'s ranks: (a) each on its local "
+                        "12 query and 4 kv heads, (b) the reduced float32 "
+                        "steps of every layer kind with attention"),
     "flash_attention_backward": (
         "src/repro_torch/csrc/flash_attn_bwd.cu",
         "none: no TPU kernel (the Pallas flash_attention has no gradient; "
@@ -298,7 +307,9 @@ TPU_KERNELS = {  # kernel -> (port source, the TPU kernel it replaces,
         "src/repro/models/attention.py:53)",
         "bf16 llama3.2-3b training, q, o, dout (2, 4096, 24, 128), k and v "
         "(2, 4096, 8, 128), the model's layout; launches include "
-        "[lm-mesh]'s ranks, each on its local 12 query and 4 kv heads"),
+        "[lm-mesh]'s ranks: (a) each on its local 12 query and 4 kv heads, "
+        "(b) the reduced float32 steps of every layer kind with "
+        "attention"),
 }
 LM_ARCH = "llama3.2-3b"            # full width; the repo's train_4k length
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 4096, 32
@@ -3761,6 +3772,9 @@ def phase_mesh(problem, tree_path: dict, sweep_path: dict, root: str,
 
 LM_MESH_RANKS = 4     # [lm-mesh]: a (data=2, model=2) mesh
 LM_MESH_PLAN = dict(arch=LM_ARCH, layers=2, batch=4, seq=1024, steps=3)
+# (a) again for the ssm kind, on the same ranks: no trace, no checkpoint
+LM_MESH_SSM_PLAN = dict(arch="mamba2-1.3b", layers=2, batch=4, seq=1024,
+                        steps=2, trace=False)
 # [lm-mesh] (a)'s limits: each reading of the sharded bf16 run against the
 # single-card bf16 step within LM_MESH_SAFETY times the spread the
 # single-card path itself shows when the same sums run in float32 (the
@@ -3774,10 +3788,37 @@ LM_MESH_PLAN = dict(arch=LM_ARCH, layers=2, batch=4, seq=1024, steps=3)
 # (as GSPMD's do), which one card never does (on an H100: that spread 0
 # to 9.4e-5, the sharded run's differences 7e-5 to 9.8e-4).
 LM_MESH_SAFETY = 4
-# (b): the reduced float32 configs of reduced_step_check, in both head
-# modes at tp 2 (4 heads over 2 kv heads: "sharded"; 3 heads: "replicated")
-LM_MESH_REDUCED = (dict(head_dim=64), dict(head_dim=64, n_heads=3,
-                                           n_kv_heads=1))
+# (b): reduced float32 configs, (name, arch, overrides, reference, S), head
+# dims the kernels take: reduced_step_check's llama3.2-3b in both head
+# modes at tp 2 (4 heads over 2 kv heads: "sharded"; 3 heads:
+# "replicated"), mamba2-1.3b, zamba2-7b at 7 layers (2 super-blocks and a
+# tail layer) at its own head dim 112, and the MoE in both expert-parallel
+# modes (kimi: 4 experts over the 2 data ranks, the int8 dispatch,
+# grad_accum 2 summed in float32; grok: 3 experts, "gathered", the
+# softcap). "one": held to the CPU's single-device step; "mesh": to the
+# same sharded step on CPU tensors (an MoE rank routes its own tokens at
+# its own capacity, so one device is not its reference). B=4 x the last
+# entry: the SSMs at tests/test_torch_train.py's 64 positions, where its
+# 2^-8 limit was measured
+LM_MESH_REDUCED = (
+    ("sharded heads", LM_ARCH, dict(head_dim=64), "one", 128),
+    ("replicated heads", LM_ARCH, dict(head_dim=64, n_heads=3,
+                                       n_kv_heads=1), "one", 128),
+    ("ssm", "mamba2-1.3b", {}, "one", 64),
+    ("hybrid", "zamba2-7b", dict(n_layers=7, head_dim=112), "one", 64),
+    ("moe alltoall", "kimi-k2-1t-a32b", dict(
+        head_dim=64, moe_a2a_int8=True, grad_accum=2,
+        grad_accum_dtype="float32"), "mesh", 128),
+    ("moe gathered", "grok-1-314b", dict(head_dim=64, n_experts=3), "mesh",
+     128),
+)
+# the SSD rounds its weight block and its cotangent to bf16 in every
+# dtype, so an SSM's gradients on two devices agree to a bf16 rounding of
+# their scale, not float32's: 2^-8 port against JAX on the CPU
+# (tests/test_torch_train.py), the hybrid's sharded step on an H100
+# against the CPU's single device 4.15e-3 (its 7 layers); the grad norm
+# over them to 1e-4
+LM_MESH_SSD_GRAD_REL, LM_MESH_SSD_NORM_RTOL = 2.0 ** -7, 1e-4
 LM_MESH_PSUM = ((64, 33), (1000,))   # (d): the leaves of the pod mean
 # the collectives' device work: NCCL's kernels, and the copies that stage
 # gloo's through the host (the step uploads its batch before it starts)
@@ -3831,31 +3872,38 @@ def lm_mesh_reference(cfg, data, plan: dict, dev) -> dict:
     return runs
 
 
+def _reduced_cfg(arch: str, over: dict):
+    from repro_torch.configs import get_config, reduced_config
+
+    return reduced_config(get_config(arch), **over)
+
+
 def _reduced_cpu_refs() -> list:
     """[lm-mesh] (b)'s CPU side: for each reduced float32 config, the
-    single-device step on the CPU from `launch.train.build`'s state (seed
-    0): its parameters as numpy, the batch, the gradients and one step's
-    loss and grad norm."""
+    parameters of `launch.train.build`'s state (seed 0) as numpy and the
+    batch; for the "one" cases also the single-device step on the CPU: its
+    gradients and one step's loss and grad norm."""
     from repro_torch import pytree
-    from repro_torch.configs import get_config, reduced_config
     from repro_torch.data import SyntheticLMData
     from repro_torch.launch import train as launch_train
     from repro_torch.runtime import train
 
     refs = []
-    for over in LM_MESH_REDUCED:
-        cfg = reduced_config(get_config(LM_ARCH), **over)
-        data = SyntheticLMData(cfg.vocab_size, 128, 4, seed=0)
+    for name, arch, over, against, seq in LM_MESH_REDUCED:
+        cfg = _reduced_cfg(arch, over)
+        data = SyntheticLMData(cfg.vocab_size, seq, 4, seed=0)
         state, step_fn = launch_train.build(cfg, steps=20, device="cpu")
         params = pytree.tree_map(lambda t: t.numpy().copy(), state.params)
         batch = launch_train.device_batch(data, 0, cfg, 4, "cpu")
-        grads = train.loss_and_grads(cfg, state.params, batch)[2]
-        _, m = step_fn(state, batch)
-        refs.append(dict(over=over, params=params,
-                         tokens=batch["tokens"].numpy(),
-                         grads=pytree.tree_map(lambda t: t.numpy(), grads),
-                         loss=float(m["loss"]),
-                         grad_norm=float(m["grad_norm"])))
+        ref = dict(name=name, arch=arch, over=over, against=against,
+                   params=params, tokens=batch["tokens"].numpy())
+        if against == "one":
+            grads = train.loss_and_grads(cfg, state.params, batch)[2]
+            _, m = step_fn(state, batch)
+            ref.update(grads=pytree.tree_map(lambda t: t.numpy(), grads),
+                       loss=float(m["loss"]),
+                       grad_norm=float(m["grad_norm"]))
+        refs.append(ref)
     return refs
 
 
@@ -3880,13 +3928,13 @@ def _psum_plain() -> list:
     return out
 
 
-def lm_mesh_rank(plan: dict | None, extras: dict) -> dict:
-    """One rank of `[lm-mesh]` (a (data=2, model=2) mesh): (a) with
-    ``plan`` (`_lm_mesh_a`), and with ``extras``: (c) (a)'s state through a
-    sharded checkpoint (``ckpt_dir``), (b) the reduced float32 configs
-    (``reduced``, `_lm_mesh_b`), (d) the int8 mean over a 2-rank pod axis
-    (``psum``). Returns readings to the parent (counters are per
-    process)."""
+def lm_mesh_rank(plans: tuple, extras: dict) -> dict:
+    """One rank of `[lm-mesh]` (a (data=2, model=2) mesh): (a) with each
+    of ``plans`` (`_lm_mesh_a`, its readings in ``out["a"]``), and with
+    ``extras``: (c) the first plan's state through a sharded checkpoint
+    (``ckpt_dir``), (b) the reduced float32 configs (``reduced``,
+    `_lm_mesh_b`), (d) the int8 mean over a 2-rank pod axis (``psum``).
+    Returns readings to the parent (counters are per process)."""
     t_enter = time.time()
     import torch.distributed as dist
 
@@ -3894,14 +3942,18 @@ def lm_mesh_rank(plan: dict | None, extras: dict) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = launch_mesh.rank_device((plan or extras).get("device", "cuda"))
+    dev = launch_mesh.rank_device(
+        (plans[0] if plans else extras).get("device", "cuda"))
     out = {"t_enter": t_enter, "device": str(dev), "rank": dist.get_rank(),
            "backend": dist.get_backend(),
-           "marks": {"enter": time.perf_counter()}}
+           "marks": {"enter": time.perf_counter()}, "a": []}
     mesh = launch_mesh.make_host_mesh(LM_MESH_RANKS, ("data", "model"),
                                       device=dev)
-    if plan:
-        _lm_mesh_a(plan, mesh, dev, out, extras.get("ckpt_dir"))
+    for i, plan in enumerate(plans):
+        sub = {"rank": out["rank"], "marks": out["marks"]}
+        _lm_mesh_a(plan, mesh, dev, sub,
+                   extras.get("ckpt_dir") if i == 0 else None)
+        out["a"].append(sub)
     if "reduced" in extras:
         out["b"] = _lm_mesh_b(extras["reduced"], mesh, dev)
         out["marks"]["(b)"] = time.perf_counter()
@@ -3920,14 +3972,25 @@ def lm_mesh_rank(plan: dict | None, extras: dict) -> dict:
     return out
 
 
+class _Marks:
+    """A rank's time marks, each name prefixed with a plan's arch."""
+
+    def __init__(self, marks: dict, prefix: str):
+        self.marks, self.prefix = marks, prefix
+
+    def __setitem__(self, name: str, t: float) -> None:
+        self.marks[f"{self.prefix} {name}"] = t
+
+
 def _lm_mesh_a(plan: dict, mesh, dev, out: dict, ckpt_dir) -> None:
     """(a) on this rank: ``plan``'s model trained ``plan["steps"]`` steps
     through `launch.train.train_loop` with the sharded step, counted, every
     parameter gathered after each step and, on rank 0, held to the
     single-card step (rank 0 runs it first, `lm_mesh_reference`); one more
-    step traced on rank 0; then, with ``ckpt_dir``, (c): the state saved
-    sharded and restored onto one card (rank 0) and onto (data=1,
-    model=2), each against the gathered state. Fills ``out``."""
+    step traced on rank 0 (unless ``plan["trace"]`` is False); then, with
+    ``ckpt_dir``, (c): the state saved sharded and restored onto one card
+    (rank 0) and onto (data=1, model=2), each against the gathered state.
+    Fills ``out``; its marks are named by the plan's arch."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch import kernels, pytree
@@ -3940,7 +4003,8 @@ def _lm_mesh_a(plan: dict, mesh, dev, out: dict, ckpt_dir) -> None:
     from repro_torch.sharding import params as sp
     from repro_torch.sharding.rules import MeshRules
 
-    marks_t, rank = out["marks"], out["rank"]
+    rank, arch = out["rank"], plan["arch"]
+    marks_t = _Marks(out["marks"], arch)
     cfg = launch_train.model_config(plan["arch"], plan.get("reduced", False),
                                     plan["layers"])
     data = SyntheticLMData(cfg.vocab_size, plan["seq"], plan["batch"],
@@ -4009,22 +4073,25 @@ def _lm_mesh_a(plan: dict, mesh, dev, out: dict, ckpt_dir) -> None:
         del ref
     _on(dev, torch.cuda.empty_cache)
 
-    # one more step, traced on rank 0
-    batch = launch_train.device_batch(data, plan["steps"], cfg,
-                                      plan["batch"], dev)
-    holder = [state]
+    if plan.get("trace", True):     # one more step, traced on rank 0
+        batch = launch_train.device_batch(data, plan["steps"], cfg,
+                                          plan["batch"], dev)
+        holder = [state]
 
-    def one_step():
-        holder[0], _ = step_fn(holder[0], batch)
+        def one_step():
+            holder[0], _ = step_fn(holder[0], batch)
 
-    if rank == 0 and dev.type == "cuda":
-        out["split"] = _profile_split(one_step, comm=True)
-    else:
-        one_step()
-        _on(dev, torch.cuda.synchronize)
-    state = holder[0]
-    marks_t["traced step"] = time.perf_counter()
+        if rank == 0 and dev.type == "cuda":
+            out["split"] = _profile_split(one_step, comm=True)
+        else:
+            one_step()
+            _on(dev, torch.cuda.synchronize)
+        state = holder[0]
+        del holder, batch
+        marks_t["traced step"] = time.perf_counter()
     if not ckpt_dir:
+        del state, step_fn, params
+        _on(dev, torch.cuda.empty_cache)
         return
 
     # (c) the state saved sharded, restored onto one card and onto (1, 2)
@@ -4032,7 +4099,7 @@ def _lm_mesh_a(plan: dict, mesh, dev, out: dict, ckpt_dir) -> None:
                          mesh=mesh)
     marks_t["(c) save"] = time.perf_counter()
     gathered = sp.gather_tree(state, specs, mesh)
-    del state, step_fn, holder, batch
+    del state, step_fn
     _on(dev, torch.cuda.empty_cache)
     # (data=1, model=2) on ranks 0 and 1 (every rank makes the mesh)
     mesh12 = DeviceMesh(dev.type, torch.tensor([[0, 1]]),
@@ -4067,57 +4134,98 @@ def _lm_mesh_b(refs: list, mesh, dev) -> list:
     """(b) on this rank: each reduced float32 config's gradients (the
     sharded step's, gathered) and one sharded step's loss and grad norm,
     from the CPU's parameters (`_reduced_cpu_refs`) cut to this rank's
-    blocks; the per-leaf error against the CPU's gradient over its
-    scale."""
-    from repro_torch import pytree
-    from repro_torch.configs import get_config, reduced_config
+    blocks; the per-leaf error against the reference's gradient over its
+    scale. A "mesh" case computes its reference first, the same sharded
+    step on this rank's CPU tensors. The attention's launches of each case
+    on this rank (the card's kernels; none on the CPU)."""
+    from repro_torch import kernels, pytree
     from repro_torch.launch import train as launch_train
     from repro_torch.runtime import train
     from repro_torch.sharding import params as sp
     from repro_torch.sharding.rules import MeshRules, head_sharding
 
-    got = []
-    for ref in refs:
-        c = reduced_config(get_config(LM_ARCH), **ref["over"])
-        r = MeshRules(tp=2, mesh=mesh)
-        p_local = pytree.tree_map(lambda t: t.to(dev), sp.shard_tree(
-            pytree.tree_map(torch.as_tensor, ref["params"]),
+    def sharded_step(c, r, params, tokens, on):
+        p_local = pytree.tree_map(lambda t: t.to(on), sp.shard_tree(
+            pytree.tree_map(torch.as_tensor, params),
             sp.param_specs(c, r, sp.mesh_axes(mesh)), mesh))
-        batch = {"tokens": torch.as_tensor(ref["tokens"], device=dev)}
+        batch = {"tokens": torch.as_tensor(tokens, device=on)}
         _, _, g = train.make_sharded_grads(c, r, c.optimizer)(p_local,
                                                               batch)
         g = sp.gather_tree(g, train.grad_specs(c, r, c.optimizer), mesh)
-        rel = {}
-        for p, t in pytree.leaves_with_paths(g):
-            want = np.asarray(pytree.get(ref["grads"], p))
-            rel[pytree.path_str(p)] = float(
-                np.abs(t.cpu().numpy() - want).max()) / max(
-                    float(np.abs(want).max()), 1e-30)
+        g = pytree.tree_map(lambda t: t.cpu().numpy(), g)
         opt = launch_train.optimizer_for(c, 20)
         st = train.init_sharded_train_state(p_local, opt, c, r)
         _, m = train.make_train_step(c, rules=r, optimizer=opt)(st, batch)
-        got.append(dict(mode=head_sharding(c, r)[0], rel=rel,
-                        loss=float(m["loss"]),
-                        grad_norm=float(m["grad_norm"])))
+        return g, float(m["loss"]), float(m["grad_norm"])
+
+    got = []
+    for ref in refs:
+        c = _reduced_cfg(ref["arch"], ref["over"])
+        r = MeshRules(tp=2, mesh=mesh)
+        want = ref
+        if ref["against"] == "mesh":
+            g, loss, gn = sharded_step(c, r, ref["params"], ref["tokens"],
+                                       "cpu")
+            want = dict(grads=g, loss=loss, grad_norm=gn)
+        kernels.reset_launch_counts()
+        g, loss, gn = sharded_step(c, r, ref["params"], ref["tokens"], dev)
+        launches = kernels.launch_counts()
+        rel = {}
+        for p, t in pytree.leaves_with_paths(g):
+            w = np.asarray(pytree.get(want["grads"], p))
+            rel[pytree.path_str(p)] = float(np.abs(t - w).max()) / max(
+                float(np.abs(w).max()), 1e-30)
+        got.append(dict(name=ref["name"], mode=head_sharding(c, r)[0],
+                        rel=rel, loss=loss, grad_norm=gn,
+                        want_loss=want["loss"],
+                        want_grad_norm=want["grad_norm"],
+                        launches={k: launches[k] for k in (
+                            "flash_attention", FLASH_BWD)}))
     return got
 
 
-def check_lm_mesh_b(tag: str, refs: list, got: list) -> None:
+def check_lm_mesh_b(tag: str, refs: list, ranks: list,
+                    on_card: bool = True) -> None:
     """(b)'s checks: every gradient within TRAIN_GRAD_REL of its leaf's
-    scale, the step's loss and grad norm within TRAIN_RTOL of the CPU's."""
-    for ref, g in zip(refs, got):
-        rel = max(g["rel"].values())
+    scale (an SSM's: LM_MESH_SSD_GRAD_REL), the step's loss and grad norm
+    within TRAIN_RTOL (an SSM's grad norm: LM_MESH_SSD_NORM_RTOL) of the
+    reference's; on the card, the attention's launches on each rank: the
+    gradients and the step, each twice the forward (remat) and once the
+    backward an attention layer."""
+    from repro_torch.models.transformer import hybrid_layout, layer_kind
+
+    for i, (ref, g) in enumerate(zip(refs, ranks[0])):
+        cfg = _reduced_cfg(ref["arch"], ref["over"])
+        ssd = layer_kind(cfg) == "ssm"
+        limit = LM_MESH_SSD_GRAD_REL if ssd else TRAIN_GRAD_REL
+        worst = max(g["rel"], key=g["rel"].get)
+        rel = g["rel"][worst]
         for key in ("loss", "grad_norm"):
-            check(abs(g[key] - ref[key]) <= TRAIN_RTOL * abs(ref[key]),
-                  f"{tag} (b) {g['mode']}: {key} {g[key]} sharded on the "
-                  f"card, {ref[key]} on the CPU")
-        check(rel <= TRAIN_GRAD_REL, f"{tag} (b) {g['mode']}: a gradient "
-              f"differs from the CPU's by {rel:.3g} of its scale")
-        log(f"{tag} (b) reduced float32 {LM_ARCH} {ref['over']} "
-            f"({g['mode']} heads at tp 2): loss {g['loss']:.7f} / CPU "
-            f"{ref['loss']:.7f}, grad norm {g['grad_norm']:.7f} / "
-            f"{ref['grad_norm']:.7f} (rtol {TRAIN_RTOL}); every gradient "
-            f"within {rel:.3g} of its leaf's scale (limit {TRAIN_GRAD_REL})")
+            rtol = LM_MESH_SSD_NORM_RTOL if ssd and key == "grad_norm" \
+                else TRAIN_RTOL
+            want = g["want_" + key]
+            check(abs(g[key] - want) <= rtol * abs(want),
+                  f"{tag} (b) {g['name']}: {key} {g[key]} sharded on the "
+                  f"card, {want} on the CPU ({ref['against']})")
+        check(rel <= limit, f"{tag} (b) {g['name']}: the gradient of "
+              f"{worst} differs from the CPU's by {rel:.3g} of its scale "
+              f"(limit {limit:.3g})")
+        n_attn = (0 if cfg.family == "ssm" else hybrid_layout(cfg)[0]
+                  if cfg.family == "hybrid" else cfg.n_layers)
+        n_attn *= max(cfg.grad_accum, 1)
+        want_l = {"flash_attention": 4 * n_attn, FLASH_BWD: 2 * n_attn}
+        for r, rank in enumerate(ranks):
+            check(not on_card or rank[i]["launches"] == want_l,
+                  f"{tag} (b) {g['name']}: attention launches "
+                  f"{rank[i]['launches']} on rank {r}, not {want_l}")
+        log(f"{tag} (b) reduced float32 {ref['arch']} {ref['over']} "
+            f"({g['name']}, {g['mode']} heads at tp 2): loss "
+            f"{g['loss']:.7f} / CPU {g['want_loss']:.7f}, grad norm "
+            f"{g['grad_norm']:.7f} / {g['want_grad_norm']:.7f} (the CPU's "
+            f"{'sharded step' if ref['against'] == 'mesh' else 'one device'}"
+            f"); every gradient within {rel:.3g} of its leaf's scale "
+            f"({worst}; limit {limit:.3g}); attention launches on each rank "
+            f"{g['launches']}")
 
 
 def reduced_mesh_check(device: str = "cuda") -> list:
@@ -4128,8 +4236,9 @@ def reduced_mesh_check(device: str = "cuda") -> list:
 
     refs = _reduced_cpu_refs()
     outs = launch_mesh.spawn(lm_mesh_rank, LM_MESH_RANKS, device,
-                             (None, dict(reduced=refs, device=device)))
-    check_lm_mesh_b("[lm-mesh]", refs, outs[0]["b"])
+                             ((), dict(reduced=refs, device=device)))
+    check_lm_mesh_b("[lm-mesh]", refs, [o["b"] for o in outs],
+                    torch.device(device).type == "cuda")
     return outs[0]["b"]
 
 
@@ -4138,9 +4247,8 @@ def _check_lm_mesh_a(tag: str, outs: list, plan: dict) -> dict:
     run's losses, grad norms and every gathered parameter after each step
     against the single-card step (rank 0's), within LM_MESH_SAFETY times
     the single-card spread; the launches and their head counts."""
-    from repro_torch.configs import get_config
-
     from repro_torch.launch.train import model_config
+    from repro_torch.models.transformer import hybrid_layout
 
     o = outs[0]
     cfg = model_config(plan["arch"], plan.get("reduced", False),
@@ -4177,8 +4285,10 @@ def _check_lm_mesh_a(tag: str, outs: list, plan: dict) -> dict:
             f"float32 spread, at least one bf16 ulp of its largest value; "
             f"e.g. embed "
             f"{o['errs'][i]['embed']:.3g} / {o['limits'][i]['embed']:.3g})")
-    per = cfg.n_layers * plan["steps"]
-    h_l, kv_l = cfg.n_heads // 2, cfg.n_kv_heads // 2
+    n_attn = (0 if cfg.family == "ssm" else hybrid_layout(cfg)[0]
+              if cfg.family == "hybrid" else cfg.n_layers)
+    per = n_attn * plan["steps"] * max(cfg.grad_accum, 1)
+    heads = [(cfg.n_heads // 2, cfg.n_kv_heads // 2)] if n_attn else []
     on_card = plan.get("device", "cuda") == "cuda"   # else plain versions
     for r in outs:
         c = r["counts"]
@@ -4186,10 +4296,10 @@ def _check_lm_mesh_a(tag: str, outs: list, plan: dict) -> dict:
                               and c[FLASH_BWD] == per),
               f"{tag} rank {r['rank']}: {c['flash_attention']} forward and "
               f"{c[FLASH_BWD]} backward attention launches, not {2 * per} "
-              f"and {per} (twice and once a layer a step)")
-        check(r["heads"] == [(h_l, kv_l)], f"{tag} rank {r['rank']}: the "
+              f"and {per} (twice and once an attention layer a microbatch)")
+        check(r["heads"] == heads, f"{tag} rank {r['rank']}: the "
               f"attention ran on {r['heads']} (query, kv) heads, not the "
-              f"rank's ({h_l}, {kv_l})")
+              f"rank's {heads}")
     return worst
 
 
@@ -4224,32 +4334,39 @@ def _log_lm_mesh_timing(tag: str, outs: list, plan: dict) -> None:
           f"{1 - busy / host:.3f} < 0)")
 
 
-def phase_lm_mesh(root: str, plan: dict = LM_MESH_PLAN,
+def phase_lm_mesh(root: str, plans: tuple = (LM_MESH_PLAN, LM_MESH_SSM_PLAN),
                   extras: bool = True) -> dict:
     """`[lm-mesh]`: sharded LM training on a (data=2, model=2) mesh of
     LM_MESH_RANKS ranks spawned on the cards (gloo where they share one,
-    NCCL with a card a rank): (a) llama3.2-3b at full width, 2 layers,
-    B=4 x 1024, AdamW on the launcher's schedule, 3 steps through
-    `launch.train.train_loop`, held to the single-card step from the same
-    seed (`_check_lm_mesh_a`), counted: each rank's attention launches
-    (twice and once a layer a step) on its local heads, 12 of 24 query and
-    4 of 8 kv; (b) the reduced float32 configs (`LM_MESH_REDUCED`, both
-    head modes) on the ranks: every gradient within TRAIN_GRAD_REL of its
-    leaf's scale and a step's loss and grad norm within TRAIN_RTOL of the
-    CPU's single-device step; (c) (a)'s state saved sharded and restored
-    onto one card and onto (data=1, model=2): equal to the gathered state
-    bit for bit; (d) `compress.compressed_psum` over a 2-rank pod axis ==
-    the CPU's arithmetic. Step time, tokens/s, peak memory and collectives
-    a rank, and one traced step's device time split."""
+    NCCL with a card a rank), one spawn for every part: (a) for each of
+    ``plans``: llama3.2-3b at full width, 2 layers, B=4 x 1024, AdamW on
+    the launcher's schedule, 3 steps through `launch.train.train_loop`,
+    then mamba2-1.3b the same way (2 layers, 2 steps), each held to the
+    single-card step from the same seed (`_check_lm_mesh_a`), counted:
+    each rank's attention launches (twice and once an attention layer a
+    microbatch) on its local heads (llama: 12 of 24 query and 4 of 8 kv;
+    mamba2: none); (b) the reduced float32 configs (`LM_MESH_REDUCED`:
+    both head modes, the ssm kind, the hybrid, the MoE in both
+    expert-parallel modes) on the ranks: every gradient within
+    TRAIN_GRAD_REL of its leaf's scale (an SSM's: LM_MESH_SSD_GRAD_REL) and
+    a step's loss and grad norm within TRAIN_RTOL of the CPU's step (one
+    device's, or for the MoE the same sharded step on CPU tensors), each
+    rank's attention launches counted; (c) the first plan's state saved
+    sharded and restored onto one card and onto (data=1, model=2): equal
+    to the gathered state bit for bit; (d) `compress.compressed_psum`
+    over a 2-rank pod axis == the CPU's arithmetic. Step time, tokens/s,
+    peak memory and collectives a rank, and one traced step's device time
+    split. Returns the launch counts of (a) and (b) summed over the ranks
+    and plans, and (b)'s hybrid's attention launches over the ranks."""
     from repro_torch.launch import mesh as launch_mesh
 
     tag = "[lm-mesh]"
     extras = dict(ckpt_dir=str(pathlib.Path(root) / "ckpt"),
                   reduced=_reduced_cpu_refs(), psum=True) if extras else {}
-    device = plan.get("device", "cuda")
+    device = plans[0].get("device", "cuda")
     t0 = time.time()
     outs = launch_mesh.spawn(lm_mesh_rank, LM_MESH_RANKS, device,
-                             (plan, extras))
+                             (tuple(plans), extras))
     devices = sorted({o["device"] for o in outs})
     how = ("a card a rank" if len(devices) == LM_MESH_RANKS else
            "sharing a card: this checks the code and its arithmetic, not "
@@ -4262,28 +4379,41 @@ def phase_lm_mesh(root: str, plan: dict = LM_MESH_PLAN,
     log(f"{tag} rank 0's time by part: " + ", ".join(
         f"{b} {outs[0]['marks'][b] - outs[0]['marks'][a]:.1f} s"
         for a, b in zip(names, names[1:])))
-    o = outs[0]
-    if "step_s" in o:
-        log(f"{tag} (a) steps {[round(x * 1e3, 1) for x in o['step_s']]} ms, "
-            f"losses {o['losses']} sharded / {[r[0] for r in o['ref']]} one "
-            f"card")
-    log(f"{tag} (a) {plan['arch']} {plan['layers'] or 'all'} layers, "
-        f"B={plan['batch']} x {plan['seq']}, AdamW, {plan['steps']} steps "
-        f"on a (data=2, model=2) mesh through train_loop")
-    worst = _check_lm_mesh_a(tag, outs, plan)
-    log(f"{tag} (a) == the single-card step: worst error / limit: loss "
-        f"{worst['loss']:.3f}, grad norm {worst['grad_norm']:.3f}, "
-        f"parameters {worst['params']:.3f}; launches a rank "
-        f"{outs[0]['counts']} on (query, kv) heads {outs[0]['heads']}")
-    _log_lm_mesh_timing(tag, outs, plan)
-    counts = {k: sum(o["counts"][k] for o in outs) for k in outs[0]["counts"]}
+    counts = {}
+    for i, plan in enumerate(plans):
+        subs = [o["a"][i] for o in outs]
+        o = subs[0]
+        log(f"{tag} (a) {plan['arch']} steps "
+            f"{[round(x * 1e3, 1) for x in o['step_s']]} ms, losses "
+            f"{o['losses']} sharded / {[r[0] for r in o['ref']]} one card")
+        log(f"{tag} (a) {plan['arch']} {plan['layers'] or 'all'} layers, "
+            f"B={plan['batch']} x {plan['seq']}, {plan['steps']} steps on a "
+            f"(data=2, model=2) mesh through train_loop")
+        worst = _check_lm_mesh_a(tag, subs, plan)
+        log(f"{tag} (a) {plan['arch']} == the single-card step: worst "
+            f"error / limit: loss {worst['loss']:.3f}, grad norm "
+            f"{worst['grad_norm']:.3f}, parameters {worst['params']:.3f}; "
+            f"launches a rank {o['counts']} on (query, kv) heads "
+            f"{o['heads']}")
+        _log_lm_mesh_timing(f"{tag} (a) {plan['arch']}", subs, plan)
+        for r in subs:
+            for k, n in r["counts"].items():
+                counts[k] = counts.get(k, 0) + n
     if not extras:
         return dict(counts=counts, outs=outs)
 
-    check_lm_mesh_b(tag, extras["reduced"], outs[0]["b"])
-    check(outs[0]["c_1x2"] and outs[1]["c_1x2"] and outs[0]["c_one"],
+    on_card = torch.device(device).type == "cuda"
+    check_lm_mesh_b(tag, extras["reduced"], [o["b"] for o in outs], on_card)
+    hybrid = [i for i, r in enumerate(extras["reduced"])
+              if r["name"] == "hybrid"][0]
+    for o in outs:
+        for b in o["b"]:
+            for k, n in b["launches"].items():
+                counts[k] = counts.get(k, 0) + n
+    first = [o["a"][0] for o in outs]
+    check(first[0]["c_1x2"] and first[1]["c_1x2"] and first[0]["c_one"],
           f"{tag} (c) a restored checkpoint differs from the gathered state")
-    log(f"{tag} (c) (a)'s state saved sharded ({outs[0]['c_leaves']} "
+    log(f"{tag} (c) (a)'s state saved sharded ({first[0]['c_leaves']} "
         f"leaves), restored onto one card and onto (data=1, model=2): "
         f"== the gathered state, bit for bit")
     want = _psum_plain()
@@ -4292,7 +4422,9 @@ def phase_lm_mesh(root: str, plan: dict = LM_MESH_PLAN,
           f"CPU's arithmetic")
     log(f"{tag} (d) compressed_psum over a 2-rank pod axis, leaves "
         f"{LM_MESH_PSUM}: == the CPU's int8 mean on every rank")
-    return dict(counts=counts, outs=outs)
+    return dict(counts=counts, outs=outs, hybrid_launches={
+        k: sum(o["b"][hybrid]["launches"][k] for o in outs)
+        for k in ("flash_attention", FLASH_BWD)})
 
 
 MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
@@ -4407,10 +4539,14 @@ def main() -> None:
         "8, 128), the model's layout, tanh softcap 30; no library call (SDPA "
         "has no softcap); launches: the [moe] grok-1-314b generate's")
     results[FLASH_BWD_112] = bwd_rows[FLASH_BWD_112]
+    results[FLASH_BWD_112]["launches"] = \
+        lm_mesh_path["hybrid_launches"][FLASH_BWD]
     results[FLASH_BWD_112]["what"] = (
         "bf16 zamba2-7b shapes, q, o, dout, k and v (2, 4096, 32, 112), the "
-        "model's layout, no GQA grouping; launches 0: no zamba2 model is "
-        "trained on the card ([train] trains llama3.2-3b and grok-1-314b)")
+        "model's layout, no GQA grouping; launches: [lm-mesh] (b)'s sharded "
+        "reduced float32 zamba2-7b at head dim 112 over its 4 ranks (the "
+        "float32 kernels; tools/lm_mesh_check.py (g) counts the bf16 ones "
+        "at full width)")
     results[FLASH_BWD_SOFTCAP] = bwd_rows[FLASH_BWD_SOFTCAP]
     results[FLASH_BWD_SOFTCAP]["launches"] = \
         train_path["by_arch"][GROK_TRAIN[0]][FLASH_BWD]

@@ -4,8 +4,12 @@ differentiable pairs.
 Each helper takes the `torch.distributed` group of one mesh axis
 (``mesh.get_group(axis)``) and is the counterpart of a JAX collective
 over that axis name: `all_gather_cat` is ``all_gather(x, axis,
-tiled=True)``, `all_reduce_sum` ``psum``, `all_reduce_max` ``pmax`` and
-`reduce_scatter_cat` ``psum_scatter(..., tiled=True)``. On a group whose
+tiled=True)``, `all_reduce_sum` ``psum``, `all_reduce_max` ``pmax``,
+`reduce_scatter_cat` ``psum_scatter(..., tiled=True)`` and
+`all_to_all_cat` ``all_to_all(x, axis, split_axis=0, concat_axis=0)``.
+Where the JAX package names several axes at once (the expert axes
+``("pod", "data")``), the group spans their product, the first axis the
+major one (`sharding.spmd.Layout.group`). On a group whose
 transport is gloo (ranks sharing a card, `launch.mesh.collective_backend`)
 a CUDA tensor goes through a host copy for the collective; NCCL takes it
 on the card as it is. The arithmetic around the collective stays on the
@@ -23,7 +27,11 @@ operators for tensor and sequence parallelism:
   backward (the sequence-parallel residual stream into a tensor-parallel
   product; also the ZeRO-3 gather of a parameter over ``data``);
 - `reduce_scatter_along`: `reduce_scatter` forward, `all_gather` backward
-  (a row-parallel product's partial sums back onto sequence shards).
+  (a row-parallel product's partial sums back onto sequence shards);
+- `all_to_all_along`: `all_to_all` both ways (the expert-parallel
+  dispatch: the exchange is its own transpose);
+- `quantized_all_to_all`: the JAX package's int8 dispatch: int8 codes and
+  one float32 scale a slot forward, the full-width cotangent backward.
 
 `COLLECTIVES` counts the collectives this process issued by kind and
 `COLLECTIVE_BYTES` the bytes each kind handed to the transport (the
@@ -42,7 +50,7 @@ _gather_single = (getattr(dist, "all_gather_single", None)
 _scatter_single = (getattr(dist, "reduce_scatter_single", None)
                    or dist.reduce_scatter_tensor)
 
-KINDS = ("all_gather", "all_reduce", "reduce_scatter")
+KINDS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all")
 COLLECTIVES = dict.fromkeys(KINDS, 0)
 COLLECTIVE_BYTES = dict.fromkeys(KINDS, 0)
 
@@ -132,6 +140,62 @@ def reduce_scatter_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return out.to(x.device).movedim(0, dim)
 
 
+def all_to_all_cat(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` split into the group's size blocks along dim 0, block j sent
+    to group rank j, and the blocks received concatenated along dim 0 in
+    group-rank order (JAX's ``all_to_all(x, axis, split_axis=0,
+    concat_axis=0, tiled=True)``); ``x.shape[0]`` must divide by the
+    group's size."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all: dim 0 of size {x.shape[0]} does not "
+                         f"divide over {n} ranks")
+    src = _wire(group, x)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    _count("all_to_all", x)
+    return out.to(x.device)
+
+
+def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int8 codes, float32 scales) of ``x`` with one scale for each row
+    of its last dim, as the JAX package's `quantized_all_to_all` makes
+    them: scale = max(amax, 1e-9) / 127, codes = clip(round(x / scale),
+    -127, 127), rounded half to even, by a division."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-9) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all_cat(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_cat(g, ctx.group), None
+
+
+class _QuantizedAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        q8, scale = quantize_int8(x)
+        q8 = all_to_all_cat(q8, group)
+        scale = all_to_all_cat(scale, group)
+        return (q8.to(torch.float32) * scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_cat(g, ctx.group), None
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -193,6 +257,20 @@ def gather_along(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """All ranks' ``x`` concatenated along ``dim`` forward; the gradient
     summed over ``group`` and this rank's block kept backward."""
     return x if _trivial(group) else _GatherAlong.apply(x, group, dim)
+
+
+def all_to_all_along(x: torch.Tensor, group) -> torch.Tensor:
+    """`all_to_all_cat` forward and backward (its own transpose)."""
+    return x if _trivial(group) else _AllToAll.apply(x, group)
+
+
+def quantized_all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """`all_to_all_cat` of ``x`` with an int8 payload: each rank sends
+    `quantize_int8`'s codes and scales and gets back codes times scales in
+    ``x``'s dtype; the backward exchanges the full-width cotangent (the JAX
+    package's custom VJP). The codes round even on a group of one, as
+    the JAX package's do."""
+    return _QuantizedAllToAll.apply(x, group)
 
 
 def reduce_scatter_along(x: torch.Tensor, group, dim: int) -> torch.Tensor:

@@ -108,6 +108,9 @@ def train_loop(state, step_fn, data, cfg, *, start: int, steps: int,
                mesh=None):
     """Steps ``start`` .. ``steps`` - 1; returns (state, the last step's
     metrics or None). ``on_step(step, metrics)`` runs after each step.
+    With ``ckpt_dir``, a checkpoint every ``ckpt_every`` steps and after
+    the last step run (once: a step is never saved twice, which
+    `checkpoint.save_tree` refuses).
     A sharded state (a rank's blocks) comes with its spec tree ``specs``
     and ``mesh``, which the checkpoints gather it by."""
     t0 = time.time()
@@ -124,7 +127,7 @@ def train_loop(state, step_fn, data, cfg, *, start: int, steps: int,
             log(f"step {step:5d} loss {float(metrics['loss']):.4f} "
                 f"({(time.time() - t0) / max(step - start + 1, 1):.2f} "
                 f"s/step)")
-    if ckpt_dir:
+    if ckpt_dir and steps > start and (steps - 1) % ckpt_every:
         checkpoint.save_tree(ckpt_dir, steps - 1, state, specs=specs,
                              mesh=mesh)
     return state, metrics

@@ -26,6 +26,8 @@ are made and copied by `extend_caches`.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -107,7 +109,9 @@ def lm_loss(params, cfg, batch: dict, rules=None, aux_weight: float = 0.01):
     Returns (loss, {"ce_loss", "aux_loss", "tokens"}): loss the CE over the
     text positions (hidden[i] predicts tokens[i + 1]) plus aux_weight times
     the MoE load-balance loss over the layer count. With ``rules`` the
-    batch is this rank's rows and the CE its share (`chunked_ce_loss`)."""
+    batch is this rank's rows and the CE its share (`chunked_ce_loss`);
+    the aux is averaged over every rank and the loss holds this rank's
+    share of it (`_aux_over_ranks`)."""
     tokens = batch["tokens"]
     prefix = batch.get("prefix_embed")
     hidden, aux = transformer.forward_train(params, cfg, tokens,
@@ -119,8 +123,34 @@ def lm_loss(params, cfg, batch: dict, rules=None, aux_weight: float = 0.01):
     mask = torch.cat([torch.ones_like(tokens[:, 1:]),
                       torch.zeros_like(tokens[:, :1])], dim=1)
     loss, cnt = chunked_ce_loss(params, cfg, hidden, targets, mask, rules)
-    return loss + aux_weight * aux / max(cfg.n_layers, 1), {
+    share = aux
+    if rules is not None and cfg.n_experts:
+        aux, share = _aux_over_ranks(aux, cfg, rules)
+    return loss + aux_weight * share / max(cfg.n_layers, 1), {
         "ce_loss": loss, "aux_loss": aux, "tokens": cnt}
+
+
+def _aux_over_ranks(aux, cfg, rules):
+    """(mean, share) of the ranks' MoE losses ``aux`` (each over its own
+    tokens): the mean over every rank of the mesh (the JAX package's
+    ``pmean`` over every axis) and this rank's share of it in the loss, the
+    mean over the batch ranks' count, so the shares of the batch axes sum
+    to it as the CE's do. Backward, each rank's own aux gets the loss's
+    gradient over the rank count, the gradient of the mean with respect to
+    that rank's term: summed from every rank's share over the batch axes
+    (`comm.copy_to_group`) after the forward's sums (`comm.reduce_from_group`,
+    identity backward)."""
+    from repro_torch.sharding.rules import mesh_axes
+    from repro_torch.sharding.spmd import layout
+
+    lay = layout(cfg, rules)
+    sizes = mesh_axes(rules.mesh)
+    for axis in sizes:
+        aux = comm.reduce_from_group(aux, rules.mesh.get_group(axis))
+    for group in lay.batch_groups:
+        aux = comm.copy_to_group(aux, group)
+    aux = aux / math.prod(sizes.values())
+    return aux, aux / math.prod(sizes[a] for a in rules.batch)
 
 
 def init_caches(cfg, batch_size: int, s_max: int, dtype=None,

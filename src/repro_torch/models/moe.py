@@ -1,18 +1,19 @@
-"""Mixture-of-Experts on one device: sort-based routing, dispatch at
-capacity with drops, batched expert FFN, deterministic combine.
+"""Mixture-of-Experts: sort-based routing, dispatch at capacity with
+drops, batched expert FFN, deterministic combine; on one device and
+expert-parallel on a rank of a mesh.
 
-Counterpart of the local path of `repro.models.moe` (`_moe_local`, what the
-JAX package runs without a mesh). The names are the JAX package's:
+Counterpart of `repro.models.moe`. The names are the JAX package's:
 `_route` picks each token's top-k experts and the load-balance loss,
 `_dispatch` lays the picks out as an (E, C, D) buffer by a stable sort on
 the expert id, `_expert_ffn` runs the three batched products, and
 `_combine` (inline in the JAX package's `_moe_local`) adds the weighted
-expert outputs back per token. The
-expert-parallel paths (`_moe_ep`, `quantized_all_to_all`) are not ported
-(only `_dispatch_size` and `_ep_mode`, which `sharding.params` needs to
-lay the expert weights out), so `moe_block` takes no sharding rules and the config's `moe_a2a_int8`,
-which acts only there, is ignored, as the JAX package's local path ignores
-it.
+expert outputs back per token. `moe_block` is the local path
+(`_moe_local`, what the JAX package runs without a mesh; the config's
+`moe_a2a_int8` acts only on a mesh). `moe_block_sharded` is the
+expert-parallel one (`_moe_ep`), in the mode `_ep_mode` picks: "alltoall"
+exchanges each rank's dispatch buffer with the owners of its experts
+(`core.comm.all_to_all_along`, or the int8 `comm.quantized_all_to_all`),
+"gathered" gathers the expert weights' d_ff instead and moves no token.
 
 Every step is plain PyTorch on tensors whose shapes depend on the config
 and the batch alone (`_capacity` is a Python number), so a block makes no
@@ -34,6 +35,7 @@ import math
 
 import torch
 
+from repro_torch.core import comm
 from repro_torch.models.common import activation, is_glu, normal_init
 
 
@@ -201,3 +203,73 @@ def _ep_mode(cfg, rules) -> str:
 def moe_block(params: dict, cfg, x: torch.Tensor):
     """x (B, S, D) -> ((B, S, D), aux_loss)."""
     return _moe_local(params, cfg, x)
+
+
+def moe_block_sharded(params: dict, cfg, z: torch.Tensor, lay,
+                      specs: dict):
+    """The training MoE block on a rank of a mesh (the JAX package's
+    `_moe_ep`): ``z`` (B, S/tp, D) this rank's sequence block of the normed
+    residual; returns (its block of the output, (B, S/tp, D), this rank's
+    load-balance loss). ``specs`` lays out ``params`` (one layer's).
+
+    Each rank routes its own tokens at its own capacity (`_capacity` of
+    its token count) and its aux is over them alone, as the JAX package's
+    ranks do; the caller averages the aux over every rank
+    (`models.lm.lm_loss`). The router is used whole on every rank, so its
+    gradient is summed over every rank that routed with it
+    (`Layout.weight`).
+
+    "alltoall" (the experts divide over the expert axes): the sequence is
+    gathered over ``model``, routed and dispatched, and the expert-major
+    (dp, E/dp, C, D) view of the buffer exchanged over the expert axes
+    (int8 when ``cfg.moe_a2a_int8``); the rank's experts run on its d_ff
+    block; the partial outputs come back by a second exchange (int8 only
+    when the sequence is not sharded: partial sums are not quantized) and
+    are combined, then reduce-scattered over ``model`` onto the sequence.
+    The expert weights' gradients come back whole on their owner.
+    "gathered": the tokens stay; ``wi``, ``wg`` and ``wo`` are gathered
+    along d_ff over every axis of ``rules.ff_wide`` (their gradients
+    reduce-scattered back by autograd) and the output is complete."""
+    from repro_torch.sharding import params as sp
+
+    d = z.shape[-1]
+    router = lay.weight(params["router"], specs["router"])
+    alltoall = lay.ep_mode == "alltoall"
+    seq_sharded = z.shape[1] * lay.tp > 1
+    x = comm.gather_along(z, lay.model_group, 1) if alltoall else z
+    b, s, _ = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    gates, eids, aux = _route(router, cfg, xf)
+    capacity = _capacity(cfg, t)
+    buf, keep, slot, _ = _dispatch(cfg, xf, eids, capacity)
+    if alltoall:
+        group = lay.expert_group
+        e_loc = params["wi"].shape[0]
+        send = buf.reshape(-1, e_loc, capacity, d)       # (dp, e_loc, C, D)
+        recv = (comm.quantized_all_to_all(send, group) if cfg.moe_a2a_int8
+                else comm.all_to_all_along(send, group))
+        act = activation(cfg.act)
+        h = torch.einsum("sjcd,jdf->sjcf", recv, params["wi"])
+        if "wg" in params:
+            h = act(torch.einsum("sjcd,jdf->sjcf", recv, params["wg"])) * h
+        else:
+            h = act(h)
+        out = torch.einsum("sjcf,jfd->sjcd", h, params["wo"])
+        out = (comm.quantized_all_to_all(out, group)
+               if cfg.moe_a2a_int8 and not seq_sharded
+               else comm.all_to_all_along(out, group))
+        out_buf = out.reshape(cfg.n_experts, capacity, d)
+    else:
+        w = {}
+        for k, dim in (("wi", 2), ("wg", 2), ("wo", 1)):
+            if k in params:
+                w[k] = params[k]
+                for a in reversed(sp.entry_axes(specs[k][dim])):
+                    w[k] = comm.gather_along(w[k], lay.mesh.get_group(a),
+                                             dim)
+        out_buf = _expert_ffn(cfg, buf, w["wi"], w.get("wg"), w["wo"])
+    y = _combine(out_buf, gates, eids, keep, slot).reshape(b, s, d)
+    if alltoall:
+        y = comm.reduce_scatter_along(y, lay.model_group, 1)
+    return y, aux

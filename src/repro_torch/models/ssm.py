@@ -1,7 +1,8 @@
 """Mamba2 (SSD, state-space duality) layer: chunked prefill and the O(1)
 decode recurrence.
 
-Counterpart of `repro.models.ssm` on one device (no sharding). The
+Counterpart of `repro.models.ssm`: `ssm_block` on one device,
+`ssm_block_sharded` on a rank of a mesh (`sharding.spmd`). The
 projections are separate weight blocks (z / x / BC / dt) as in the JAX
 package, with a single B/C group (n_groups=1, as mamba2-1.3b and zamba2).
 `ssd_chunked` walks the chunks in a Python loop carrying the (B, NH, HD, N)
@@ -19,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import comm
 from repro_torch.models.common import norm_like, normal_init
 
 
@@ -111,7 +113,11 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         cum = torch.cumsum(dtq * a, dim=1)                  # (B, q, nh)
         # intra-chunk: y_i += sum_{j<=i} (C_i.B_j) exp(cum_i - cum_j) dt_j x_j
         diff = cum[:, :, None, :] - cum[:, None, :, :]     # (B, i, j, nh)
-        decay = torch.where(tril[None, :, :, None], torch.exp(diff), 0.0)
+        # masked before the exp: above the diagonal diff > 0 can overflow
+        # to inf, whose masked gradient 0 * inf is NaN (the forward is
+        # the JAX package's where(tril, exp(diff), 0), bit for bit)
+        decay = torch.exp(torch.where(tril[None, :, :, None], diff,
+                                      float("-inf")))
         scores = torch.einsum("bin,bjn->bij", cq, bq)
         w = _bf16_exact(scores[..., None] * decay * dtq[:, None, :, :])
         y = torch.einsum("bijh,bjhp->bihp", w, _bf16_exact(xq))
@@ -193,3 +199,58 @@ def ssm_block(params: dict, cfg, x: torch.Tensor, cache=None,
     z = F.silu(z.to(torch.float32)).to(x.dtype)
     y = norm_like(params, params["norm_w"], y * z, cfg.norm)
     return y @ params["out_proj"], new_cache
+
+
+def ssm_block_sharded(params: dict, cfg, z: torch.Tensor, lay,
+                      specs: dict, chunk: int = 256) -> torch.Tensor:
+    """The training Mamba2 block on a rank of a mesh: ``z`` (B, S/tp, D)
+    this rank's sequence block of the normed residual; returns its block
+    of the block's output, (B, S/tp, D). ``specs`` lays out ``params``
+    (one layer's).
+
+    The input is gathered along the sequence. ``z_proj``, ``x_proj`` and
+    ``dt_proj`` are column-parallel on the rank's d_inner channels and
+    heads, ``conv_x_w`` holds its channels, and the replicated
+    ``conv_x_b``, ``norm_w``, ``a_log``, ``d_skip`` and ``dt_bias`` are
+    cut to them (their gradients summed over ``model`` by `Layout.weight`);
+    ``bc_proj`` and the B/C conv are used whole. The SSD scan runs
+    unchanged on the rank's heads. The gated norm averages over the whole
+    d_inner: its sum of squares is summed over ``model`` forward and its
+    gradient summed over ``model`` backward (`comm.reduce_from_group`, then
+    `comm.copy_to_group`). ``out_proj`` is row-parallel and its partial
+    sums are reduce-scattered back onto the sequence."""
+    x = comm.gather_along(z, lay.model_group, 1)
+    bsz, s, _ = x.shape
+    di, hd = cfg.d_inner, cfg.ssm_head_dim
+    p = {k: lay.weight(params[k], specs[k]) for k in params}
+    di_l, nh_l = p["x_proj"].shape[-1], p["dt_proj"].shape[-1]
+    m = lay.model_rank
+    for k in ("conv_x_b", "norm_w"):
+        if p[k].shape[-1] != di_l:
+            p[k] = p[k].narrow(-1, m * di_l, di_l)
+    for k in ("a_log", "d_skip", "dt_bias"):
+        if p[k].shape[-1] != nh_l:
+            p[k] = p[k].narrow(-1, m * nh_l, nh_l)
+    zg = x @ p["z_proj"]
+    xin = x @ p["x_proj"]
+    bc = x @ p["bc_proj"]
+    dt = x @ p["dt_proj"]
+    conv_x = F.silu(_causal_depthwise_conv(xin, p["conv_x_w"],
+                                           p["conv_x_b"]).to(torch.float32))
+    conv_bc = F.silu(_causal_depthwise_conv(bc, p["conv_bc_w"],
+                                            p["conv_bc_b"]).to(torch.float32))
+    n = cfg.ssm_state
+    b_, c_ = conv_bc[..., :n], conv_bc[..., n:]
+    xh = conv_x.reshape(bsz, s, nh_l, hd)
+    dt = dt.to(torch.float32) + p["dt_bias"]
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))        # softplus
+    y, _ = ssd_chunked(xh, dt, -torch.exp(p["a_log"]), b_, c_, p["d_skip"],
+                       chunk)
+    y = y.reshape(bsz, s, di_l).to(x.dtype)
+    v = (y * F.silu(zg.to(torch.float32)).to(x.dtype)).to(torch.float32)
+    ss = (v * v).sum(-1, keepdim=True)
+    ss = comm.copy_to_group(comm.reduce_from_group(ss, lay.model_group),
+                            lay.model_group)
+    v = v * torch.rsqrt(ss / di + 1e-6) * p["norm_w"].to(torch.float32)
+    out = v.to(x.dtype) @ p["out_proj"]
+    return comm.reduce_scatter_along(out, lay.model_group, 1)

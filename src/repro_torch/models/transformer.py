@@ -258,9 +258,10 @@ def forward_train(params, cfg, tokens, *, prefix_embed=None, rules=None):
 
     With ``rules`` (`sharding.rules.MeshRules` bound to the mesh of the
     ranks), ``params`` are this rank's blocks and ``tokens`` its batch
-    rows: the `attn_mlp` kind on a (data, model) mesh
+    rows: every layer kind on a (data, model) mesh
     (`_forward_train_sharded`); the hidden comes back whole along the
-    sequence, as the vocab-parallel loss takes it."""
+    sequence, as the vocab-parallel loss takes it, and the aux is this
+    rank's own."""
     if rules is not None:
         from repro_torch.sharding.spmd import layout
 
@@ -269,6 +270,32 @@ def forward_train(params, cfg, tokens, *, prefix_embed=None, rules=None):
     x = _embed(params, cfg, tokens, prefix_embed)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    use_moe = layer_kind(cfg) == "attn_moe"
+
+    def attn_block(h, p):
+        h, _, aux = _attn_mlp_block(p, cfg, h, positions, use_moe=use_moe)
+        return (h, aux) if use_moe else h
+
+    def shared_block(h, p):
+        return _attn_mlp_block(p, cfg, h, positions)[0]
+
+    x, aux_total = _through_stack(
+        cfg, params, x, attn_block=attn_block,
+        ssm_layer=lambda h, p: _ssm_layer(p, cfg, h)[0],
+        shared_block=shared_block)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return x, aux_total
+
+
+def _through_stack(cfg, params, x, *, attn_block, ssm_layer, shared_block):
+    """``x`` through the layer stack in its order (the hybrid: each
+    super-block's mamba2 layers then its shared block, in turn over
+    ``params["shared"]``, then the tail layers), each rematerialised unit
+    (a layer, a super-block) under a non-reentrant checkpoint when
+    `cfg.remat` and autograd is recording. ``attn_block(h, p)`` returns h,
+    or (h, aux) for `attn_moe`; ``ssm_layer(h, p)`` and
+    ``shared_block(h, p)`` return h. Returns (x, the aux losses summed in
+    float32)."""
     remat = cfg.remat and torch.is_grad_enabled()
 
     def run(fn, *args):
@@ -276,32 +303,22 @@ def forward_train(params, cfg, tokens, *, prefix_embed=None, rules=None):
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
+    def ssm_layers(h, *ps):
+        for p in ps:
+            h = ssm_layer(h, p)
+        return h
+
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     kind = layer_kind(cfg)
     layers = _unbind_layers(params["layers"], cfg.n_layers)
-    if kind != "ssm":
-        use_moe = kind == "attn_moe"
-
-        def block(h, p):
-            h, _, aux = _attn_mlp_block(p, cfg, h, positions,
-                                        use_moe=use_moe)
-            return (h, aux) if use_moe else h
-
+    if kind == "attn_moe":
         for p in layers:
-            if use_moe:
-                x, aux = run(block, x, p)
-                aux_total = aux_total + aux
-            else:
-                x = run(block, x, p)
-        x = apply_norm(params["final_norm"], x, cfg.norm)
-        return x, aux_total
-
-    def ssm_layers(h, *ps):
-        for p in ps:
-            h, _ = _ssm_layer(p, cfg, h)
-        return h
-
-    if cfg.family == "ssm":
+            x, aux = run(attn_block, x, p)
+            aux_total = aux_total + aux
+    elif kind == "attn_mlp":
+        for p in layers:
+            x = run(attn_block, x, p)
+    elif cfg.family == "ssm":
         for p in layers:
             x = run(ssm_layers, x, p)
     else:  # hybrid (zamba2)
@@ -309,16 +326,13 @@ def forward_train(params, cfg, tokens, *, prefix_embed=None, rules=None):
         shared = _unbind_layers(params["shared"], cfg.n_shared_blocks)
 
         def super_block(h, sp, *ps):
-            h = ssm_layers(h, *ps)
-            h, _, _ = _attn_mlp_block(sp, cfg, h, positions)
-            return h
+            return shared_block(ssm_layers(h, *ps), sp)
 
         for sb in range(n_super):
             x = run(super_block, x, shared[sb % cfg.n_shared_blocks],
                     *layers[sb * per:(sb + 1) * per])
         for p in layers[n_super * per:]:
             x = run(ssm_layers, x, p)
-    x = apply_norm(params["final_norm"], x, cfg.norm)
     return x, aux_total
 
 
@@ -349,33 +363,49 @@ def _embed_sharded(params, lay, tokens, prefix_embed):
 
 def _forward_train_sharded(params, lay, tokens, prefix_embed):
     """`forward_train` on a rank of a mesh (`sharding.spmd`): the residual
-    stream sequence-sharded over ``model`` between the blocks, each block
-    `attention.attention_block_sharded` and `lm_mlp.mlp_block_sharded`
-    after norms on the rank's sequence block, the final norm too, then
-    the hidden gathered along the sequence."""
+    stream sequence-sharded over ``model`` between the blocks (the JAX
+    package's ``shard_res``), each block on the rank's sequence block
+    after its norm: `attention.attention_block_sharded` with
+    `lm_mlp.mlp_block_sharded` (`attn_mlp`, the hybrid's shared blocks) or
+    `moe.moe_block_sharded` (`attn_moe`), `ssm.ssm_block_sharded` (`ssm`,
+    the hybrid's mamba2 layers); the final norm too, then the hidden
+    gathered along the sequence. The stack and its rematerialised units
+    are one device's (`_through_stack`). The aux is this rank's MoE losses summed over the layers (each
+    over its own tokens; `models.lm.lm_loss` averages it over the
+    ranks)."""
     cfg = lay.cfg
     x = _embed_sharded(params, lay, tokens, prefix_embed)
-    specs = lay.layer_specs()
-    remat = cfg.remat and torch.is_grad_enabled()
+    specs, shared_specs = lay.layer_specs(), None
+    if cfg.family == "hybrid":
+        shared_specs = lay.layer_specs("shared")
+    use_moe = layer_kind(cfg) == "attn_moe"
 
     def norm(p, h, spec):
         return apply_norm({k: lay.weight(p[k], spec[k]) for k in p}, h,
                           cfg.norm)
 
-    def block(h, p):
-        z = norm(p["ln1"], h, specs["ln1"])
+    def attn_block(h, p, spec=specs):
+        z = norm(p["ln1"], h, spec["ln1"])
         h = h + attention.attention_block_sharded(p["attn"], cfg, z, lay,
-                                                  specs["attn"])
-        z = norm(p["ln2"], h, specs["ln2"])
+                                                  spec["attn"])
+        z = norm(p["ln2"], h, spec["ln2"])
+        if use_moe:
+            ff, aux = moe.moe_block_sharded(p["ffn"], cfg, z, lay,
+                                            spec["ffn"])
+            return h + ff, aux
         return h + lm_mlp.mlp_block_sharded(p["ffn"], cfg, z, lay,
-                                            specs["ffn"])
+                                            spec["ffn"])
 
-    for p in _unbind_layers(params["layers"], cfg.n_layers):
-        x = checkpoint(block, x, p, use_reentrant=False) if remat \
-            else block(x, p)
+    def ssm_layer(h, p):
+        return h + ssm.ssm_block_sharded(p["ssm"], cfg,
+                                         norm(p["ln1"], h, specs["ln1"]),
+                                         lay, specs["ssm"])
+
+    x, aux_total = _through_stack(
+        cfg, params, x, attn_block=attn_block, ssm_layer=ssm_layer,
+        shared_block=lambda h, p: attn_block(h, p, shared_specs))
     x = norm(params["final_norm"], x, lay.specs["final_norm"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return comm.gather_along(x, lay.model_group, 1), aux
+    return comm.gather_along(x, lay.model_group, 1), aux_total
 
 
 def forward(params, cfg, tokens, *, prefix_embed=None, caches=None,

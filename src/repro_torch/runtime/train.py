@@ -15,16 +15,17 @@ alone is left as it was.
 
 With ``rules`` (`sharding.rules.MeshRules` bound to the `DeviceMesh` of
 the ranks, `launch.mesh.rules_for`) the step is the JAX package's sharded
-step as explicit SPMD, for the `attn_mlp` layer kind (families dense,
-audio, vlm; the others raise `NotImplementedError` naming ROADMAP Queue 1
-item 13.5b). The state is this rank's blocks (`init_sharded_train_state`,
+step as explicit SPMD, for every layer kind (`attn_mlp`, `ssm` and the
+hybrid, `attn_moe` in both expert-parallel modes; `sharding.spmd`). The
+state is this rank's blocks (`init_sharded_train_state`,
 `sharding.params.shard_tree`) and the step takes the global batch, every
 rank the same: each microbatch of it (the JAX package's, rows i*B/n to
 (i+1)*B/n) is cut over the batch axes (`sharding.params.batch_specs`; it
 must divide), and the forward is `transformer.forward_train(...,
 rules=)`. Then the gradients are reduced over the batch axes, a leaf at a
-time: nothing more for a ZeRO-3 leaf (its gather's backward
-reduce-scattered it), a `reduce_scatter` onto the rank's block for a leaf
+time: nothing more over an axis the leaf is sharded on (a ZeRO-3
+leaf: its gather's backward reduce-scattered it; an expert weight on the
+expert axes: every rank's tokens reached its owner), a `reduce_scatter` onto the rank's block for a leaf
 whose AdamW moments are ZeRO-1-sharded, an `all_reduce` otherwise. The
 global norm sums every leaf's block over the axes it is sharded on
 (`optim.clip_by_global_norm`'s sharded form), and the update runs on
@@ -202,9 +203,11 @@ def make_sharded_grads(cfg, rules, optimizer_name: str):
     """fn(params, batch) -> (loss, metrics, grads): the sharded step's
     gradients, before clipping. ``params`` are this rank's blocks and
     ``batch`` the global batch; each microbatch's rows are cut over the
-    batch axes, the gradients accumulated as on one device, then reduced
-    over the batch axes onto their `grad_specs` blocks, and the loss and
-    ce_loss summed over the batch axes (the whole batch's)."""
+    batch axes, the gradients accumulated as on one device and reduced
+    over the batch axes onto their `grad_specs` blocks (after the last
+    microbatch; each microbatch's before its rounding to a narrower
+    accumulation dtype), and the loss and ce_loss summed over the batch
+    axes (the whole batch's)."""
     lay = layout(cfg, rules)
     mesh = rules.mesh
     pspecs, gspecs = lay.specs, grad_specs(cfg, rules, optimizer_name)
@@ -228,24 +231,40 @@ def make_sharded_grads(cfg, rules, optimizer_name: str):
             zero = {a: d for d, a in _zero1_dims(pspec, gspec)}
             for a in rules.batch:
                 if a in sp.spec_axes(pspec):
-                    continue        # ZeRO-3: reduce-scattered by autograd
+                    continue        # ZeRO-3 or an expert axis: complete
                 group = mesh.get_group(a)
                 g = (comm.reduce_scatter_cat(g, group, zero[a]) if a in zero
                      else comm.all_reduce_sum(g, group))
             pytree.put(grads, path, g)
         return grads
 
+    # with an accumulation dtype narrower than float32 each microbatch's
+    # gradients are reduced over the batch axes before they are rounded
+    # to it, as the JAX package's microbatch scan adds the whole (reduced)
+    # gradient of each; a float32 sum is reduced once, after the last
+    per_mb = cfg.grad_accum > 1 and \
+        torch.finfo(getattr(torch, cfg.grad_accum_dtype)).bits < 32
+
+    def one(params, mb):
+        loss, metrics, grads = loss_and_grads(cfg, params, local(mb), rules)
+        if per_mb:
+            with torch.no_grad():
+                grads = reduce(grads)
+        return loss, metrics, grads
+
     def grads_of(params, batch):
         mbs = _microbatches(cfg, batch)
-        loss, grads, metrics = _accumulate(
-            cfg, mbs, lambda mb: loss_and_grads(cfg, params, local(mb),
-                                                rules))
+        loss, grads, metrics = _accumulate(cfg, mbs,
+                                           lambda mb: one(params, mb))
+        ce = metrics["ce_loss"]
         with torch.no_grad():
             for group in lay.batch_groups:
                 loss = comm.all_reduce_sum(loss, group)
-            grads = reduce(grads)
+                ce = comm.all_reduce_sum(ce, group)
+            if not per_mb:
+                grads = reduce(grads)
         metrics = {"ce_loss": loss} if len(mbs) > 1 else \
-            dict(metrics, ce_loss=loss)
+            dict(metrics, ce_loss=ce)
         return loss, metrics, grads
 
     return grads_of

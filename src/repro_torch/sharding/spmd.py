@@ -20,18 +20,32 @@ tensor the layer multiplies by:
 The residual stream is sequence-sharded over ``model`` between blocks
 (Megatron SP, the JAX package's ``rules.seq``); a block gathers it along
 the sequence for its tensor-parallel products and reduce-scatters their
-partial sums back. So the sequence length must divide over ``model``, the
-vocabulary (its padded size) and d_ff too: `Layout.check_widths` and
-`check_seq` raise otherwise. The JAX package also runs a replicated residual and replicated
-d_ff or vocab; the port does not, and no config of the repo needs it at
-its production tp.
+partial sums back. Every layer kind runs so: `attn_mlp` (attention and
+MLP), `ssm` (the Mamba2 block on the rank's channels and heads; the
+hybrid's shared attention blocks too) and `attn_moe` (attention and the
+expert-parallel MoE block, `models.moe.moe_block_sharded`). The MoE block
+lays out its own expert weights, which `weight` would gather wrongly: in
+"alltoall" mode each rank keeps its experts (the dispatch brings the
+tokens to them) and its d_ff block over ``model``; in "gathered" mode
+each rank gathers d_ff over every axis of ``rules.ff_wide``, ``model``
+included. Its router goes through `weight`.
+
+So the sequence length must divide over ``model``, and so must the
+vocabulary (its padded size), d_ff, the SSM's d_inner and heads and, in
+"alltoall" mode, the experts' d_ff; in "gathered" mode the experts' d_ff
+must divide over the product of ``ff_wide``'s axes. `Layout.check_widths`
+and `check_seq` raise otherwise. The JAX package would replicate such a
+dim (GSPMD's fallback) and also runs a replicated residual; the port does
+not, and no config of the repo needs it at its production tp.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import comm
 from repro_torch.models.transformer import layer_kind
@@ -51,15 +65,11 @@ class Layout:
     model_rank: int
     model_group: object
     batch_groups: tuple    # one group per batch axis
+    ep_mode: str | None    # the MoE's expert-parallel mode (`moe._ep_mode`)
+    expert_group: object   # the group of the expert axes' product, or None
 
     @classmethod
     def build(cls, cfg, rules: MeshRules) -> "Layout":
-        if layer_kind(cfg) != "attn_mlp":
-            raise NotImplementedError(
-                f"the sharded train step runs the attn_mlp layer kind "
-                f"(families dense, audio, vlm); {cfg.name} is "
-                f"{layer_kind(cfg)}: its sharded forward is ROADMAP Queue 1 "
-                f"item 13.5b")
         mesh = rules.mesh
         if mesh is None or not hasattr(mesh, "get_group"):
             raise ValueError("the sharded train step needs rules.mesh, the "
@@ -71,21 +81,42 @@ class Layout:
                              f"{rules.model!r} axis has "
                              f"{sizes.get(rules.model, 1)} ranks")
         mode, kv_repeat = head_sharding(cfg, rules)
+        ep_mode = None
+        if cfg.n_experts:
+            from repro_torch.models.moe import _ep_mode
+
+            ep_mode = _ep_mode(cfg, rules)
         lay = cls(cfg, rules, mesh, sp.param_specs(cfg, rules, sizes), mode,
                   kv_repeat, rules.tp, mesh.get_local_rank(rules.model),
                   mesh.get_group(rules.model),
-                  tuple(mesh.get_group(a) for a in rules.batch))
+                  tuple(mesh.get_group(a) for a in rules.batch), ep_mode,
+                  axes_group(mesh, rules.expert)
+                  if ep_mode == "alltoall" else None)
         lay.check_widths()
         return lay
 
     def check_widths(self) -> None:
-        cfg = self.cfg
-        for what, n in (("the padded vocabulary", cfg.padded_vocab),
-                        ("d_ff", cfg.d_ff)):
-            if n % self.tp:
+        cfg, kind = self.cfg, layer_kind(self.cfg)
+        over = {"model": self.tp}
+        widths = [("the padded vocabulary", cfg.padded_vocab, "model")]
+        if kind == "attn_mlp" or cfg.family == "hybrid":
+            widths.append(("d_ff", cfg.d_ff, "model"))
+        if kind == "ssm":
+            widths += [("the SSM's d_inner", cfg.d_inner, "model"),
+                       ("the SSM's heads", cfg.ssm_nheads, "model")]
+        if self.ep_mode == "alltoall":
+            widths.append(("the experts' d_ff", cfg.moe_d_ff, "model"))
+        elif self.ep_mode == "gathered":
+            axes = tuple(self.rules.ff_wide)
+            over[axes] = math.prod(sp.mesh_axes(self.mesh)[a] for a in axes)
+            widths.append(("the experts' d_ff", cfg.moe_d_ff, axes))
+        for what, n, axes in widths:
+            ranks = over[axes]
+            if n % ranks:
+                where = (f"the {ranks} model ranks" if axes == "model" else
+                         f"the {ranks} ranks of {axes}")
                 raise ValueError(f"the sharded train step shards {what} "
-                                 f"({n}) over the {self.tp} model ranks; "
-                                 f"it does not divide")
+                                 f"({n}) over {where}; it does not divide")
 
     def check_seq(self, s: int) -> None:
         if s % self.tp:
@@ -109,6 +140,33 @@ class Layout:
         if self.rules.model not in sp.spec_axes(spec):
             w = comm.copy_to_group(w, self.model_group)
         return w
+
+
+def axes_group(mesh, axes: tuple):
+    """The process group of the ranks that differ only along ``axes``
+    (their product, the first axis the major one, as JAX orders a tuple
+    of axis names): ``mesh.get_group(axis)`` for one axis, None for
+    none. Every rank of the mesh must call this, in the same order, for
+    several axes (each subgroup is made by every rank)."""
+    axes = tuple(axes)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    names = list(mesh.mesh_dim_names)
+    idx = [names.index(a) for a in axes]
+    if idx != sorted(idx):
+        # a group's ranks are ordered by global rank: the mesh's order
+        raise ValueError(f"axes_group: {axes} are not in the mesh's order "
+                         f"{tuple(names)}")
+    rest = [i for i in range(len(names)) if i not in idx]
+    n = math.prod(mesh.mesh.shape[i] for i in idx)
+    mine = None
+    for row in mesh.mesh.permute(*rest, *idx).reshape(-1, n).tolist():
+        group = dist.new_group(row)
+        if dist.get_rank() in row:
+            mine = group
+    return mine
 
 
 @functools.lru_cache(maxsize=8)

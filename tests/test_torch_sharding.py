@@ -176,6 +176,91 @@ def test_production_mesh_refuses_other_world_sizes(multi_pod, n):
         t_mesh.make_production_mesh(multi_pod=multi_pod, device="cpu")
 
 
+def test_rules_for_matches_jax_on_the_production_meshes(jx):
+    """`launch.mesh.rules_for` equals the JAX package's on the production
+    axis names (JAX's reads only ``mesh.axis_names``); on a (2, 2) mesh the
+    two differ in ``tp`` alone: JAX keeps RULES_2D's 16, the port reads
+    the mesh's model axis, 2."""
+    import dataclasses
+
+    from repro.launch import mesh as j_mesh
+
+    def fields(r):
+        return {f.name: getattr(r, f.name) for f in dataclasses.fields(r)
+                if f.name != "mesh"}
+
+    for name, sizes in (*MESHES.items(), ("2x2", {"data": 2, "model": 2})):
+        mesh = types.SimpleNamespace(axis_names=tuple(sizes), shape=sizes)
+        got, want = fields(t_mesh.rules_for(mesh)), \
+            fields(j_mesh.rules_for(mesh))
+        if name == "2x2":
+            assert (got.pop("tp"), want.pop("tp")) == (2, 16)
+        assert got == want, name
+
+
+class _NoRanks:
+    """A mesh of the given axis sizes with no process group behind it:
+    enough to build a `Layout` and have it refuse."""
+
+    def __init__(self, **sizes):
+        self.shape = sizes
+
+    def get_group(self, axis):
+        return None
+
+    def get_local_rank(self, axis):
+        return 0
+
+
+@pytest.mark.parametrize("arch,over,what", [
+    ("mamba2-1.3b", dict(d_model=63, ssm_expand=1, ssm_head_dim=21),
+     "the SSM's d_inner \\(63\\) over the 2 model ranks"),
+    ("mamba2-1.3b", dict(d_model=48, ssm_head_dim=32),
+     "the SSM's heads \\(3\\) over the 2 model ranks"),
+    ("kimi-k2-1t-a32b", dict(moe_d_ff=63),
+     "the experts' d_ff \\(63\\) over the 2 model ranks"),
+    ("grok-1-314b", dict(n_experts=3, moe_d_ff=66),
+     "the experts' d_ff \\(66\\) over the 4 ranks of \\('data', 'model'\\)"),
+    ("llama3.2-3b", dict(d_ff=129), "d_ff \\(129\\) over the 2 model ranks"),
+])
+def test_layout_refuses_widths_that_do_not_divide(arch, over, what):
+    """Where GSPMD would replicate a dim that does not divide, the port's
+    sharded step refuses it: the SSM's d_inner and heads over ``model``,
+    the experts' d_ff over ``model`` ("alltoall", kimi's 4 experts over 2
+    data ranks) or over every ``ff_wide`` axis ("gathered", 3 experts)."""
+    from repro_torch.sharding.spmd import Layout
+
+    cfg = reduced_config(get_config(arch), **over)
+    rules = t_rules.MeshRules(tp=2, mesh=_NoRanks(data=2, model=2))
+    with pytest.raises(ValueError, match=what):
+        Layout.build(cfg, rules)
+
+
+def test_layout_refuses_a_sequence_that_does_not_divide():
+    from repro_torch.sharding.spmd import Layout
+
+    cfg = reduced_config(get_config("llama3.2-3b"))
+    lay = Layout.build(cfg, t_rules.MeshRules(
+        tp=2, mesh=_NoRanks(data=2, model=2)))
+    lay.check_seq(32)
+    with pytest.raises(ValueError, match=r"sequence \(31 positions\) over "
+                                         r"the 2 model ranks"):
+        lay.check_seq(31)
+
+
+def test_sharded_grads_refuse_rows_that_do_not_divide():
+    """Each microbatch's rows are cut over the batch axes; 3 rows over 2
+    data ranks raise before anything is computed."""
+    from repro_torch.runtime import train
+
+    cfg = reduced_config(get_config("llama3.2-3b"))
+    rules = t_rules.MeshRules(tp=2, mesh=_NoRanks(data=2, model=2))
+    grads_of = train.make_sharded_grads(cfg, rules, "adamw")
+    with pytest.raises(ValueError, match=r"\('data',\) \(2 ranks\); tokens "
+                                         r"has 3 rows"):
+        grads_of({}, {"tokens": torch.zeros((3, 32), dtype=torch.int64)})
+
+
 def test_rules_for_takes_the_mesh():
     for sizes, batch in (({"data": 2, "model": 4}, ("data",)),
                          ({"pod": 2, "data": 2, "model": 2},

@@ -435,3 +435,30 @@ def test_bf16_decode_spread_is_the_jax_packages(jax_mods):
     spread_t = np.abs(dec_t - full_t).max() / scale
     assert 0 < spread_j < 0.05 and spread_t <= 1.5 * spread_j
     assert np.abs(dec_t - dec_j).max() / scale <= 1.5 * spread_j
+
+
+def test_ssd_gradient_is_finite_where_the_decay_overflows(jax_mods):
+    """One chunk of 128 positions whose cumulative decay falls past -88:
+    above the diagonal exp(diff) overflows. The port masks the decay
+    before its exp, so its forward is the JAX package's (within
+    MODEL_TOL: a 128-position weight block rounded to bf16 flips a few
+    roundings) and its gradient is finite, where the reference's
+    where(tril, exp(diff), 0) gives a NaN gradient (0 * inf)."""
+    jax, jnp = jax_mods.jax, jax_mods.jnp
+    xh, dt, a, b_, c_, d_skip = _ssd_inputs(5, 128)
+    dt = dt + 1.0                               # cum over 128 < -88
+    args = (xh, dt, a, b_, c_, d_skip)
+
+    def j_loss(*t):
+        return jnp.sum(jax_mods.ssm.ssd_chunked(*t, 128)[0])
+
+    want_y, _ = jax_mods.ssm.ssd_chunked(*(jnp.asarray(t) for t in args),
+                                         128)
+    want_g = jax.grad(j_loss, argnums=1)(*(jnp.asarray(t) for t in args))
+    assert not np.isfinite(np.asarray(want_g)).all()
+    got = [torch.as_tensor(t) for t in args]
+    got[1].requires_grad_(True)
+    y, _ = ssm.ssd_chunked(*got, 128)
+    _close(y.detach(), want_y, MODEL_TOL)
+    y.sum().backward()
+    assert torch.isfinite(got[1].grad).all()

@@ -135,14 +135,15 @@ def test_three_steps_match_jax(jx, arch, accum, acc_dtype, m_rel, s_rel,
 
 
 def test_make_train_step_refuses_rules():
-    """The sharded step runs the attn_mlp kind; SSM, hybrid and MoE
-    configs are refused, naming the ROADMAP item of their sharded forward
-    (the attn_mlp step itself: tests/test_torch_lm_mesh.py)."""
+    """The sharded step runs every layer kind (tests/test_torch_lm_mesh.py,
+    tests/test_torch_lm_mesh_kinds.py) and refuses rules with no mesh of
+    ranks behind them, for SSM, hybrid and MoE configs too: no kind falls
+    back to one device quietly."""
     from repro_torch.sharding.rules import MeshRules
 
     for arch in ("mamba2-1.3b", "zamba2-7b", "grok-1-314b"):
         cfg = reduced_config(get_config(arch))
-        with pytest.raises(NotImplementedError, match=r"13\.5b"):
+        with pytest.raises(ValueError, match=r"needs rules\.mesh"):
             train.make_train_step(cfg, rules=MeshRules(tp=2))
 
 
@@ -274,8 +275,12 @@ class TestTrainOnCuda:
     def test_sharded_reduced_steps_match_cpu(self, cuda_device):
         """`chip_smoke.reduced_mesh_check` ([lm-mesh] (b)): 4 ranks of a
         (data=2, model=2) mesh on the card(s), the reduced float32 configs
-        in both head modes: every gradient of the sharded step within
-        1e-4 of its leaf's scale, a step's loss and grad norm within 1e-5
-        of the CPU's single-device step."""
+        of every layer kind (attention in both head modes, the ssm kind,
+        the hybrid, the MoE in both expert-parallel modes): every gradient
+        of the sharded step within 1e-4 of its leaf's scale (an SSM's
+        within 2^-7), a step's loss and grad norm within 1e-5 (an SSM's
+        grad norm 1e-4) of the CPU's step, each rank's attention launches
+        counted."""
         got = cs.reduced_mesh_check(str(cuda_device))
-        assert [g["mode"] for g in got] == ["sharded", "replicated"]
+        assert [g["name"] for g in got] == [c[0] for c in cs.LM_MESH_REDUCED]
+        assert [g["mode"] for g in got[:2]] == ["sharded", "replicated"]
