@@ -202,10 +202,11 @@ Phases, each of which stops the script with a non-zero exit on failure:
    s; the slab and `fitness_errors` at a rank's shapes timed beside their
    bounds (rows `domination_block[shard]`, `fitness_errors[shard]`).
 17. `[lm-mesh]`: sharded LM training (`runtime.train.make_train_step(
-   rules=...)`, `sharding/`, `core.comm`) on a (data=2, model=2) mesh of 4
-   ranks (sharing the one card over gloo; a card a rank over NCCL with
-   four): (a) llama3.2-3b at full width cut to 2 layers, B=4 x 1024,
-   AdamW on the launcher's schedule, 3 steps through `train_loop`, the
+   rules=...)`, `sharding/`, `core.comm`) and serving on a (data=2,
+   model=2) mesh of 4 ranks (sharing the one card over gloo; a card a
+   rank over NCCL with four): (a) llama3.2-3b at full width cut to 2
+   layers, B=4 x 1024, AdamW on the launcher's schedule, 3 steps through
+   `train_loop`, the
    loss, grad norm and every gathered parameter after each step held to
    the single-card step from the same seed within 4x the spread the
    single-card step shows against the same step in float32 (printed), each
@@ -226,7 +227,22 @@ Phases, each of which stops the script with a non-zero exit on failure:
    and the MoE in both expert-parallel modes (kimi's int8 all-to-all,
    grok's gathered d_ff) against the same sharded step on CPU tensors;
    each rank's attention launches counted (the hybrid's feed the kernel
-   line's hd-112 backward row).
+   line's hd-112 backward row). (e) sharded serving on the same ranks
+   (`runtime.lm_serve.generate(rules=...)`: a sequence-sharded prefill
+   through `flash_attention` at each rank's local heads, then
+   context-parallel decode over the caches' slots): the reduced float32
+   cases of `tests/test_torch_lm_mesh_serve.py` (both head modes, the
+   vlm prefix, mamba2, the hybrid, both MoE modes) at B=4 x 32, s_max 64,
+   4 greedy tokens, each rank's tokens == the single-device generate on
+   the card (the MoE: == the same sharded serve on CPU tensors), one
+   attention launch an attention layer a rank; then llama3.2-3b at full
+   width, 2 layers, B=4 x 1024, s_max 1056, 8 greedy tokens against one
+   card's generate from the same seed: the agreement of the tokens, the
+   first flipped position, the prefill logits within 0.15 of one card's
+   (their bf16 row error printed), prefill ms, decode ms a step,
+   collectives a decode step by kind, count and bytes, peak memory a
+   rank, each rank's attention launches (one a layer at its local 12
+   query and 4 kv heads).
 18. The kernel list, the card's name and power limit, one JSON line of
    per-kernel results (each row names what it times in `what`; the rows
    `fitness_errors[bucket]` and `domination_block[bucket]` are the batched
@@ -299,7 +315,9 @@ TPU_KERNELS = {  # kernel -> (port source, the TPU kernel it replaces,
                         "(4, 4096, 8, 128), the model's layout; launches "
                         "include [lm-mesh]'s ranks: (a) each on its local "
                         "12 query and 4 kv heads, (b) the reduced float32 "
-                        "steps of every layer kind with attention"),
+                        "steps of every layer kind with attention, (e) the "
+                        "sharded prefills of the reduced cases and of "
+                        "llama3.2-3b at full width (local 12 / 4 heads)"),
     "flash_attention_backward": (
         "src/repro_torch/csrc/flash_attn_bwd.cu",
         "none: no TPU kernel (the Pallas flash_attention has no gradient; "
@@ -3820,6 +3838,28 @@ LM_MESH_REDUCED = (
 # over them to 1e-4
 LM_MESH_SSD_GRAD_REL, LM_MESH_SSD_NORM_RTOL = 2.0 ** -7, 1e-4
 LM_MESH_PSUM = ((64, 33), (1000,))   # (d): the leaves of the pod mean
+# (e) sharded serving: the reduced float32 cases of
+# tests/test_torch_lm_mesh_serve.py (name, arch, overrides, reference), at
+# head dims the kernels take (zamba2 its own 112), B=4 x 32 prompt
+# tokens, s_max 64, 4 greedy tokens. "one": the tokens == the port's
+# single-device generate on the card; "mesh": == the same sharded serve on
+# CPU tensors (an MoE rank routes its own tokens at its own capacity, so
+# one device is not its reference)
+LM_MESH_SERVE_REDUCED = (
+    ("sharded heads", LM_ARCH, dict(head_dim=64), "one"),
+    ("replicated heads, vlm prefix", "paligemma-3b",
+     dict(head_dim=64, n_heads=3), "one"),
+    ("ssm", "mamba2-1.3b", {}, "one"),
+    ("hybrid", "zamba2-7b", dict(n_layers=7, head_dim=112), "one"),
+    ("moe alltoall", "kimi-k2-1t-a32b", dict(head_dim=64, moe_a2a_int8=True),
+     "mesh"),
+    ("moe gathered", "grok-1-314b", dict(head_dim=64, n_experts=3), "mesh"),
+)
+LM_MESH_SERVE_SHAPE = dict(batch=4, prompt=32, s_max=64, tokens=4)
+# (e) at full width: llama3.2-3b cut to 2 layers, B=4 x 1024, s_max 1056,
+# 8 greedy tokens, held to one card's generate from the same seed
+LM_MESH_SERVE_PLAN = dict(arch=LM_ARCH, layers=2, batch=4, prompt=1024,
+                          s_max=1056, tokens=8)
 # the collectives' device work: NCCL's kernels, and the copies that stage
 # gloo's through the host (the step uploads its batch before it starts)
 COMM_NAMES = ("ncclDevKernel", "ncclKernel", "Memcpy DtoH", "Memcpy HtoD")
@@ -3957,6 +3997,11 @@ def lm_mesh_rank(plans: tuple, extras: dict) -> dict:
     if "reduced" in extras:
         out["b"] = _lm_mesh_b(extras["reduced"], mesh, dev)
         out["marks"]["(b)"] = time.perf_counter()
+    if "serve" in extras:    # (e) sharded serving
+        out["e"] = dict(
+            reduced=_lm_mesh_e_reduced(extras["serve"]["reduced"], mesh, dev),
+            full=_lm_mesh_e_full(extras["serve"]["full"], mesh, dev))
+        out["marks"]["(e)"] = time.perf_counter()
     if extras.get("psum"):
         from torch.distributed.device_mesh import init_device_mesh
 
@@ -4184,6 +4229,309 @@ def _lm_mesh_b(refs: list, mesh, dev) -> list:
     return got
 
 
+def _serve_prompt(cfg, batch: int, prompt: int, dev) -> dict:
+    """A prompt batch from SEED: tokens (and a vlm prefix) on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                   generator=gen, device=dev,
+                                   dtype=torch.int32)}
+    if cfg.prefix_len:
+        out["prefix_embed"] = torch.randn(
+            (batch, cfg.prefix_len, cfg.d_model), generator=gen, device=dev,
+            dtype=torch.float32).to(getattr(torch, cfg.dtype))
+    return out
+
+
+def _lm_mesh_e_reduced(cases, mesh, dev) -> list:
+    """Each reduced float32 case of ``cases`` served sharded on this rank's
+    device, its rows' greedy tokens against its reference (the
+    single-device generate on the same device, or the same sharded serve
+    on CPU tensors), the attention's launches of the sharded generate."""
+    from repro_torch import kernels, pytree
+    from repro_torch.models import transformer
+    from repro_torch.runtime import lm_serve
+    from repro_torch.sharding import params as sp
+    from repro_torch.sharding.rules import MeshRules, head_sharding
+
+    rules = MeshRules(tp=2, mesh=mesh)
+    shape = LM_MESH_SERVE_SHAPE
+    d = mesh.get_local_rank("data")
+    n = shape["batch"] // mesh.shape[0]
+    rows = slice(d * n, (d + 1) * n)
+    got = []
+    for name, arch, over, against in cases:
+        cfg = _reduced_cfg(arch, over)
+        full = transformer.init_params(SEED, cfg, device="cpu")
+        local = sp.shard_tree(full, sp.param_specs(cfg, rules,
+                                                   sp.mesh_axes(mesh)), mesh)
+        batch = _serve_prompt(cfg, shape["batch"], shape["prompt"], "cpu")
+
+        def sharded(on):
+            return lm_serve.generate(
+                pytree.tree_map(lambda t: t.to(on), local), cfg,
+                {k: v[rows].to(on) for k, v in batch.items()},
+                shape["tokens"], shape["s_max"], rules=rules).cpu()
+
+        kernels.reset_launch_counts()
+        toks = sharded(dev)
+        launches = kernels.launch_counts()["flash_attention"]
+        if against == "mesh":
+            want = sharded("cpu")
+        else:
+            want = lm_serve.generate(
+                pytree.tree_map(lambda t: t.to(dev), full), cfg,
+                {k: v.to(dev) for k, v in batch.items()}, shape["tokens"],
+                shape["s_max"]).cpu()[rows]
+        got.append(dict(name=name, mode=head_sharding(cfg, rules)[0],
+                        tokens=toks, want=want, launches=launches))
+    return got
+
+
+def serve_config(plan: dict):
+    """``plan``'s config: its arch at full width (or reduced), depth cut to
+    ``layers``, and with ``no_drop`` the MoE at capacity factor n_experts
+    / experts_per_token, where no pick is dropped."""
+    from repro_torch.launch.train import model_config
+
+    cfg = model_config(plan["arch"], plan.get("reduced", False),
+                       plan["layers"])
+    if plan.get("no_drop"):
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    return cfg
+
+
+def _lm_mesh_e_full(plan: dict, mesh, dev, params=None) -> dict:
+    """``plan``'s model (`serve_config`) served sharded on this rank: its
+    rows' greedy tokens and prefill logits; on rank 0 first (unless
+    ``plan["reference"]`` is False) the single card's generate and prefill
+    logits from the same seed; the attention's launches and (query, kv)
+    heads of the sharded generate; prefill ms, decode ms a step,
+    collectives of one decode step (with ``plan["trace"]`` one traced on
+    rank 0), peak memory. ``params``: the rank's blocks, default
+    `init_sharded_params` from SEED."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import comm
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import attention, lm, transformer
+    from repro_torch.runtime import lm_serve
+    from repro_torch.sharding import params as sp
+
+    cfg = serve_config(plan)
+    rules = launch_mesh.rules_for(mesh)
+    batch = _serve_prompt(cfg, plan["batch"], plan["prompt"], dev)
+    s_max, n_tok = plan["s_max"], plan["tokens"]
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    if out["rank"] == 0 and plan.get("reference", True):
+        one = transformer.init_params(SEED, cfg, device=dev)
+        out["one_tokens"] = lm_serve.generate(one, cfg, batch, n_tok,
+                                              s_max).cpu()
+        logits, _ = lm.prefill(one, cfg, batch, s_max=s_max)
+        out["one_logits"] = logits[:, -1].float().cpu()
+        del one, logits
+        _on(dev, torch.cuda.empty_cache)
+    t0 = time.perf_counter()
+    if params is None:
+        params = sp.init_sharded_params(SEED, cfg, rules, mesh, device=dev)
+    _on(dev, torch.cuda.synchronize)
+    out["init_s"] = time.perf_counter() - t0
+    out["after_init"] = _on(dev, torch.cuda.memory_allocated, 0)
+    d = mesh.get_local_rank("data")
+    n = plan["batch"] // mesh.shape[0]
+    rows = {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+    heads = []
+    kernel = attention.flash_attention_bshd
+
+    def counted(q, k, v, **kw):
+        heads.append((q.shape[2], k.shape[2]))
+        return kernel(q, k, v, **kw)
+
+    attention.flash_attention_bshd = counted
+    _on(dev, torch.cuda.synchronize)
+    _on(dev, torch.cuda.reset_peak_memory_stats)
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        toks = lm_serve.generate(params, cfg, rows, n_tok, s_max, rules=rules)
+        _on(dev, torch.cuda.synchronize)
+        out["generate_s"] = time.perf_counter() - t0
+        out["counts"] = kernels.launch_counts()
+    finally:
+        attention.flash_attention_bshd = kernel
+    out.update(tokens=toks.cpu(), heads=sorted(set(heads)))
+
+    def sync_ms(fn, reps: int) -> float:
+        times = []
+        for _ in range(reps):
+            _on(dev, torch.cuda.synchronize)
+            t0 = time.perf_counter()
+            fn()
+            _on(dev, torch.cuda.synchronize)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    out["prefill_ms"] = sync_ms(lambda: lm.prefill(params, cfg, rows,
+                                                   s_max=s_max, rules=rules),
+                                3)
+    logits, caches = lm.prefill(params, cfg, rows, s_max=s_max, rules=rules)
+    out["logits"] = logits[:, -1].float().cpu()
+    prompt_len = plan["prompt"]
+    tok = toks[:, :1]
+    pos = iter(range(prompt_len, s_max))
+    out["decode_ms"] = sync_ms(lambda: lm.decode_step(
+        params, cfg, tok, caches, next(pos), rules=rules), n_tok - 1)
+    comm.reset_collectives()
+    lm.decode_step(params, cfg, tok, caches, next(pos), rules=rules)
+    out["decode_coll"] = (dict(comm.COLLECTIVES), dict(comm.COLLECTIVE_BYTES))
+    if plan.get("trace") and out["rank"] == 0 and dev.type == "cuda":
+        out["split"] = _profile_split(lambda: lm.decode_step(
+            params, cfg, tok, caches, next(pos), rules=rules), comm=True)
+    elif plan.get("trace"):
+        lm.decode_step(params, cfg, tok, caches, next(pos), rules=rules)
+    out["peak"] = _on(dev, torch.cuda.max_memory_allocated, 0)
+    del params, caches
+    _on(dev, torch.cuda.empty_cache)
+    return out
+
+
+def check_lm_mesh_e(tag: str, cases, plan: dict, ranks: list,
+                    on_card: bool = True) -> dict:
+    """(e)'s checks and readings: every reduced case's tokens on every
+    rank equal to its reference's, each rank's attention launches one an
+    attention layer of the prefill; then the full-width serve
+    (`check_serve_full`). Returns the launch counts of the sharded
+    generates summed over the ranks."""
+    from repro_torch.models.transformer import hybrid_layout
+
+    counts = {"flash_attention": 0}
+    for i, (name, arch, over, against) in enumerate(cases):
+        cfg = _reduced_cfg(arch, over)
+        n_attn = (0 if cfg.family == "ssm" else hybrid_layout(cfg)[0]
+                  if cfg.family == "hybrid" else cfg.n_layers)
+        for r, rank in enumerate(ranks):
+            g = rank["reduced"][i]
+            check(torch.equal(g["tokens"], g["want"]),
+                  f"{tag} (e) {name}: rank {r}'s sharded tokens "
+                  f"{g['tokens'].tolist()} differ from its reference's "
+                  f"{g['want'].tolist()} ({against})")
+            check(not on_card or g["launches"] == n_attn,
+                  f"{tag} (e) {name}: {g['launches']} attention launches on "
+                  f"rank {r}, not {n_attn} (one an attention layer)")
+            counts["flash_attention"] += g["launches"]
+        g = ranks[0]["reduced"][i]
+        ref = "one device" if against == "one" else \
+            "the same sharded serve on CPU tensors"
+        log(f"{tag} (e) reduced float32 {arch} {over} ({name}, {g['mode']} "
+            f"heads at tp 2): B={LM_MESH_SERVE_SHAPE['batch']} x "
+            f"{LM_MESH_SERVE_SHAPE['prompt']}, s_max "
+            f"{LM_MESH_SERVE_SHAPE['s_max']}: every rank's "
+            f"{LM_MESH_SERVE_SHAPE['tokens']} greedy tokens == {ref}; "
+            f"attention launches a rank {g['launches']}")
+
+    counts["flash_attention"] += check_serve_full(
+        tag + " (e)", plan, [r["full"] for r in ranks],
+        on_card)["flash_attention"]
+    return counts
+
+
+def check_serve_full(tag: str, plan: dict, full: list,
+                     on_card: bool = True) -> dict:
+    """A full-width sharded serve's checks and readings (`_lm_mesh_e_full`'s
+    results from every rank): the model ranks of a row give it the same
+    tokens, in the vocabulary; with the single card's reference, the
+    ranks' rows of tokens against it (agreement and the first flipped
+    position reported), the prefill logits within LM_LOGIT_ATOL of it with
+    the same argmax wherever the top-2 gap exceeds twice the row's
+    difference (their bf16 row error reported); each rank's attention
+    launches one a layer on its local heads. Returns the launch counts
+    summed over the ranks."""
+    from repro_torch.kernels.flash_attn import row_error
+
+    cfg = serve_config(plan)
+    counts = {"flash_attention": 0}
+    o = full[0]
+    n = plan["batch"] // 2
+    ref_t, ref_l = o.get("one_tokens"), o.get("one_logits")
+    agree, flips, worst = [], [], 0.0
+    for r in full:
+        for m in full:      # the model ranks of a row agree
+            if m["rank"] // 2 == r["rank"] // 2:
+                check(torch.equal(m["tokens"], r["tokens"]),
+                      f"{tag} ranks {r['rank']} and {m['rank']} give "
+                      f"their rows other tokens")
+        check(bool(((r["tokens"] >= 0) & (r["tokens"] < cfg.vocab_size))
+                   .all()) and bool(torch.isfinite(r["logits"]).all()),
+              f"{tag} rank {r['rank']}: tokens outside the vocabulary or "
+              f"non-finite logits")
+        if ref_t is None:
+            continue
+        d = r["rank"] // 2
+        want_t, want_l = ref_t[d * n:(d + 1) * n], ref_l[d * n:(d + 1) * n]
+        same = r["tokens"] == want_t
+        if r["rank"] % 2 == 0:      # model rank 0 of its rows
+            agree.append(float(same.float().mean()))
+            for row in range(n):
+                bad = (~same[row]).nonzero()
+                flips.append(int(bad[0]) if len(bad) else None)
+        got_l = r["logits"][:, :cfg.vocab_size]
+        want_l = want_l[:, :cfg.vocab_size]
+        diff = (got_l - want_l).abs().amax(-1)
+        top2 = want_l.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * diff
+        check(float(diff.max()) <= LM_LOGIT_ATOL,
+              f"{tag} rank {r['rank']}: prefill logits differ from one "
+              f"card's by {float(diff.max())} (atol {LM_LOGIT_ATOL})")
+        check(bool((got_l.argmax(-1) == want_l.argmax(-1))[decided].all()),
+              f"{tag} rank {r['rank']}: the first token differs from "
+              f"one card's on a row whose top-2 gap exceeds twice its "
+              f"difference")
+        worst = max(worst, row_error(got_l, want_l))
+    heads = [(cfg.n_heads // 2, cfg.n_kv_heads // 2)]
+    on = on_card and plan.get("device", "cuda") == "cuda"
+    for r in full:
+        c = r["counts"]["flash_attention"]
+        check(not on or c == cfg.n_layers, f"{tag} rank {r['rank']}: "
+              f"{c} attention launches, not {cfg.n_layers} (one a layer)")
+        check(r["heads"] == heads, f"{tag} rank {r['rank']}: the "
+              f"attention ran on {r['heads']} (query, kv) heads, not "
+              f"{heads}")
+        counts["flash_attention"] += c
+    coll, nbytes = o["decode_coll"]
+    against = (f"tokens == one card's {[round(a, 3) for a in agree]} by "
+               f"data rank (first flipped position by row {flips}); "
+               f"prefill logits' bf16 row error against one card "
+               f"{worst:.4f}" if ref_t is not None else "no single-card "
+               "reference")
+    log(f"{tag} {plan['arch']} full width, {cfg.n_layers} layers"
+        f"{' (capacity with no drops)' if plan.get('no_drop') else ''}, "
+        f"B={plan['batch']} x {plan['prompt']}, s_max {plan['s_max']}, "
+        f"{plan['tokens']} greedy tokens on (data=2, model=2) over "
+        f"{o['backend']}: {against}; prefill {o['prefill_ms']:.1f} ms, "
+        f"decode {o['decode_ms']:.2f} ms a step (rank 0's host clock), "
+        f"generate {o['generate_s']:.2f} s; sharded init {o['init_s']:.1f} "
+        f"s; a rank holds "
+        + ", ".join(f"{r['after_init'] / 2**30:.2f}" for r in full)
+        + " GiB after init, peak "
+        + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in full)
+        + " GiB; collectives a decode step on rank 0: "
+        + ", ".join(f"{coll[k]} {k} ({nbytes[k] / 1e6:.3f} MB)"
+                    for k in coll)
+        + f"; attention launches by rank "
+        f"{[r['counts']['flash_attention'] for r in full]} on (query, kv) "
+        f"heads {o['heads']}")
+    if "split" in o:
+        split, _, busy, host, top = o["split"]
+        log(f"{tag} one traced decode step on rank 0: {busy:.2f} ms of "
+            f"device time in {host:.2f} ms on the host clock (idle share "
+            f"{1 - busy / host:.3f}): " + ", ".join(
+                f"{k} {v:.2f} ms" for k, v in split.items())
+            + "; largest: " + "; ".join(f"{nm[:60]} {us / 1e3:.3f} ms"
+                                        for nm, us in top[:5]))
+    return counts
+
+
 def check_lm_mesh_b(tag: str, refs: list, ranks: list,
                     on_card: bool = True) -> None:
     """(b)'s checks: every gradient within TRAIN_GRAD_REL of its leaf's
@@ -4336,9 +4684,10 @@ def _log_lm_mesh_timing(tag: str, outs: list, plan: dict) -> None:
 
 def phase_lm_mesh(root: str, plans: tuple = (LM_MESH_PLAN, LM_MESH_SSM_PLAN),
                   extras: bool = True) -> dict:
-    """`[lm-mesh]`: sharded LM training on a (data=2, model=2) mesh of
-    LM_MESH_RANKS ranks spawned on the cards (gloo where they share one,
-    NCCL with a card a rank), one spawn for every part: (a) for each of
+    """`[lm-mesh]`: sharded LM training and serving on a (data=2, model=2)
+    mesh of LM_MESH_RANKS ranks spawned on the cards (gloo where they
+    share one, NCCL with a card a rank), one spawn for every part: (a) for
+    each of
     ``plans``: llama3.2-3b at full width, 2 layers, B=4 x 1024, AdamW on
     the launcher's schedule, 3 steps through `launch.train.train_loop`,
     then mamba2-1.3b the same way (2 layers, 2 steps), each held to the
@@ -4354,15 +4703,18 @@ def phase_lm_mesh(root: str, plans: tuple = (LM_MESH_PLAN, LM_MESH_SSM_PLAN),
     rank's attention launches counted; (c) the first plan's state saved
     sharded and restored onto one card and onto (data=1, model=2): equal
     to the gathered state bit for bit; (d) `compress.compressed_psum`
-    over a 2-rank pod axis == the CPU's arithmetic. Step time, tokens/s,
-    peak memory and collectives a rank, and one traced step's device time
-    split. Returns the launch counts of (a) and (b) summed over the ranks
-    and plans, and (b)'s hybrid's attention launches over the ranks."""
+    over a 2-rank pod axis == the CPU's arithmetic; (e) sharded serving
+    (`check_lm_mesh_e`). Step time, tokens/s, peak memory and collectives
+    a rank, and one traced step's device time split. Returns the launch
+    counts of (a), (b) and (e) summed over the ranks and plans, and (b)'s
+    hybrid's attention launches over the ranks."""
     from repro_torch.launch import mesh as launch_mesh
 
     tag = "[lm-mesh]"
     extras = dict(ckpt_dir=str(pathlib.Path(root) / "ckpt"),
-                  reduced=_reduced_cpu_refs(), psum=True) if extras else {}
+                  reduced=_reduced_cpu_refs(), psum=True,
+                  serve=dict(reduced=LM_MESH_SERVE_REDUCED,
+                             full=LM_MESH_SERVE_PLAN)) if extras else {}
     device = plans[0].get("device", "cuda")
     t0 = time.time()
     outs = launch_mesh.spawn(lm_mesh_rank, LM_MESH_RANKS, device,
@@ -4422,6 +4774,9 @@ def phase_lm_mesh(root: str, plans: tuple = (LM_MESH_PLAN, LM_MESH_SSM_PLAN),
           f"CPU's arithmetic")
     log(f"{tag} (d) compressed_psum over a 2-rank pod axis, leaves "
         f"{LM_MESH_PSUM}: == the CPU's int8 mean on every rank")
+    served = check_lm_mesh_e(tag, LM_MESH_SERVE_REDUCED, LM_MESH_SERVE_PLAN,
+                             [o["e"] for o in outs], on_card)
+    counts["flash_attention"] += served["flash_attention"]
     return dict(counts=counts, outs=outs, hybrid_launches={
         k: sum(o["b"][hybrid]["launches"][k] for o in outs)
         for k in ("flash_attention", FLASH_BWD)})

@@ -103,7 +103,8 @@ def mlp_problem_from_arrays(w1_master, w2_master, shift: int, n_classes: int,
                                             n_classes, x8, y, device=device)
 
 
-def lm_params_from_arrays(params_np: dict, cfg, device="cuda") -> dict:
+def lm_params_from_arrays(params_np: dict, cfg, device="cuda",
+                          rules=None) -> dict:
     """The port's LM parameters from a JAX `transformer.init_params` tree
     read out as numpy arrays: ``embed``, ``final_norm``, the stacked
     ``layers`` (attn_mlp: ln1, attn {wq, wk, wv, wo}, ln2, ffn {wi, [wg,]
@@ -114,11 +115,23 @@ def lm_params_from_arrays(params_np: dict, cfg, device="cuda") -> dict:
     tensor of its own width on ``device`` (bfloat16 arrays pass through
     float32, which holds them exactly), so the MoE ``router`` and the SSM's
     ``a_log``, ``d_skip`` and ``dt_bias`` stay float32 in a bfloat16 model,
-    as the JAX package keeps them."""
+    as the JAX package keeps them.
+
+    With ``rules`` (bound to the mesh of the ranks), this rank's blocks of
+    them under `sharding.params.param_specs`, on ``device``: the
+    parameters the sharded serving and train steps take."""
     from repro_torch.models import transformer
     from repro_torch.models.common import is_glu
 
     dev = resolve_device(device)
+    if rules is not None:
+        from repro_torch import pytree
+        from repro_torch.sharding import params as sp
+
+        full = lm_params_from_arrays(params_np, cfg, "cpu")
+        local = sp.shard_tree(full, sp.param_specs(
+            cfg, rules, sp.mesh_axes(rules.mesh)), rules.mesh)
+        return pytree.tree_map(lambda t: t.to(dev), local)
     want = {"embed", "final_norm", "layers"}
     if not cfg.tie_embeddings:
         want.add("lm_head")
@@ -147,6 +160,20 @@ def lm_params_from_arrays(params_np: dict, cfg, device="cuda") -> dict:
                                                           dtype=dtype)
 
     return convert(params_np)
+
+
+def lm_caches_to_arrays(caches: dict, cfg, rules=None) -> dict:
+    """Decode caches as numpy arrays in the JAX package's decode layout
+    (`repro.models.lm.init_caches`'s tree: "kv", "ssm", "shared_kv", each
+    a pair), float32: with ``rules``, gathered from every rank's blocks
+    (`sharding.params.gather_caches`, the conv caches' channels put back
+    in order), which every rank of the mesh must call."""
+    if rules is not None:
+        from repro_torch.sharding import params as sp
+
+        caches = sp.gather_caches(cfg, rules, caches, rules.mesh)
+    return {k: tuple(t.detach().cpu().float().numpy().copy() for t in pair)
+            for k, pair in caches.items()}
 
 
 def train_state_from_arrays(params_np: dict, opt_np: dict, step: int, cfg,

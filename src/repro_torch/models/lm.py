@@ -23,6 +23,11 @@ KV, hd), one slot a super-block's shared block. Decode writes each new
 token into them in place at its position. Serving prefills straight into
 the decode layout (`prefill(..., s_max=...)`), so no exact-length caches
 are made and copied by `extend_caches`.
+
+With ``rules`` (a rank of a mesh) `prefill`, `decode_step` and
+`init_caches` take and give a rank's blocks: the caches in
+`sharding.params.cache_blocks`'s layout, the logits the whole row of the
+vocab-parallel head, gathered over ``model``.
 """
 from __future__ import annotations
 
@@ -153,12 +158,24 @@ def _aux_over_ranks(aux, cfg, rules):
     return aux, aux / math.prod(sizes[a] for a in rules.batch)
 
 
-def init_caches(cfg, batch_size: int, s_max: int, dtype=None,
+def init_caches(cfg, batch_size: int, s_max: int, rules=None, dtype=None,
                 device="cuda") -> dict:
-    """Preallocated decode caches sized for an s_max-token context."""
+    """Preallocated decode caches sized for an s_max-token context. With
+    ``rules`` (bound to the mesh of the ranks), this rank's blocks of
+    them for a global batch of ``batch_size`` rows
+    (`sharding.params.cache_blocks`'s layout); an s_max or a batch that
+    does not divide over the mesh is refused."""
     dev = resolve_device(device)
     dtype = dtype or transformer.torch_dtype(cfg)
-    return transformer.empty_caches(cfg, batch_size, s_max, dtype, dev)
+    if rules is None:
+        return transformer.empty_caches(cfg, batch_size, s_max, dtype, dev)
+    from repro_torch.sharding.params import check_serve
+    from repro_torch.sharding.rules import mesh_axes
+
+    check_serve(rules, rules.mesh, s_max=s_max, batch=batch_size)
+    dp = math.prod(mesh_axes(rules.mesh)[a] for a in rules.batch)
+    return transformer.empty_caches(cfg, batch_size // dp, s_max, dtype, dev,
+                                    rules.tp)
 
 
 def extend_caches(cfg, caches: dict, s_max: int) -> dict:
@@ -187,22 +204,52 @@ def extend_caches(cfg, caches: dict, s_max: int) -> dict:
     return out
 
 
-def prefill(params, cfg, batch: dict, s_max: int | None = None):
+def prefill(params, cfg, batch: dict, s_max: int | None = None,
+            rules=None):
     """Prefill: returns (last-position logits, caches over the prompt). With
     s_max the caches come in the decode layout, s_max slots with the
     prompt written into the first ones (what `extend_caches` makes of the
     exact-length caches, without their copy). The MoE load-balance loss
-    is dropped, as the JAX package's prefill drops it."""
+    is dropped, as the JAX package's prefill drops it.
+
+    With ``rules`` (a rank of a mesh): ``params`` are the rank's blocks
+    and ``batch`` its rows; the caches are its blocks in the decode
+    layout (s_max slots, default the prompt's length), and the logits
+    its rows' whole (B, 1, padded vocab), the same on every model
+    rank."""
     hidden, caches, _ = transformer.forward(
         params, cfg, batch["tokens"], prefix_embed=batch.get("prefix_embed"),
-        s_max=s_max)
+        s_max=s_max, rules=rules)
+    if rules is not None:
+        from repro_torch.sharding.spmd import layout
+
+        lay = layout(cfg, rules)
+        # the last position lives on the last model rank
+        last = comm.all_gather_cat(hidden[:, -1:], lay.model_group, 1)
+        return _logits_sharded(params, lay, last[:, -1:]), caches
     logits = transformer.logits_from_hidden(params, cfg, hidden[:, -1:, :])
     return logits, caches
 
 
-def decode_step(params, cfg, token, caches: dict, pos: int):
+def decode_step(params, cfg, token, caches: dict, pos: int, rules=None):
     """One-token decode against preallocated caches at position `pos`; the
-    caches are updated in place and returned."""
+    caches are updated in place and returned. With ``rules``: the rank's
+    blocks and rows, as `prefill` takes them."""
     hidden, new_caches, _ = transformer.forward(
-        params, cfg, token, caches=caches, pos0=pos)
+        params, cfg, token, caches=caches, pos0=pos, rules=rules)
+    if rules is not None:
+        from repro_torch.sharding.spmd import layout
+
+        return _logits_sharded(params, layout(cfg, rules), hidden), \
+            new_caches
     return transformer.logits_from_hidden(params, cfg, hidden), new_caches
+
+
+@torch.no_grad()
+def _logits_sharded(params, lay, hidden):
+    """The vocab-parallel head: ``hidden`` (B, 1, D) the same on every
+    model rank, times the rank's rows of the table, gathered over
+    ``model`` into the whole (B, 1, padded vocab) row."""
+    key = "embed" if lay.cfg.tie_embeddings else "lm_head"
+    logits = hidden @ params[key].T
+    return comm.all_gather_cat(logits, lay.model_group, 2)

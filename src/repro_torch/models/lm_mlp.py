@@ -35,11 +35,16 @@ def mlp_block(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_block_sharded(params: dict, cfg, z: torch.Tensor, lay,
-                      specs: dict) -> torch.Tensor:
+                      specs: dict, seq_sharded: bool = True) -> torch.Tensor:
     """``z`` (B, S/tp, D) this rank's sequence block; gathered along the
     sequence into the rank's d_ff columns, and the row-parallel product's
-    partial sums reduce-scattered back: (B, S/tp, D)."""
-    zf = comm.gather_along(z, lay.model_group, 1)
+    partial sums reduce-scattered back: (B, S/tp, D). Without
+    ``seq_sharded`` (decode), ``z`` is the whole (B, 1, D), the same on
+    every model rank, and the partial sums are all-reduced over
+    ``model``."""
     w = {k: lay.weight(params[k], specs[k]) for k in params}
+    if not seq_sharded:
+        return comm.reduce_from_group(mlp_block(w, cfg, z), lay.model_group)
+    zf = comm.gather_along(z, lay.model_group, 1)
     y = mlp_block(w, cfg, zf)
     return comm.reduce_scatter_along(y, lay.model_group, 1)

@@ -206,11 +206,14 @@ def moe_block(params: dict, cfg, x: torch.Tensor):
 
 
 def moe_block_sharded(params: dict, cfg, z: torch.Tensor, lay,
-                      specs: dict):
-    """The training MoE block on a rank of a mesh (the JAX package's
-    `_moe_ep`): ``z`` (B, S/tp, D) this rank's sequence block of the normed
-    residual; returns (its block of the output, (B, S/tp, D), this rank's
-    load-balance loss). ``specs`` lays out ``params`` (one layer's).
+                      specs: dict, seq_sharded: bool = True):
+    """The MoE block on a rank of a mesh (the JAX package's `_moe_ep`).
+    With ``seq_sharded`` (the train step and prefill), ``z`` (B, S/tp, D)
+    is this rank's sequence block of the normed residual and the block
+    returns (its block of the output, (B, S/tp, D), this rank's
+    load-balance loss). Without it (decode), ``z`` (B, 1, D) is the whole
+    one-token input, the same on every model rank, and so is the output.
+    ``specs`` lays out ``params`` (one layer's).
 
     Each rank routes its own tokens at its own capacity (`_capacity` of
     its token count) and its aux is over them alone, as the JAX package's
@@ -219,14 +222,15 @@ def moe_block_sharded(params: dict, cfg, z: torch.Tensor, lay,
     gradient is summed over every rank that routed with it
     (`Layout.weight`).
 
-    "alltoall" (the experts divide over the expert axes): the sequence is
-    gathered over ``model``, routed and dispatched, and the expert-major
-    (dp, E/dp, C, D) view of the buffer exchanged over the expert axes
-    (int8 when ``cfg.moe_a2a_int8``); the rank's experts run on its d_ff
-    block; the partial outputs come back by a second exchange (int8 only
-    when the sequence is not sharded: partial sums are not quantized) and
-    are combined, then reduce-scattered over ``model`` onto the sequence.
-    The expert weights' gradients come back whole on their owner.
+    "alltoall" (the experts divide over the expert axes): a sharded
+    sequence is gathered over ``model``; the tokens are routed and
+    dispatched, and the expert-major (dp, E/dp, C, D) view of the buffer
+    exchanged over the expert axes (int8 when ``cfg.moe_a2a_int8``); the
+    rank's experts run on its d_ff block; the partial outputs come back by
+    a second exchange (int8 too in decode, as the JAX package sends it
+    there alone) and are combined, then reduce-scattered over ``model``
+    onto the sequence (decode: all-reduced over ``model``). The expert
+    weights' gradients come back whole on their owner.
     "gathered": the tokens stay; ``wi``, ``wg`` and ``wo`` are gathered
     along d_ff over every axis of ``rules.ff_wide`` (their gradients
     reduce-scattered back by autograd) and the output is complete."""
@@ -235,8 +239,8 @@ def moe_block_sharded(params: dict, cfg, z: torch.Tensor, lay,
     d = z.shape[-1]
     router = lay.weight(params["router"], specs["router"])
     alltoall = lay.ep_mode == "alltoall"
-    seq_sharded = z.shape[1] * lay.tp > 1
-    x = comm.gather_along(z, lay.model_group, 1) if alltoall else z
+    x = comm.gather_along(z, lay.model_group, 1) \
+        if alltoall and seq_sharded else z
     b, s, _ = x.shape
     t = b * s
     xf = x.reshape(t, d)
@@ -271,5 +275,6 @@ def moe_block_sharded(params: dict, cfg, z: torch.Tensor, lay,
         out_buf = _expert_ffn(cfg, buf, w["wi"], w.get("wg"), w["wo"])
     y = _combine(out_buf, gates, eids, keep, slot).reshape(b, s, d)
     if alltoall:
-        y = comm.reduce_scatter_along(y, lay.model_group, 1)
+        y = (comm.reduce_scatter_along(y, lay.model_group, 1) if seq_sharded
+             else comm.reduce_from_group(y, lay.model_group))
     return y, aux

@@ -29,13 +29,16 @@ def conv_channels(cfg) -> int:
 
 
 def ssm_cache(cfg, n_stack: int, batch_size: int, dtype: torch.dtype,
-              device):
+              device, tp: int = 1):
     """Zeroed (conv (n_stack, B, K-1, C) in ``dtype``, state (n_stack, B, NH,
     HD, N) float32) decode caches of ``n_stack`` layers; the states are
-    float32 in every model dtype."""
+    float32 in every model dtype. With ``tp`` > 1, a model rank's blocks:
+    C = d_inner/tp + 2N (its x channels, then the whole B and C), NH/tp
+    heads."""
     conv = torch.zeros((n_stack, batch_size, cfg.ssm_conv - 1,
-                        conv_channels(cfg)), dtype=dtype, device=device)
-    state = torch.zeros((n_stack, batch_size, cfg.ssm_nheads,
+                        cfg.d_inner // tp + 2 * cfg.ssm_state), dtype=dtype,
+                       device=device)
+    state = torch.zeros((n_stack, batch_size, cfg.ssm_nheads // tp,
                          cfg.ssm_head_dim, cfg.ssm_state),
                         dtype=torch.float32, device=device)
     return conv, state
@@ -134,6 +137,34 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, state
 
 
+def _conv_step(conv_state: torch.Tensor, xin: torch.Tensor,
+               bc: torch.Tensor, p: dict):
+    """The depthwise conv at one new position: ``conv_state`` (B, K-1, C)
+    the last inputs packed [x | B | C], ``xin`` (B, 1, Cx) and ``bc`` (B,
+    1, 2N) the new ones. Returns (conv_x, conv_bc) (B, 1, .) and the
+    window shifted by one."""
+    cx = xin.shape[-1]
+    window_x = torch.cat([conv_state[..., :cx], xin], dim=1)
+    window_bc = torch.cat([conv_state[..., cx:], bc], dim=1)
+    conv_x = (torch.einsum("bkc,kc->bc", window_x, p["conv_x_w"])
+              + p["conv_x_b"])[:, None, :]
+    conv_bc = (torch.einsum("bkc,kc->bc", window_bc, p["conv_bc_w"])
+               + p["conv_bc_b"])[:, None, :]
+    return conv_x, conv_bc, torch.cat([window_x[:, 1:, :],
+                                       window_bc[:, 1:, :]], dim=-1)
+
+
+def _state_step(state: torch.Tensor, xh, dt, a, b_, c_, d_skip):
+    """The O(1) recurrence at one new position: ``state`` (B, NH, HD, N)
+    float32; xh (B, 1, NH, HD), dt (B, 1, NH), b_, c_ (B, 1, N). Returns
+    y (B, 1, NH, HD) and the new state."""
+    da = dt[:, 0, :] * a                                    # (B, nh)
+    inject = torch.einsum("bn,bh,bhp->bhpn", b_[:, 0], dt[:, 0], xh[:, 0])
+    state = state * torch.exp(da)[:, :, None, None] + inject
+    y = torch.einsum("bn,bhpn->bhp", c_[:, 0], state)
+    return (y + d_skip[None, :, None] * xh[:, 0])[:, None], state
+
+
 def ssm_block(params: dict, cfg, x: torch.Tensor, cache=None,
               cache_layer=None, chunk: int = 256):
     """The full Mamba2 block. cache None: prefill, returning the block's
@@ -161,15 +192,8 @@ def ssm_block(params: dict, cfg, x: torch.Tensor, cache=None,
                     else F.pad(packed, (0, 0, k - 1 - s, 0)))
     else:
         conv_stack, state_stack = cache
-        conv_state = conv_stack[layer]
-        window_x = torch.cat([conv_state[..., :di], xin], dim=1)
-        window_bc = torch.cat([conv_state[..., di:], bc], dim=1)
-        conv_x = (torch.einsum("bkc,kc->bc", window_x, params["conv_x_w"])
-                  + params["conv_x_b"])[:, None, :]
-        conv_bc = (torch.einsum("bkc,kc->bc", window_bc, params["conv_bc_w"])
-                   + params["conv_bc_b"])[:, None, :]
-        new_conv = torch.cat([window_x[:, 1:, :], window_bc[:, 1:, :]],
-                             dim=-1)
+        conv_x, conv_bc, new_conv = _conv_step(conv_stack[layer], xin, bc,
+                                               params)
 
     conv_x = F.silu(conv_x.to(torch.float32))
     conv_bc = F.silu(conv_bc.to(torch.float32))
@@ -184,13 +208,8 @@ def ssm_block(params: dict, cfg, x: torch.Tensor, cache=None,
                                      chunk)
         new_cache = (new_conv, final_state)
     else:
-        ssm_state = state_stack[layer]
-        da = dt[:, 0, :] * a                                 # (B, nh)
-        inject = torch.einsum("bn,bh,bhp->bhpn", b_[:, 0], dt[:, 0],
-                              xh[:, 0])
-        ssm_state = ssm_state * torch.exp(da)[:, :, None, None] + inject
-        y = torch.einsum("bn,bhpn->bhp", c_[:, 0], ssm_state)
-        y = (y + params["d_skip"][None, :, None] * xh[:, 0])[:, None]
+        y, ssm_state = _state_step(state_stack[layer], xh, dt, a, b_, c_,
+                                   params["d_skip"])
         conv_stack[layer] = new_conv
         state_stack[layer] = ssm_state
         new_cache = (conv_stack, state_stack)
@@ -202,11 +221,14 @@ def ssm_block(params: dict, cfg, x: torch.Tensor, cache=None,
 
 
 def ssm_block_sharded(params: dict, cfg, z: torch.Tensor, lay,
-                      specs: dict, chunk: int = 256) -> torch.Tensor:
-    """The training Mamba2 block on a rank of a mesh: ``z`` (B, S/tp, D)
-    this rank's sequence block of the normed residual; returns its block
-    of the block's output, (B, S/tp, D). ``specs`` lays out ``params``
-    (one layer's).
+                      specs: dict, chunk: int = 256, cache_out: bool = False):
+    """The training and prefill Mamba2 block on a rank of a mesh: ``z``
+    (B, S/tp, D) this rank's sequence block of the normed residual;
+    returns its block of the block's output, (B, S/tp, D), and with
+    ``cache_out`` also the rank's decode caches: (conv (B, K-1, di/tp + 2N),
+    the last K-1 inputs of its d_inner channels and the whole B/C
+    channels; the SSD's final state of its heads (B, NH/tp, HD, N)).
+    ``specs`` lays out ``params`` (one layer's).
 
     The input is gathered along the sequence. ``z_proj``, ``x_proj`` and
     ``dt_proj`` are column-parallel on the rank's d_inner channels and
@@ -221,16 +243,8 @@ def ssm_block_sharded(params: dict, cfg, z: torch.Tensor, lay,
     sums are reduce-scattered back onto the sequence."""
     x = comm.gather_along(z, lay.model_group, 1)
     bsz, s, _ = x.shape
-    di, hd = cfg.d_inner, cfg.ssm_head_dim
-    p = {k: lay.weight(params[k], specs[k]) for k in params}
-    di_l, nh_l = p["x_proj"].shape[-1], p["dt_proj"].shape[-1]
-    m = lay.model_rank
-    for k in ("conv_x_b", "norm_w"):
-        if p[k].shape[-1] != di_l:
-            p[k] = p[k].narrow(-1, m * di_l, di_l)
-    for k in ("a_log", "d_skip", "dt_bias"):
-        if p[k].shape[-1] != nh_l:
-            p[k] = p[k].narrow(-1, m * nh_l, nh_l)
+    p = _local_params(params, lay, specs)
+    nh_l, hd, k = p["dt_proj"].shape[-1], cfg.ssm_head_dim, cfg.ssm_conv
     zg = x @ p["z_proj"]
     xin = x @ p["x_proj"]
     bc = x @ p["bc_proj"]
@@ -244,13 +258,76 @@ def ssm_block_sharded(params: dict, cfg, z: torch.Tensor, lay,
     xh = conv_x.reshape(bsz, s, nh_l, hd)
     dt = dt.to(torch.float32) + p["dt_bias"]
     dt = torch.logaddexp(dt, torch.zeros_like(dt))        # softplus
-    y, _ = ssd_chunked(xh, dt, -torch.exp(p["a_log"]), b_, c_, p["d_skip"],
-                       chunk)
-    y = y.reshape(bsz, s, di_l).to(x.dtype)
-    v = (y * F.silu(zg.to(torch.float32)).to(x.dtype)).to(torch.float32)
+    y, state = ssd_chunked(xh, dt, -torch.exp(p["a_log"]), b_, c_,
+                           p["d_skip"], chunk)
+    out = _gated_out(y, zg, p, cfg, lay, x.dtype)
+    out = comm.reduce_scatter_along(out, lay.model_group, 1)
+    if not cache_out:
+        return out
+    packed = torch.cat([xin, bc], dim=-1)
+    conv = (packed[:, -(k - 1):, :] if s >= k - 1
+            else F.pad(packed, (0, 0, k - 1 - s, 0)))
+    return out, (conv, state)
+
+
+def ssm_decode_sharded(params: dict, cfg, x: torch.Tensor, lay,
+                       specs: dict, cache, layer: int) -> torch.Tensor:
+    """The one-token Mamba2 block on a rank of a mesh: ``x`` (B, 1, D) the
+    normed residual, the same on every model rank; ``cache`` the rank's
+    (conv (L, B, K-1, di/tp + 2N), state (L, B, NH/tp, HD, N)) stacks,
+    updated in place at ``layer``. The decode recurrence of `ssm_block`
+    on the rank's channels and heads; the gated norm's sum of squares and
+    ``out_proj``'s partial sums all-reduced over ``model``. Returns (B, 1,
+    D), the same on every model rank."""
+    bsz = x.shape[0]
+    p = _local_params(params, lay, specs)
+    nh_l, n = p["dt_proj"].shape[-1], cfg.ssm_state
+    conv_stack, state_stack = cache
+    zg = x @ p["z_proj"]
+    conv_x, conv_bc, new_conv = _conv_step(conv_stack[layer],
+                                           x @ p["x_proj"], x @ p["bc_proj"],
+                                           p)
+    conv_x = F.silu(conv_x.to(torch.float32))
+    conv_bc = F.silu(conv_bc.to(torch.float32))
+    xh = conv_x.reshape(bsz, 1, nh_l, cfg.ssm_head_dim)
+    dt = (x @ p["dt_proj"]).to(torch.float32) + p["dt_bias"]
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))        # softplus
+    y, state = _state_step(state_stack[layer], xh, dt,
+                           -torch.exp(p["a_log"]), conv_bc[..., :n],
+                           conv_bc[..., n:], p["d_skip"])
+    conv_stack[layer] = new_conv
+    state_stack[layer] = state
+    return comm.reduce_from_group(_gated_out(y, zg, p, cfg, lay, x.dtype),
+                                  lay.model_group)
+
+
+def _local_params(params: dict, lay, specs: dict) -> dict:
+    """The weights a rank multiplies by: its blocks through `Layout.weight`,
+    the replicated per-channel and per-head leaves cut to its d_inner
+    channels and heads."""
+    p = {k: lay.weight(params[k], specs[k]) for k in params}
+    di_l, nh_l = p["x_proj"].shape[-1], p["dt_proj"].shape[-1]
+    m = lay.model_rank
+    for k in ("conv_x_b", "norm_w"):
+        if p[k].shape[-1] != di_l:
+            p[k] = p[k].narrow(-1, m * di_l, di_l)
+    for k in ("a_log", "d_skip", "dt_bias"):
+        if p[k].shape[-1] != nh_l:
+            p[k] = p[k].narrow(-1, m * nh_l, nh_l)
+    return p
+
+
+def _gated_out(y: torch.Tensor, zg: torch.Tensor, p: dict, cfg, lay,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The gated RMS norm over the whole d_inner (its sum of squares summed
+    over ``model``), then ``out_proj``'s partial sums on the rank's
+    channels: y (B, S, NH/tp, HD) float32, zg (B, S, di/tp)."""
+    bsz, s = y.shape[:2]
+    y = y.reshape(bsz, s, -1).to(dtype)
+    v = (y * F.silu(zg.to(torch.float32)).to(dtype)).to(torch.float32)
     ss = (v * v).sum(-1, keepdim=True)
     ss = comm.copy_to_group(comm.reduce_from_group(ss, lay.model_group),
                             lay.model_group)
-    v = v * torch.rsqrt(ss / di + 1e-6) * p["norm_w"].to(torch.float32)
-    out = v.to(x.dtype) @ p["out_proj"]
-    return comm.reduce_scatter_along(out, lay.model_group, 1)
+    v = v * torch.rsqrt(ss / cfg.d_inner + 1e-6) * p["norm_w"].to(
+        torch.float32)
+    return v.to(dtype) @ p["out_proj"]

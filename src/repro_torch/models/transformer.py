@@ -13,7 +13,9 @@ views of row l. The layers run in a Python loop (the JAX package scans
 them). Prefill writes each layer's caches into stacked tensors: (L, B, S,
 KV, hd) k and v pairs, (L, B, K-1, C) conv and (L, B, NH, HD, N) float32
 SSM states, and the hybrid's (n_super, B, S, KV, hd) shared-block pair;
-decode updates the given caches in place.
+decode updates the given caches in place. With ``rules``, `forward` serves
+on a rank of a mesh (`_forward_sharded`: the sharded blocks, the caches a
+rank's blocks).
 
 Training runs `forward_train`, which writes no cache (a cache copy under
 autograd would keep every layer's k and v alive) and, when `cfg.remat`,
@@ -26,6 +28,8 @@ leaf's gradient once instead of adding a zero-padded full-size gradient a
 layer.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -163,19 +167,22 @@ def _tree_slice(tree, i):
 # ---------------------------------------------------------------------------
 
 def empty_caches(cfg, batch_size: int, slots: int, dtype: torch.dtype,
-                 device) -> dict:
+                 device, tp: int = 1) -> dict:
     """Zeroed caches of ``slots`` positions in the decode layout: "kv" (k, v)
     of (L, B, slots, KV, hd) for `attn_mlp`; "ssm" (conv, state) of the
     `ssm` layers (`ssm.ssm_cache`, states float32); the hybrid's shared
-    blocks "shared_kv", one (k, v) slot a super-block."""
+    blocks "shared_kv", one (k, v) slot a super-block. With ``tp`` > 1, a
+    model rank's blocks (`sharding.params.cache_blocks`): slots / tp
+    positions, the SSM's heads and d_inner channels over tp."""
     if layer_kind(cfg) != "ssm":
-        return {"kv": _kv_pair(cfg, cfg.n_layers, batch_size, slots, dtype,
-                               device)}
+        return {"kv": _kv_pair(cfg, cfg.n_layers, batch_size, slots // tp,
+                               dtype, device)}
     caches = {"ssm": ssm.ssm_cache(cfg, cfg.n_layers, batch_size, dtype,
-                                   device)}
+                                   device, tp)}
     if cfg.family == "hybrid":
         caches["shared_kv"] = _kv_pair(cfg, hybrid_layout(cfg)[0],
-                                       batch_size, slots, dtype, device)
+                                       batch_size, slots // tp, dtype,
+                                       device)
     return caches
 
 
@@ -336,13 +343,15 @@ def _through_stack(cfg, params, x, *, attn_block, ssm_layer, shared_block):
     return x, aux_total
 
 
-def _embed_sharded(params, lay, tokens, prefix_embed):
+def _embed_sharded(params, lay, tokens, prefix_embed,
+                   seq_sharded: bool = True):
     """This rank's sequence block (B, S/tp, D) of the embedded input: the
     vocab-parallel lookup (the rank's rows of the table, zeros for a token
     it does not hold), the vlm prefix added on model rank 0 alone, the
-    partial sums reduce-scattered over ``model`` along the sequence. A
-    token's row comes from its one owner plus zeros, so the sum is the
-    row, bit for bit."""
+    partial sums reduce-scattered over ``model`` along the sequence (a
+    decode step's one token: all-reduced, the whole (B, 1, D) on every
+    model rank). A token's row comes from its one owner plus zeros, so
+    the sum is the row, bit for bit."""
     cfg = lay.cfg
     table = lay.weight(params["embed"], lay.specs["embed"])
     rows = table.shape[0]
@@ -357,62 +366,160 @@ def _embed_sharded(params, lay, tokens, prefix_embed):
         pre = prefix_embed.to(x.dtype)
         x = torch.cat([pre if lay.model_rank == 0 else torch.zeros_like(pre),
                        x], dim=1)
+    if not seq_sharded:
+        return comm.reduce_from_group(x, lay.model_group)
     lay.check_seq(x.shape[1])
     return comm.reduce_scatter_along(x, lay.model_group, 1)
 
 
 def _forward_train_sharded(params, lay, tokens, prefix_embed):
-    """`forward_train` on a rank of a mesh (`sharding.spmd`): the residual
-    stream sequence-sharded over ``model`` between the blocks (the JAX
-    package's ``shard_res``), each block on the rank's sequence block
-    after its norm: `attention.attention_block_sharded` with
+    """`forward_train` on a rank of a mesh (`_forward_sharded`), the hidden
+    gathered along the sequence."""
+    x, aux_total = _forward_sharded(params, lay, tokens, prefix_embed)
+    return comm.gather_along(x, lay.model_group, 1), aux_total
+
+
+def _forward_sharded(params, lay, tokens, prefix_embed, caches=None,
+                     pos=None):
+    """The layer stack on a rank of a mesh (`sharding.spmd`). Returns (this
+    rank's block of the hidden after the final norm, the aux: this rank's
+    MoE losses summed over the layers, each over its own tokens;
+    `models.lm.lm_loss` averages it over the ranks).
+
+    Training and prefill (``pos`` None): the residual stream
+    sequence-sharded over ``model`` between the blocks (the JAX package's
+    ``shard_res``), each block on the rank's sequence block after its
+    norm: `attention.attention_block_sharded` with
     `lm_mlp.mlp_block_sharded` (`attn_mlp`, the hybrid's shared blocks) or
     `moe.moe_block_sharded` (`attn_moe`), `ssm.ssm_block_sharded` (`ssm`,
-    the hybrid's mamba2 layers); the final norm too, then the hidden
-    gathered along the sequence. The stack and its rematerialised units
-    are one device's (`_through_stack`). The aux is this rank's MoE losses summed over the layers (each
-    over its own tokens; `models.lm.lm_loss` averages it over the
-    ranks)."""
+    the hybrid's mamba2 layers); the final norm too; the hidden comes back
+    as the rank's (B, S/tp, D). With ``caches`` (prefill: the rank's
+    blocks, `empty_caches(..., tp=)`) each block also writes its layer's
+    cache blocks: the rank's slot block of the prompt's keys and values,
+    the SSM's conv inputs and final state of its channels and heads.
+
+    Decode (``pos`` given, ``caches`` the rank's blocks, updated in
+    place): the one-token residual (B, 1, D) replicated over ``model``, as
+    the JAX package keeps a decode step's, each block in its one-token
+    form: `attention.decode_block_sharded` (context-parallel over the
+    sequence-sharded cache), the MLP and MoE (``seq_sharded=False``) and
+    `ssm.ssm_decode_sharded`, each all-reducing its partial sums over
+    ``model``.
+
+    The stack and its rematerialised units are one device's
+    (`_through_stack`); each stack's layers take their cache index in
+    order."""
     cfg = lay.cfg
-    x = _embed_sharded(params, lay, tokens, prefix_embed)
+    decoding = pos is not None
+    x = _embed_sharded(params, lay, tokens, prefix_embed, not decoding)
     specs, shared_specs = lay.layer_specs(), None
     if cfg.family == "hybrid":
         shared_specs = lay.layer_specs("shared")
     use_moe = layer_kind(cfg) == "attn_moe"
+    index = {key: itertools.count() for key in ("kv", "shared_kv", "ssm")}
 
     def norm(p, h, spec):
         return apply_norm({k: lay.weight(p[k], spec[k]) for k in p}, h,
                           cfg.norm)
 
-    def attn_block(h, p, spec=specs):
+    def attn_block(h, p, spec=specs, key="kv"):
         z = norm(p["ln1"], h, spec["ln1"])
-        h = h + attention.attention_block_sharded(p["attn"], cfg, z, lay,
+        if decoding:
+            a = attention.decode_block_sharded(
+                p["attn"], cfg, z, lay, spec["attn"], caches[key],
+                next(index[key]), pos)
+        elif caches is not None:
+            a, kv = attention.attention_block_sharded(
+                p["attn"], cfg, z, lay, spec["attn"], kv_out=True)
+            _write_slots(caches[key], next(index[key]), kv, lay.model_rank)
+        else:
+            a = attention.attention_block_sharded(p["attn"], cfg, z, lay,
                                                   spec["attn"])
+        h = h + a
         z = norm(p["ln2"], h, spec["ln2"])
         if use_moe:
             ff, aux = moe.moe_block_sharded(p["ffn"], cfg, z, lay,
-                                            spec["ffn"])
+                                            spec["ffn"],
+                                            seq_sharded=not decoding)
             return h + ff, aux
         return h + lm_mlp.mlp_block_sharded(p["ffn"], cfg, z, lay,
-                                            spec["ffn"])
+                                            spec["ffn"],
+                                            seq_sharded=not decoding)
 
     def ssm_layer(h, p):
-        return h + ssm.ssm_block_sharded(p["ssm"], cfg,
-                                         norm(p["ln1"], h, specs["ln1"]),
-                                         lay, specs["ssm"])
+        z = norm(p["ln1"], h, specs["ln1"])
+        if decoding:
+            return h + ssm.ssm_decode_sharded(p["ssm"], cfg, z, lay,
+                                              specs["ssm"], caches["ssm"],
+                                              next(index["ssm"]))
+        if caches is None:
+            return h + ssm.ssm_block_sharded(p["ssm"], cfg, z, lay,
+                                             specs["ssm"])
+        out, blocks = ssm.ssm_block_sharded(p["ssm"], cfg, z, lay,
+                                            specs["ssm"], cache_out=True)
+        i = next(index["ssm"])
+        for stack, t in zip(caches["ssm"], blocks):
+            stack[i] = t
+        return h + out
 
     x, aux_total = _through_stack(
         cfg, params, x, attn_block=attn_block, ssm_layer=ssm_layer,
-        shared_block=lambda h, p: attn_block(h, p, shared_specs))
-    x = norm(params["final_norm"], x, lay.specs["final_norm"])
-    return comm.gather_along(x, lay.model_group, 1), aux_total
+        shared_block=lambda h, p: attn_block(h, p, shared_specs,
+                                             "shared_kv"))
+    return norm(params["final_norm"], x, lay.specs["final_norm"]), aux_total
+
+
+def _write_slots(cache, idx: int, kv, m: int) -> None:
+    """The prompt's (k, v), each (B, S, KV, hd), into model rank ``m``'s
+    slot block of layer ``idx`` of its (k, v) stacks (L, B, S_max/tp, KV,
+    hd): the positions m·S_max/tp onward that the prompt holds."""
+    sb = cache[0].shape[2]
+    n = max(0, min(sb, kv[0].shape[1] - m * sb))
+    for stack, t in zip(cache, kv):
+        stack[idx, :, :n] = t[:, m * sb:m * sb + n]
+
+
+@torch.no_grad()
+def _serve_sharded(params, lay, tokens, prefix_embed, caches, pos0, s_max):
+    """`forward`'s prefill (``caches`` None: the rank's fresh blocks of
+    s_max slots, default the prompt's length) and decode on a rank of a
+    mesh, no autograd."""
+    if caches is None:
+        s = tokens.shape[1] + (prefix_embed.shape[1]
+                               if prefix_embed is not None else 0)
+        s_max = s if s_max is None else s_max
+        if s_max < s:
+            raise ValueError(f"forward: the prompt holds {s} positions, more "
+                             f"than s_max={s_max}")
+        from repro_torch.sharding.params import check_serve
+
+        check_serve(lay.rules, lay.mesh, s_max=s_max)
+        caches = empty_caches(lay.cfg, tokens.shape[0], s_max,
+                              params["embed"].dtype, tokens.device, lay.tp)
+        x, aux = _forward_sharded(params, lay, tokens, prefix_embed, caches)
+        return x, caches, aux
+    kv = caches.get("kv", caches.get("shared_kv"))
+    if kv is not None and pos0 >= kv[0].shape[2] * lay.tp:
+        # no rank owns the slot: the token would be dropped, not refused
+        raise ValueError(f"forward: decode at position {pos0}, past the "
+                         f"caches' s_max={kv[0].shape[2] * lay.tp} slots")
+    x, aux = _forward_sharded(params, lay, tokens, None, caches, pos0)
+    return x, caches, aux
 
 
 def forward(params, cfg, tokens, *, prefix_embed=None, caches=None,
-            pos0=None, s_max=None):
+            pos0=None, s_max=None, rules=None):
     """Shared forward for prefill (caches=None: fresh caches are returned)
     and decode (caches given: one-token step at position pos0, caches
     updated in place).
+
+    With ``rules`` (`sharding.rules.MeshRules` bound to the mesh of the
+    ranks; no autograd): ``params`` are this rank's blocks, ``tokens`` and
+    ``prefix_embed`` its batch rows, and the caches its blocks in the
+    decode layout (`sharding.params.cache_blocks`; prefill makes them
+    with s_max slots, default the prompt's length). The hidden is this
+    rank's sequence block (B, S/tp, D) in prefill and the whole (B, 1, D)
+    in decode (`_forward_sharded`).
 
     Prefill with s_max returns the decode layout (`empty_caches`: s_max
     slots, the prompt in the first S); without it, the JAX package's
@@ -423,6 +530,11 @@ def forward(params, cfg, tokens, *, prefix_embed=None, caches=None,
     float32 over a prefill, a 0-dim tensor; 0.0 in decode and for the
     other layer kinds, as the JAX package returns it.
     """
+    if rules is not None:
+        from repro_torch.sharding.spmd import layout
+
+        return _serve_sharded(params, layout(cfg, rules), tokens,
+                              prefix_embed, caches, pos0, s_max)
     x = _embed(params, cfg, tokens, prefix_embed)
     b, s, _ = x.shape
 

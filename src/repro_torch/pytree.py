@@ -31,19 +31,22 @@ def leaves_with_paths(tree) -> list[tuple[tuple, object]]:
     tuple of dict keys and positions from the root. None is an empty
     subtree, as in JAX."""
     out = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append((path, node))
-            return
-        for key, child in kids:
-            walk(child, path + (key,))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
+
+
+def _walk(node, path: tuple, out: list) -> None:
+    # a module-level function: a nested one that calls itself is a
+    # reference cycle through its closure, which would keep ``out`` (and
+    # the leaves, a card's tensors) alive until the cyclic collector runs
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append((path, node))
+        return
+    for key, child in kids:
+        _walk(child, path + (key,), out)
 
 
 def leaves(tree) -> list:

@@ -5,6 +5,13 @@ and an N-token decode; greedy decoding picks the same tokens as the JAX
 package on the same parameters. Sampling draws from an explicit
 `torch.Generator` in place of the JAX key (torch cannot replay
 `jax.random`), so the same generator state reproduces the same sequence.
+
+With ``rules`` (`sharding.rules.MeshRules` bound to the `DeviceMesh` of
+the ranks, `launch.mesh.rules_for`) each rank serves its batch rows with
+its blocks of the parameters (`sharding.params.param_specs`) and of the
+caches (`sharding.params.cache_blocks`: the KV caches' slots over
+``model``, context-parallel decode) and gets back its rows' tokens, the
+same on every model rank.
 """
 from __future__ import annotations
 
@@ -13,30 +20,37 @@ import torch
 from repro_torch.models import lm
 
 
-def make_prefill_step(cfg, s_max: int | None = None):
+def make_prefill_step(cfg, s_max: int | None = None, rules=None):
     """Prefill: (params, batch) -> (logits, caches); with s_max the caches
-    have s_max slots, ready for decode."""
+    have s_max slots, ready for decode (with ``rules``: a rank's blocks,
+    `models.lm.prefill`)."""
     def prefill_step(params, batch):
-        return lm.prefill(params, cfg, batch, s_max=s_max)
+        return lm.prefill(params, cfg, batch, s_max=s_max, rules=rules)
     return prefill_step
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, rules=None):
     """One-token decode: (params, token (B, 1), caches, pos) ->
     (logits, caches)."""
     def serve_step(params, token, caches, pos):
-        return lm.decode_step(params, cfg, token, caches, pos)
+        return lm.decode_step(params, cfg, token, caches, pos, rules=rules)
     return serve_step
 
 
 def generate(params, cfg, prompt_batch: dict, n_tokens: int, s_max: int,
              greedy: bool = True, generator: torch.Generator | None = None,
-             temperature: float = 1.0) -> torch.Tensor:
+             temperature: float = 1.0, rules=None) -> torch.Tensor:
     """Prefill the prompt then decode exactly `n_tokens` autoregressively.
 
     greedy=True: argmax decoding (`generator` ignored). greedy=False:
     temperature sampling with `torch.multinomial` over `generator`, which is
     required. Returns (B, n_tokens) int32; `n_tokens=0` returns (B, 0).
+
+    With ``rules``: ``params`` are this rank's blocks and ``prompt_batch``
+    its rows; every model rank of those rows picks from the same gathered
+    logits, so they return the same tokens (a sampling caller gives each
+    of them a generator in the same state). s_max must divide over the
+    model ranks.
     """
     tokens = prompt_batch["tokens"]
     if n_tokens <= 0:
@@ -53,11 +67,12 @@ def generate(params, cfg, prompt_batch: dict, n_tokens: int, s_max: int,
         return torch.multinomial(torch.softmax(lg, dim=-1), 1,
                                  generator=generator).to(torch.int32)
 
-    logits, caches = make_prefill_step(cfg, s_max)(params, prompt_batch)
+    logits, caches = make_prefill_step(cfg, s_max, rules)(params,
+                                                          prompt_batch)
     prefix = prompt_batch.get("prefix_embed")
     prompt_len = tokens.shape[1] + (prefix.shape[1] if prefix is not None
                                     else 0)
-    serve_step = make_serve_step(cfg)
+    serve_step = make_serve_step(cfg, rules)
     tok = pick(logits)
     out = [tok]
     for i in range(n_tokens - 1):

@@ -228,6 +228,74 @@ def cache_specs(cfg, rules, mesh, caches: dict) -> dict:
     return pytree.tree_map(one, caches)
 
 
+def check_serve(rules: MeshRules, mesh, s_max: int | None = None,
+                batch: int | None = None) -> None:
+    """Sharded serving's shapes: the cache's ``s_max`` slots over the model
+    axis (context-parallel decode), the global ``batch`` over the batch
+    axes. The JAX package replicates a dim that does not divide (what
+    `cache_specs` writes); the port refuses it with a `ValueError`."""
+    ms = mesh_axes(mesh)
+    tp = ms.get(rules.model, 1)
+    if s_max is not None and s_max % tp:
+        raise ValueError(f"sharded serving shards the cache's s_max={s_max} "
+                         f"slots over the {tp} model ranks (context-parallel "
+                         f"decode); it does not divide")
+    dp = _axes_size(ms, tuple(rules.batch))
+    if batch is not None and batch % dp:
+        raise ValueError(f"sharded serving shards the batch ({batch} rows) "
+                         f"over the {dp} ranks of {tuple(rules.batch)}; it "
+                         f"does not divide")
+
+
+def cache_blocks(cfg, rules: MeshRules, caches: dict, mesh) -> dict:
+    """This rank's blocks of whole decode caches (`models.lm.init_caches`'s
+    layout, the JAX package's): each leaf cut under `cache_specs` (the KV
+    caches' batch over the batch axes and their slots over ``model``, the
+    SSM states' batch and heads), except the SSM conv cache (L, B, K-1,
+    d_inner + 2N), which `cache_specs` replicates over ``model``: a rank
+    keeps its batch rows of [its d_inner/tp x channels | B | C], what the
+    sharded Mamba2 block computes (`models.ssm.ssm_block_sharded`). Shapes
+    that do not divide are refused (`check_serve`)."""
+    kv = caches.get("kv", caches.get("shared_kv"))
+    lead = (kv or caches["ssm"])[0]
+    check_serve(rules, mesh, s_max=kv[0].shape[2] if kv else None,
+                batch=lead.shape[1])
+    out = _map_tree(lambda leaf, spec: shard(leaf, spec, mesh), caches,
+                    cache_specs(cfg, rules, mesh, caches))
+    if "ssm" in out:
+        conv, state = out["ssm"]
+        di = cfg.d_inner
+        di_l = di // rules.tp
+        m = mesh.get_local_rank(rules.model)
+        out["ssm"] = (torch.cat([conv[..., m * di_l:(m + 1) * di_l],
+                                 conv[..., di:]], dim=-1), state)
+    return out
+
+
+def gather_caches(cfg, rules: MeshRules, blocks: dict, mesh) -> dict:
+    """The whole decode caches, in the JAX package's layout, from every
+    rank's `cache_blocks` (every rank gets them): the conv caches' x
+    channels gathered over ``model``, then every leaf under
+    `cache_specs`."""
+    from repro_torch.core import comm
+
+    out = dict(blocks)
+    ms = mesh_axes(mesh)
+    if "ssm" in out:
+        conv, state = out["ssm"]
+        di_l = cfg.d_inner // rules.tp
+        x = comm.all_gather_cat(conv[..., :di_l].contiguous(),
+                                mesh.get_group(rules.model), 3)
+        out["ssm"] = (torch.cat([x, conv[..., di_l:]], dim=-1), state)
+    kv = out.get("kv", out.get("shared_kv"))
+    lead = (kv or out["ssm"])[0]
+    batch = lead.shape[1] * _axes_size(ms, tuple(rules.batch))
+    s_max = kv[0].shape[2] * ms[rules.model] if kv else ms[rules.model]
+    specs = cache_specs(cfg, rules, mesh, transformer.empty_caches(
+        cfg, batch, s_max, torch.float32, "meta"))   # the whole caches'
+    return _map_tree(lambda leaf, spec: gather(leaf, spec, mesh), out, specs)
+
+
 # ---------------------------------------------------------------------------
 # shards
 # ---------------------------------------------------------------------------
@@ -245,8 +313,10 @@ def _block(mesh, axes: tuple) -> tuple[int, int]:
 
 
 def shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
-    """This rank's block of ``t`` under ``spec``, a contiguous copy (or
-    ``t`` itself when the spec shards nothing)."""
+    """This rank's block of ``t`` under ``spec``, a contiguous copy that
+    holds no more than the block (or ``t`` itself when the spec shards
+    nothing)."""
+    whole = t
     for dim, entry in enumerate(spec):
         axes = entry_axes(entry)
         if not axes:
@@ -257,7 +327,11 @@ def shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
                              f"divide over {axes} ({n} ranks)")
         b = t.shape[dim] // n
         t = t.narrow(dim, idx * b, b)
-    return t.contiguous()
+    if t is whole:
+        return t.contiguous()
+    # a block of leading rows is a contiguous view that would pin the
+    # whole leaf's storage
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def local_shape(shape, spec: tuple, mesh) -> tuple:

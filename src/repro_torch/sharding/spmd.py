@@ -1,4 +1,5 @@
-"""What a rank of the sharded train step knows about its layout.
+"""What a rank of the sharded train and serving steps knows about its
+layout.
 
 The port runs the JAX package's sharded LM step as explicit per-rank SPMD
 (`sharding.rules`): each rank holds its block of every leaf under
@@ -37,6 +38,14 @@ must divide over the product of ``ff_wide``'s axes. `Layout.check_widths`
 and `check_seq` raise otherwise. The JAX package would replicate such a
 dim (GSPMD's fallback) and also runs a replicated residual; the port does
 not, and no config of the repo needs it at its production tp.
+
+Serving (`models.transformer.forward(rules=)`) keeps the prefill's
+residual sequence-parallel as training does; a decode step's one-token
+residual is whole on every model rank (the JAX package's), each block's
+row-parallel partial sums all-reduced over ``model``. Its caches are a
+rank's blocks (`sharding.params.cache_blocks`): the KV caches' slots over
+``model`` (context-parallel decode), so s_max must divide over it too,
+and the batch over the batch axes (`sharding.params.check_serve`).
 """
 from __future__ import annotations
 
@@ -120,7 +129,7 @@ class Layout:
 
     def check_seq(self, s: int) -> None:
         if s % self.tp:
-            raise ValueError(f"the sharded train step shards the sequence "
+            raise ValueError(f"the sharded step shards the sequence "
                              f"({s} positions) over the {self.tp} model "
                              f"ranks (sequence parallelism); it does not "
                              f"divide")

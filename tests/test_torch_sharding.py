@@ -321,3 +321,35 @@ def test_shard_tree_blocks_rebuild_every_leaf(sizes):
     zero = [p for p, s in flat_specs.items() if p.startswith("m/")
             and "data" in t_sp.spec_axes(s)]
     assert zero, "no moment is ZeRO-1 sharded"
+
+
+def test_a_shard_holds_only_its_block():
+    """A block of leading rows is a contiguous view of the leaf; `shard`
+    copies it, so a rank's blocks do not pin the whole leaf's storage
+    (the sharded init would keep every full embedding table)."""
+    leaf = torch.arange(32.0).reshape(8, 4)
+    for m in range(2):
+        view = _Coords({"data": 2, "model": 2}, {"data": 0, "model": m})
+        block = t_sp.shard(leaf, ("model", None), view)
+        assert torch.equal(block, leaf[4 * m:4 * (m + 1)])
+        assert block.untyped_storage().nbytes() == block.numel() * 4
+    assert t_sp.shard(leaf, (None, None), view) is leaf
+
+
+def test_leaves_with_paths_leaves_no_reference_cycle():
+    """The walk keeps no cycle that holds the leaves after its caller drops
+    them: a card's tensors would stay allocated until the cyclic collector
+    ran (grok-1-314b's per-layer draws ran a card out of memory)."""
+    import gc
+    import weakref
+
+    leaf = torch.zeros(3)
+    ref = weakref.ref(leaf)
+    gc.disable()
+    try:
+        got = pytree.leaves_with_paths({"a": {"b": leaf}})
+        assert got == [(("a", "b"), leaf)]
+        del got, leaf
+        assert ref() is None
+    finally:
+        gc.enable()

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Sharded LM training on the CUDA cards: four ranks on a (data=2,
-model=2) mesh, every layer kind.
+"""Sharded LM training and serving on the CUDA cards: four ranks on a
+(data=2, model=2) mesh, every layer kind.
 
-    python3 tools/lm_mesh_check.py                # (e)-(i), from the root
-    python3 tools/lm_mesh_check.py --cases g,h,i  # some of them
+    python3 tools/lm_mesh_check.py                # (e)-(k), from the root
+    python3 tools/lm_mesh_check.py --cases j,k    # some of them
     python3 tools/lm_mesh_check.py --phase        # chip_smoke.py's [lm-mesh]
 
 Builds the attention kernels, then, on four cards (one rank a card, NCCL):
@@ -47,6 +47,20 @@ Builds the attention kernels, then, on four cards (one rank a card, NCCL):
   falling, step time, tokens/s, peak memory a card, and the all-to-all's
   bytes a step beside their reckoning from the dispatch buffer's shape.
 
+- (j) sharded serving (`lm_serve.generate(rules=)`: prefill, then
+  context-parallel decode) of llama3.2-3b at full width and depth, a B=4
+  x 4096 prompt, 32 greedy tokens, against one card's generate from the
+  same seed (rank 0 runs it first): the agreement of the tokens, the
+  first flipped position, the prefill logits' bf16 row error; prefill
+  and decode ms, one traced decode step's device time and idle share,
+  collectives a decode step, peak memory a card;
+- (k) grok-1-314b "alltoall" served sharded: at 8 layers, B=4 x 1024, at
+  a capacity with no drops, against one card's generate as (j); then at
+  24 layers (~160 GB of bf16 weights reckoned, ~40 GB a card: past what
+  one card holds), B=4 x 4096, 32 tokens at the config's capacity, the
+  weights drawn a layer at a time: prefill and decode ms, a traced decode
+  step, collectives, peak memory.
+
 ``--phase`` runs `chip_smoke.py`'s `[lm-mesh]` phase alone instead, on
 the cards there are (four ranks sharing one card over gloo on a machine
 with one). Prints the card's name and power limit. Exits 1 on the first
@@ -63,6 +77,7 @@ import statistics
 import sys
 import tempfile
 import time
+import types
 
 # (e)'s float32 reference step holds 64 GB of state beside its
 # activations on one card: let the allocator grow segments in place
@@ -100,6 +115,20 @@ GROK = dict(arch="grok-1-314b", layers=2, batch=8, seq=1024, steps=3,
             falls=False)
 KIMI = dict(arch="kimi-k2-1t-a32b", layers=1, batch=8, seq=4096, steps=3,
             lr=1e-5, modes=("alltoall",), no_drop=False, falls=True)
+# (j): sharded serving of llama3.2-3b at full depth, held to one card's
+# generate (rank 0 runs it first); s_max leaves room for the timed steps
+SERVE_LLAMA = dict(arch=cs.LM_ARCH, layers=None, batch=4, prompt=4096,
+                   s_max=4160, tokens=32, trace=True)
+# (k): grok-1-314b "alltoall", first at 8 layers beside one card's
+# generate at a capacity with no drops (a prompt of 1024: one card holds
+# the 56.2 GB of weights beside the no-drop dispatch buffers), then 24
+# layers (~160 GB of bf16, ~40 GB a card: no one card holds it) at the
+# config's own capacity, drawn a layer at a time
+SERVE_GROK_CUT = dict(arch="grok-1-314b", layers=8, batch=4, prompt=1024,
+                      s_max=1088, tokens=32, no_drop=True)
+SERVE_GROK_DEEP = dict(arch="grok-1-314b", layers=24, batch=4, prompt=4096,
+                       s_max=4160, tokens=32, reference=False, layered=True,
+                       trace=True)
 
 
 def reckoned_bytes(cfg, rules, optimizer_name: str = "adamw") -> dict:
@@ -450,7 +479,117 @@ def case_i() -> None:
     _moe_case("[lm-mesh i]", KIMI)
 
 
-CASES = {"e": case_e, "f": case_f, "g": case_g, "h": case_h, "i": case_i}
+def layered_params(plan: dict, mesh, dev) -> dict:
+    """This rank's blocks of ``plan``'s model (`cs.serve_config`), drawn a
+    layer at a time: layer l is `init_sharded_params` of a one-layer
+    config from seed SEED + l, copied into the stacked blocks (the
+    embedding, final norm and head from layer 0's draw). A stacked expert
+    weight drawn whole (`init_sharded_params`) would not fit one card at
+    grok-1-314b's 24 layers (wi alone: 77.3 GB in bf16). Also returns the
+    bytes the rank holds before the first layer and after each."""
+    from repro_torch import pytree
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import transformer
+    from repro_torch.sharding import params as sp
+
+    cfg = cs.serve_config(plan)
+    rules = launch_mesh.rules_for(mesh)
+    sizes = sp.mesh_axes(mesh)
+    specs = sp.param_specs(cfg, rules, sizes)
+    out = pytree.tree_map(lambda t: None, transformer.param_shapes(cfg))
+    for path, t in pytree.leaves_with_paths(transformer.param_shapes(cfg)):
+        pytree.put(out, path, torch.empty(
+            sp.local_shape(t.shape, pytree.get(specs, path), sizes),
+            dtype=t.dtype, device=dev))
+    one = dataclasses.replace(cfg, n_layers=1)
+    held = [cs._on(dev, torch.cuda.memory_allocated, 0)]
+    for layer in range(cfg.n_layers):
+        part = sp.init_sharded_params(cs.SEED + layer, one, rules, mesh,
+                                      device=dev)
+        for path, t in pytree.leaves_with_paths(part):
+            if path[0] == "layers":
+                pytree.get(out, path)[layer].copy_(t[0])
+            elif layer == 0:
+                pytree.get(out, path).copy_(t)
+        del part, t
+        cs._on(dev, torch.cuda.empty_cache)
+        held.append(cs._on(dev, torch.cuda.memory_allocated, 0))
+        if layer % 8 == 0:      # progress, readable if a later draw fails
+            print(f"[layered] rank {mesh.get_rank()}: layer {layer} drawn, "
+                  f"{held[-1] / 2**30:.2f} GiB held", flush=True)
+    return out, held
+
+
+def serve_rank(plan: dict) -> dict:
+    """(j), (k) on one rank: ``plan`` served sharded (`cs._lm_mesh_e_full`),
+    its parameters drawn a layer at a time where ``plan["layered"]``
+    (`layered_params`)."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = launch_mesh.rank_device(plan.get("device", "cuda"))
+    mesh = launch_mesh.make_host_mesh(4, ("data", "model"), device=dev)
+    params, held = None, None
+    if plan.get("layered"):
+        params, held = layered_params(plan, mesh, dev)
+    out = cs._lm_mesh_e_full(plan, mesh, dev, params)
+    out["layered_held"] = held
+    return out
+
+
+def reckon_serve(plan: dict) -> dict:
+    """The bytes of a rank's parameter blocks and of its KV caches for
+    ``plan`` on the (2, 2) mesh, from the spec trees (and of the whole
+    parameters, one card's)."""
+    from repro_torch import pytree
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import transformer
+    from repro_torch.sharding import params as sp
+
+    cfg = cs.serve_config(plan)
+    sizes = {"data": 2, "model": 2}
+    rules = launch_mesh.rules_for(types.SimpleNamespace(shape=sizes))
+    specs = sp.param_specs(cfg, rules, sizes)
+    whole = rank = 0
+    for path, t in pytree.leaves_with_paths(transformer.param_shapes(cfg)):
+        n = t.element_size()
+        whole += t.numel() * n
+        rank += math.prod(sp.local_shape(t.shape, pytree.get(specs, path),
+                                         sizes)) * n
+    slots = (plan["batch"] // 2) * (plan["s_max"] // 2)    # a rank's
+    kv = 2 * cfg.n_layers * slots * cfg.n_kv_heads * cfg.head_dim * 2
+    return dict(whole=whole, rank=rank, kv=kv)
+
+
+def _serve_case(tag: str, plans: tuple) -> None:
+    from repro_torch.launch import mesh as launch_mesh
+
+    for plan in plans:
+        rk = reckon_serve(plan)
+        cs.log(f"{tag} {plan['arch']} at {plan['layers'] or 'all'} layers, "
+               f"reckoned: parameters {rk['whole'] / 1e9:.2f} GB on one "
+               f"card, {rk['rank'] / 1e9:.2f} GB a rank's blocks on (data=2,"
+               f" model=2); KV caches {rk['kv'] / 1e9:.3f} GB a rank")
+    for plan in plans:      # a spawn each: the next starts on empty cards
+        outs = launch_mesh.spawn(serve_rank, 4, "cuda", (plan,))
+        held = outs[0]["layered_held"]
+        if held:
+            cs.log(f"{tag} rank 0 holds {held[0] / 2**30:.2f} GiB of empty "
+                   f"blocks, then after each layer's draw "
+                   f"{[round(b / 2**30, 2) for b in held[1:]]} GiB")
+        cs.check_serve_full(tag, plan, outs)
+
+
+def case_j() -> None:
+    _serve_case("[lm-mesh j]", (SERVE_LLAMA,))
+
+
+def case_k() -> None:
+    _serve_case("[lm-mesh k]", (SERVE_GROK_CUT, SERVE_GROK_DEEP))
+
+
+CASES = {"e": case_e, "f": case_f, "g": case_g, "h": case_h, "i": case_i,
+         "j": case_j, "k": case_k}
 
 
 def main() -> None:
@@ -459,7 +598,7 @@ def main() -> None:
                     help="chip_smoke.py's [lm-mesh] phase alone")
     ap.add_argument("--cases", default=",".join(CASES),
                     help="comma-separated cases of the four-card run "
-                         "(default: all of e, f, g, h, i)")
+                         "(default: all of e to k)")
     args = ap.parse_args()
     cases = args.cases.split(",")
     if not set(cases) <= set(CASES):
