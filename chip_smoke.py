@@ -243,7 +243,26 @@ Phases, each of which stops the script with a non-zero exit on failure:
    collectives a decode step by kind, count and bytes, peak memory a
    rank, each rank's attention launches (one a layer at its local 12
    query and 4 kv heads).
-18. The kernel list, the card's name and power limit, one JSON line of
+18. `[dryrun]`: the dry run (`launch.dryrun`, `launch.step_analysis`)
+   in a subprocess on the host, started with the script (a fake process
+   group and the script's own groups cannot share a process; it starts
+   no CUDA context): (a) `[train]`'s llama3.2-3b step (full depth, B=2 x
+   4096, AdamW, no mesh) on meta tensors against the same step analysed
+   on the card in `[train]`: FLOPs equal exactly (the attention kernels
+   report theirs), the meta peak within DRYRUN_PEAK_RTOL of
+   `torch.cuda.max_memory_allocated()` around that step; (b) `[lm-mesh]`
+   (a)'s llama3.2-3b cell (2 layers, B=4 x 1024, (data=2, model=2)) on a
+   fake group of 4: each rank's collectives by kind (count, result bytes,
+   bytes sent) equal to what that gloo rank of (a) counted in every step;
+   (c) the production cells `DRYRUN_CELLS` on fake groups of 256 / 512
+   ranks, each record's per-rank peak GiB, GFLOP and collective MiB
+   printed (predictions, not card measurements).
+19. `[examples]`: the five `examples/torch_*.py` on the card at the JAX
+   examples' defaults, each in a subprocess, all at once, each timed;
+   exit 0; the quickstart's front equal to `python -m repro_torch.search`
+   with the same flags, the distributed GA's elastic restart at 48 rows a
+   rank.
+20. The kernel list, the card's name and power limit, one JSON line of
    per-kernel results (each row names what it times in `what`; the rows
    `fitness_errors[bucket]` and `domination_block[bucket]` are the batched
    launches, the `[shard]` rows a mesh rank's), and last `{"ok": true,
@@ -258,6 +277,7 @@ script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import pathlib
@@ -329,6 +349,20 @@ TPU_KERNELS = {  # kernel -> (port source, the TPU kernel it replaces,
         "(b) the reduced float32 steps of every layer kind with "
         "attention"),
 }
+# [dryrun] (c): (arch, shape, multi_pod) of the production cells run on
+# fake groups; paper-dt-ga is the GA cell
+DRYRUN_CELLS = (("llama3.2-3b", "train_4k", False),
+                ("llama3.2-3b", "decode_32k", False),
+                ("mamba2-1.3b", "long_500k", False),
+                ("kimi-k2-1t-a32b", "decode_32k", False),
+                ("grok-1-314b", "train_4k", True),
+                ("paper-dt-ga", None, False))
+# [dryrun] (a): the meta step's peak against the card's
+# max_memory_allocated: the caching allocator rounds each block up (512 B;
+# 2 MiB segments) and cuBLAS's workspace is allocated outside any op
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_TIMEOUT_S = 600
+EXAMPLES_TIMEOUT_S = 400
 LM_ARCH = "llama3.2-3b"            # full width; the repo's train_4k length
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 4096, 32
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096   # [train]: train_4k's length, B 256 -> 2
@@ -2911,6 +2945,21 @@ def reduced_train_checks(tmp: str, device: str = "cuda") -> None:
         f"for bit")
 
 
+def card_step_analysis(step_fn, state, batch) -> dict:
+    """`[dryrun]` (a)'s card side: one more `[train]` step under
+    `launch.step_analysis.analyze`, with `torch.cuda.max_memory_allocated`
+    around it (the state's tensors are updated in place, as a step
+    does)."""
+    from repro_torch.launch import step_analysis
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = step_analysis.analyze(step_fn, state, batch)
+    torch.cuda.synchronize()
+    got["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return got
+
+
 def phase_train() -> dict:
     """LM training through `launch.train`'s code path on the card:
     llama3.2-3b at full width and depth, B=2 x 4096 from `SyntheticLMData`,
@@ -2927,7 +2976,7 @@ def phase_train() -> dict:
     from repro_torch.launch import train as launch_train
 
     counts = dict.fromkeys(kernels.launch_counts(), 0)
-    by_arch = {}
+    by_arch, dry_card = {}, None
     for arch, layers, batch, steps in ((LM_ARCH, None, TRAIN_BATCH,
                                         TRAIN_STEPS), GROK_TRAIN):
         cfg = launch_train.model_config(arch, layers=layers)
@@ -2990,6 +3039,7 @@ def phase_train() -> dict:
                   f"batch did not fall over {TRAIN_FIXED} steps: {fixed}")
             log(f"{tag}: {TRAIN_FIXED} more steps on one fixed batch: "
                 f"losses {[round(x, 4) for x in fixed]}, falling")
+            dry_card = card_step_analysis(step_fn, state, batch_t)
         state = train_breakdown(tag, cfg, state,
                                 launch_train.optimizer_for(cfg, steps),
                                 batch_t, steady * 1e3)
@@ -2998,7 +3048,7 @@ def phase_train() -> dict:
         if arch == LM_ARCH:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
                 reduced_train_checks(d)
-    return dict(counts=counts, by_arch=by_arch)
+    return dict(counts=counts, by_arch=by_arch, dryrun_card=dry_card)
 
 
 def phase_ssm(arch: str) -> dict:
@@ -4086,7 +4136,8 @@ def _lm_mesh_a(plan: dict, mesh, dev, out: dict, ckpt_dir) -> None:
         step_s.append(time.perf_counter() - marks[-1])
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
-        coll.append((dict(comm.COLLECTIVES), dict(comm.COLLECTIVE_BYTES)))
+        coll.append((dict(comm.COLLECTIVES), dict(comm.COLLECTIVE_BYTES),
+                     dict(comm.COLLECTIVE_RESULT_BYTES)))
         full = sp.gather_tree(params, specs.params, mesh)
         if ref is not None:
             want = ref["A"][step][2]
@@ -4656,7 +4707,7 @@ def _log_lm_mesh_timing(tag: str, outs: list, plan: dict) -> None:
     steady = statistics.median(o["step_s"][1:]) if len(o["step_s"]) > 1 \
         else o["step_s"][0]
     tokens = plan["batch"] * plan["seq"]
-    coll, nbytes = o["coll"][-1]
+    coll, nbytes, _ = o["coll"][-1]
     peaks = ", ".join(f"{r['peak'] / 2**30:.2f}" for r in outs)
     log(f"{tag} a step {[round(s * 1e3, 1) for s in o['step_s']]} ms on "
         f"rank 0's host clock (the first with warm-up), steady "
@@ -4785,6 +4836,199 @@ def phase_lm_mesh(root: str, plans: tuple = (LM_MESH_PLAN, LM_MESH_SSM_PLAN),
 MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
 
 
+def dryrun_side(out_path: str) -> None:
+    """`[dryrun]`'s host side, run in a subprocess of the script (a fake
+    group wants a process with no group; the dry run starts no CUDA
+    context): (a) `[train]`'s llama3.2-3b step on meta tensors, (b) each
+    rank's collectives of `[lm-mesh]` (a)'s first cell on a fake (data=2,
+    model=2) group, (c) the production cells `DRYRUN_CELLS`; written to
+    ``out_path`` as JSON."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.set_num_threads(2)     # the card's phases share the host's cores
+    t0 = time.perf_counter()
+    cfg = launch_train.model_config(LM_ARCH)
+    state, step_fn = launch_train.build(cfg, steps=TRAIN_STEPS,
+                                        device="meta", seed=SEED)
+    batch = {"tokens": torch.empty((TRAIN_BATCH, TRAIN_SEQ),
+                                   dtype=torch.int32, device="meta")}
+    out = {"a": dryrun.timed_analysis(step_fn, (state, batch)), "b": [],
+           "c": []}
+    del state, step_fn
+    plan = LM_MESH_PLAN
+    cell = launch_train.model_config(plan["arch"], layers=plan["layers"])
+    shape = ShapeConfig("lm-mesh (a)", plan["seq"], plan["batch"], "train")
+    for rank in range(LM_MESH_RANKS):
+        with dryrun.fake_group(LM_MESH_RANKS, rank):
+            mesh = make_host_mesh(LM_MESH_RANKS, ("data", "model"),
+                                  device="cpu")
+            out["b"].append(dryrun.timed_analysis(
+                *dryrun.cell_inputs(cell, shape, mesh))["collectives"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+        for arch, shape_name, multi in DRYRUN_CELLS:
+            out["c"].append(dryrun.run_ga_cell(multi, d, force=True)
+                            if shape_name is None else
+                            dryrun.run_cell(arch, shape_name, multi, d,
+                                            force=True))
+    out["seconds"] = time.perf_counter() - t0
+    pathlib.Path(out_path).write_text(json.dumps(out))
+
+
+def start_dryrun(out_path: str) -> subprocess.Popen:
+    """`dryrun_side` in a subprocess, its output in ``out_path``.log;
+    stopped when the script exits."""
+    log_file = open(out_path + ".log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.dryrun_side(sys.argv[1])", out_path], cwd=ROOT,
+        stdout=log_file, stderr=subprocess.STDOUT)
+    log_file.close()
+    atexit.register(_stop, proc)
+    return proc
+
+
+def _stop(proc: subprocess.Popen) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def phase_dryrun(proc: subprocess.Popen, out_path: str, card: dict,
+                 lm_mesh_outs: list) -> None:
+    """`[dryrun]`'s checks (module doc, phase 18): (a) against `[train]`'s
+    card step (``card``), (b) against `[lm-mesh]` (a)'s ranks
+    (``lm_mesh_outs``), (c) the records printed."""
+    from repro_torch.launch import dryrun, step_analysis
+
+    tag = "[dryrun]"
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        _stop(proc)
+        fail(f"{tag} the dry run took over {DRYRUN_TIMEOUT_S} s")
+    check(proc.returncode == 0, f"{tag} the dry run failed (exit "
+          f"{proc.returncode}):\n" + pathlib.Path(out_path + ".log")
+          .read_text()[-4000:])
+    got = json.loads(pathlib.Path(out_path).read_text())
+    log(f"{tag} the host's subprocess: {got['seconds']:.1f} s, beside the "
+        f"card's phases ({time.perf_counter() - t0:.1f} s waited for it)")
+
+    a = got["a"]
+    peak, card_peak = a["memory"]["peak_bytes"], card["max_memory_allocated"]
+    gap = (peak - card_peak) / card_peak
+    log(f"{tag} (a) {LM_ARCH} full depth, B={TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"AdamW, one card: FLOPs {a['flops']:.6e} on meta, "
+        f"{card['flops']:.6e} on the card (kernels: "
+        f"{card['kernel_flops']}); peak {peak / 2**30:.2f} GiB on meta, "
+        f"{card_peak / 2**30:.2f} GiB max_memory_allocated on the card "
+        f"({gap:+.2%}; the card's own storage count "
+        f"{card['memory']['peak_bytes'] / 2**30:.2f} GiB); meta analysis "
+        f"{a['seconds']:.1f} s on the host")
+    check(a["flops"] == card["flops"], f"{tag} (a) the meta step's FLOPs "
+          f"{a['flops']} differ from the card step's {card['flops']}")
+    check(abs(gap) <= DRYRUN_PEAK_RTOL, f"{tag} (a) the meta peak "
+          f"{peak} B is {gap:+.2%} off the card's {card_peak} B (limit "
+          f"{DRYRUN_PEAK_RTOL:.0%})")
+
+    kinds = step_analysis.JAX_KIND
+    for o in lm_mesh_outs:
+        want = got["b"][o["rank"]]
+        for i, (counts, sent, result) in enumerate(o["a"][0]["coll"]):
+            for kind, name in kinds.items():
+                check((counts[kind], result[kind], sent[kind]) == (
+                    want[name]["count"], want[name]["bytes"],
+                    want[name]["sent_bytes"]),
+                      f"{tag} (b) rank {o['rank']} step {i}: {kind} "
+                      f"{counts[kind]} calls, {result[kind]} result and "
+                      f"{sent[kind]} sent bytes on gloo; the dry run: "
+                      f"{want[name]}")
+    w0 = got["b"][0]
+    log(f"{tag} (b) [lm-mesh] (a)'s {LM_MESH_PLAN['arch']} cell on a fake "
+        f"group of {LM_MESH_RANKS}: every rank's collectives == its gloo "
+        f"rank's in each of the {len(lm_mesh_outs[0]['a'][0]['coll'])} "
+        f"steps; rank 0 a step: " + ", ".join(
+            f"{w0[n]['count']} {n} ({w0[n]['bytes'] / 2**20:.1f} MiB "
+            f"result, {w0[n]['sent_bytes'] / 2**20:.1f} MiB sent)"
+            for n in kinds.values()))
+
+    for rec in got["c"]:
+        check(rec["status"] == "ok", f"{tag} (c) {rec['arch']} "
+              f"{rec['shape']} {rec['mesh']}: {rec.get('error')}")
+        secs = [r["seconds"] for r in rec["ranks"].values()]
+        log(f"{tag} (c) {dryrun.summary(rec)} (ranks "
+            f"{sorted(rec['ranks'], key=int)}, {sum(secs):.1f} s; "
+            f"predictions, not card measurements)")
+
+
+EXAMPLE_FILES = ("torch_quickstart.py", "torch_distributed_ga.py",
+                 "torch_lm_serve.py", "torch_lm_train.py",
+                 "torch_lm_quant_search.py")
+
+
+def _front(out: str) -> list:
+    lines = out.splitlines()
+    i = lines.index("pareto front (acc_loss, normalized area):")
+    return [ln for ln in lines[i + 1:] if ln.startswith("  ")]
+
+
+def phase_examples() -> None:
+    """`[examples]` (module doc, phase 19): each example and the search
+    CLI at the quickstart's defaults, all started at once on the card;
+    each one's exit code and wall time."""
+    import os
+
+    tag = "[examples]"
+    cmds = {name: [sys.executable, str(ROOT / "examples" / name)]
+            for name in EXAMPLE_FILES}
+    cmds["python -m repro_torch.search"] = [
+        sys.executable, "-m", "repro_torch.search", "--pop", "64", "--gens",
+        "40"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as d:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), TMPDIR=d)
+        procs, done, outs = {}, {}, {}
+        t0 = time.perf_counter()
+        for i, (name, cmd) in enumerate(cmds.items()):
+            with open(pathlib.Path(d) / f"{i}.log", "w") as f:
+                procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                               stdout=f,
+                                               stderr=subprocess.STDOUT)
+        try:
+            while len(done) < len(procs):
+                check(time.perf_counter() - t0 < EXAMPLES_TIMEOUT_S,
+                      f"{tag} {sorted(set(procs) - set(done))} still "
+                      f"running after {EXAMPLES_TIMEOUT_S} s")
+                for name, p in procs.items():
+                    if name not in done and p.poll() is not None:
+                        done[name] = time.perf_counter() - t0
+                time.sleep(0.2)
+        finally:
+            for p in procs.values():
+                _stop(p)
+        for i, name in enumerate(cmds):
+            outs[name] = (pathlib.Path(d) / f"{i}.log").read_text()
+    for name, p in procs.items():
+        check(p.returncode == 0, f"{tag} {name} exited {p.returncode}:\n"
+              + outs[name][-3000:])
+    log(f"{tag} {len(cmds)} processes at once on the card, each at its "
+        f"defaults, exit 0; seconds to exit: " + ", ".join(
+            f"{name} {done[name]:.1f}" for name in cmds))
+    q, cli = outs[EXAMPLE_FILES[0]], outs["python -m repro_torch.search"]
+    check(_front(q) == _front(cli) and _front(q), f"{tag} the quickstart's "
+          f"front differs from the search CLI's")
+    ga = outs[EXAMPLE_FILES[1]]
+    check("restored onto 4 ranks: [48, 48, 48, 48] rows a rank" in ga,
+          f"{tag} the distributed GA's elastic restart:\n{ga[-2000:]}")
+    log(f"{tag} the quickstart's front ({len(_front(q))} points) == the "
+        f"search CLI's; the distributed GA restarted 8 islands' checkpoint "
+        f"on 4 ranks of 48 rows; " + "; ".join(
+            ln for name in EXAMPLE_FILES[2:] for ln in outs[name].splitlines()
+            if ln.startswith(("throughput", "final loss", "@<="))))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4809,6 +5053,9 @@ def main() -> None:
     from repro_torch.families import printed_mlp as pm
 
     t_start = time.perf_counter()
+    dry_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+    dry_out = str(pathlib.Path(dry_dir.name) / "dryrun.json")
+    dry_proc = start_dryrun(dry_out)
     phase_build()
 
     t0 = time.perf_counter()
@@ -4867,6 +5114,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_mesh_") as d:
         lm_mesh_path = phase_lm_mesh(d)
+    phase_dryrun(dry_proc, dry_out, train_path["dryrun_card"],
+                 lm_mesh_path["outs"])
+    dry_dir.cleanup()
     for path in (tree_path, *mlp_paths.values(), forest_path, lm_path,
                  train_path, *ssm_paths.values(), *moe_paths.values(), sweep_path,
                  faults_path, mesh_path, lm_mesh_path):
@@ -4928,6 +5178,8 @@ def main() -> None:
             phase_chunk(what, prob, fit, d)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
         phase_resume(problem, d)
+    torch.cuda.empty_cache()
+    phase_examples()
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log("kernels: " + ", ".join(results))

@@ -162,16 +162,18 @@ def lm_params_from_arrays(params_np: dict, cfg, device="cuda",
     return convert(params_np)
 
 
-def lm_caches_to_arrays(caches: dict, cfg, rules=None) -> dict:
+def lm_caches_to_arrays(caches: dict, cfg, rules=None,
+                        batch: int | None = None) -> dict:
     """Decode caches as numpy arrays in the JAX package's decode layout
     (`repro.models.lm.init_caches`'s tree: "kv", "ssm", "shared_kv", each
     a pair), float32: with ``rules``, gathered from every rank's blocks
     (`sharding.params.gather_caches`, the conv caches' channels put back
-    in order), which every rank of the mesh must call."""
+    in order; ``batch`` the global batch, which a replicated batch must
+    give), which every rank of the mesh must call."""
     if rules is not None:
         from repro_torch.sharding import params as sp
 
-        caches = sp.gather_caches(cfg, rules, caches, rules.mesh)
+        caches = sp.gather_caches(cfg, rules, caches, rules.mesh, batch)
     return {k: tuple(t.detach().cpu().float().numpy().copy() for t in pair)
             for k, pair in caches.items()}
 

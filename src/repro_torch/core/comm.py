@@ -12,8 +12,10 @@ Where the JAX package names several axes at once (the expert axes
 major one (`sharding.spmd.Layout.group`). On a group whose
 transport is gloo (ranks sharing a card, `launch.mesh.collective_backend`)
 a CUDA tensor goes through a host copy for the collective; NCCL takes it
-on the card as it is. The arithmetic around the collective stays on the
-rank's device.
+on the card as it is, and so does the ``fake`` backend of the dry run
+(`launch.dryrun`: every tensor stays on its own device, a meta tensor on
+meta, and the collective moves nothing). The arithmetic around the
+collective stays on the rank's device.
 
 The differentiable pairs are `torch.autograd.Function`s, Megatron's
 operators for tensor and sequence parallelism:
@@ -33,10 +35,14 @@ operators for tensor and sequence parallelism:
 - `quantized_all_to_all`: the JAX package's int8 dispatch: int8 codes and
   one float32 scale a slot forward, the full-width cotangent backward.
 
-`COLLECTIVES` counts the collectives this process issued by kind and
+`COLLECTIVES` counts the collectives this process issued by kind,
 `COLLECTIVE_BYTES` the bytes each kind handed to the transport (the
 tensor a rank contributes: its input to a gather, reduction or
-reduce-scatter), backward passes included.
+reduce-scatter) and `COLLECTIVE_RESULT_BYTES` the bytes of each kind's
+result on the rank (an all-gather's whole output, a reduce-scatter's
+block: the convention of the JAX package's ``collective_stats``, which
+sums the result shapes of the compiled collectives), backward passes
+included.
 """
 from __future__ import annotations
 
@@ -53,24 +59,35 @@ _scatter_single = (getattr(dist, "reduce_scatter_single", None)
 KINDS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all")
 COLLECTIVES = dict.fromkeys(KINDS, 0)
 COLLECTIVE_BYTES = dict.fromkeys(KINDS, 0)
+COLLECTIVE_RESULT_BYTES = dict.fromkeys(KINDS, 0)
 
 
 def reset_collectives() -> None:
     for k in KINDS:
         COLLECTIVES[k] = 0
         COLLECTIVE_BYTES[k] = 0
+        COLLECTIVE_RESULT_BYTES[k] = 0
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _count(kind: str, t: torch.Tensor, result: torch.Tensor) -> None:
     COLLECTIVES[kind] += 1
-    COLLECTIVE_BYTES[kind] += t.numel() * t.element_size()
+    COLLECTIVE_BYTES[kind] += _nbytes(t)
+    COLLECTIVE_RESULT_BYTES[kind] += _nbytes(result)
 
 
 def _comm_device(group, t: torch.Tensor) -> torch.device:
     """Where ``t`` must lie for the group's transport: the current card for
-    NCCL, the host for gloo."""
-    if dist.get_backend(group) == "nccl":
+    NCCL, the host for gloo, its own device for the dry run's ``fake``
+    backend."""
+    backend = dist.get_backend(group)
+    if backend == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
+    if backend == "fake":
+        return t.device
     return torch.device("cpu")
 
 
@@ -98,7 +115,7 @@ def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=src.dtype,
                       device=src.device)
     _gather_single(out, src, group=group)
-    _count("all_gather", x)
+    _count("all_gather", x, out)
     return out.to(x.device).movedim(0, dim)
 
 
@@ -108,7 +125,7 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
         return x
     buf = _wire_copy(group, x)
     dist.all_reduce(buf, group=group)
-    _count("all_reduce", x)
+    _count("all_reduce", x, x)
     return buf.to(x.device)
 
 
@@ -118,7 +135,7 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
         return x
     buf = _wire_copy(group, x)
     dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
-    _count("all_reduce", x)
+    _count("all_reduce", x, x)
     return buf.to(x.device)
 
 
@@ -136,7 +153,7 @@ def reduce_scatter_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype,
                       device=src.device)
     _scatter_single(out, src, group=group)
-    _count("reduce_scatter", x)
+    _count("reduce_scatter", x, out)
     return out.to(x.device).movedim(0, dim)
 
 
@@ -155,7 +172,7 @@ def all_to_all_cat(x: torch.Tensor, group) -> torch.Tensor:
     src = _wire(group, x)
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
-    _count("all_to_all", x)
+    _count("all_to_all", x, out)
     return out.to(x.device)
 
 

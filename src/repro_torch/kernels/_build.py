@@ -14,6 +14,13 @@ exported C function returns the `cudaGetLastError()` of its launch;
 
 Nothing is built or loaded at import time: this module is imported on
 machines without nvcc or a GPU, where only the plain versions run.
+
+A kernel's work is invisible to `torch.utils.flop_counter.FlopCounterMode`
+(a ctypes call dispatches no PyTorch op), so a wrapper with a meta branch
+(the dry run's shapes without data, `launch.dryrun`) reports the FLOPs of
+each call to the analyses that are active (`FLOP_SINKS`, which
+`launch.step_analysis.analyze` fills): its meta branch always, its card
+branch when a sink is active. A report costs one list test when none is.
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[str, ctypes._CFuncPtr] = {}
+# the active analyses: each a callable taking (kernel name, FLOPs)
+FLOP_SINKS: list = []
 
 
 class KernelBuildError(RuntimeError):
@@ -161,6 +170,18 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def report_flops(kernel: str, flops: int) -> None:
+    """Hand a kernel call's FLOPs to every active analysis."""
+    for sink in FLOP_SINKS:
+        sink(kernel, flops)
+
+
+def on_meta(t: torch.Tensor) -> bool:
+    """True for a meta tensor: the wrappers with a meta branch allocate
+    what their card branch allocates, launch nothing and `report_flops`."""
+    return t.device.type == "meta"
 
 
 def on_cuda(t: torch.Tensor, kernel: str) -> bool:

@@ -59,6 +59,17 @@ CPU the wrappers run the plain forward and autograd differentiates it.
 Without grad the wrappers launch the forward as before, keeping no
 log-sum-exp. A backward that fails raises `KernelLaunchError`; nothing
 falls back to autograd of the plain version.
+
+On a meta tensor (the dry run, `launch.dryrun`) every wrapper takes its
+card branch up to the launch: it allocates what the card allocates (the
+output, the log-sum-exp, the backward's float32 scratch padded to 128
+rows), launches nothing, counts no launch, and reports the call's FLOPs
+(`kernels._build.report_flops`); the card branch reports the same number
+when an analysis is active. A call's FLOPs are defined as what
+`FlopCounterMode` counts on the CPU's path for it (`forward_flops`,
+`backward_flops`), so meta, CPU and card counts agree. No path runs the
+plain version on meta: its (Sq x Skv) scores would count as memory the
+kernel never allocates. Any device but cuda, cpu and meta raises.
 """
 from __future__ import annotations
 
@@ -69,6 +80,22 @@ from repro_torch.kernels import _build
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (64, 112, 128, 256)
 NEG_INF = -1e30
+
+
+def forward_flops(q: torch.Tensor, k: torch.Tensor) -> int:
+    """FLOPs of one forward call on model-layout q (B, Sq, H, hd) and k
+    (B, Skv, Hkv, hd): what `FlopCounterMode` counts for the plain
+    version's two products, the whole (Sq x Skv) scores and their product
+    with v (no causal saving), 4·B·H·Sq·Skv·hd."""
+    b, sq, h, hd = q.shape
+    return 4 * b * h * sq * k.shape[1] * hd
+
+
+def backward_flops(q: torch.Tensor, k: torch.Tensor) -> int:
+    """FLOPs of one backward call: twice `forward_flops`, what autograd's
+    backward of the plain forward's two products counts (both operands'
+    gradients of each), the CPU's training path."""
+    return 2 * forward_flops(q, k)
 
 
 def _check(q, k, v, group: int) -> None:
@@ -215,6 +242,9 @@ def _launch(q, k, v, out, softcap: float, lse=None) -> None:
                              f"q on {dev}")
     if sq == 0:
         return
+    if _build.on_meta(q):
+        _build.report_flops("flash_attention", forward_flops(q, k))
+        return
     fn = _build.function("flash_attn", "repro_flash_attention", 5, 19, 2)
     rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
             _build.ptr(lse) if lse is not None else None,
@@ -223,6 +253,8 @@ def _launch(q, k, v, out, softcap: float, lse=None) -> None:
             hd ** -0.5, float(softcap), _build.stream(dev))
     _build.check_launch(rc, "flash_attention")
     flash_attention.launches += 1
+    if _build.FLOP_SINKS:
+        _build.report_flops("flash_attention", forward_flops(q, k))
 
 
 def _bshd(t: torch.Tensor) -> torch.Tensor:
@@ -277,7 +309,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the card, differentiable through `flash_attention_backward`."""
     _check(q, k, v, group)
     _check_layout(("q", q), ("k", k), ("v", v))
-    if not _build.on_cuda(q, "flash_attention"):
+    if not _build.on_meta(q) and not _build.on_cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, group=group, softcap=softcap)
     if _needs_grad(q, k, v):
         out = _Attention.apply(_bshd(q), _bshd(k), _bshd(v), softcap)
@@ -295,7 +327,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches in ``flash_attention.launches``."""
     _check_bshd(q, k, v)
     _check_layout(("q", q), ("k", k), ("v", v))
-    if not _build.on_cuda(q, "flash_attention"):
+    if not _build.on_meta(q) and not _build.on_cuda(q, "flash_attention"):
         return flash_attention_bshd_plain(q, k, v, softcap=softcap)
     if _needs_grad(q, k, v):
         return _Attention.apply(q, k, v, softcap)
@@ -399,7 +431,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"flash_attention_backward: o {o.dtype} and do "
                          f"{do.dtype} must be q's dtype {q.dtype}")
-    if not _build.on_cuda(q, "flash_attention_backward"):
+    if not _build.on_meta(q) and \
+            not _build.on_cuda(q, "flash_attention_backward"):
         return flash_attention_backward_plain(q, k, v, o, lse, do,
                                               softcap=softcap)
     if hd not in HEAD_DIMS:
@@ -421,6 +454,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     rows = -(-sq // 128) * 128
     scratch = torch.empty(2 * b * h * rows, dtype=torch.float32,
                           device=q.device)
+    if _build.on_meta(q):
+        _build.report_flops("flash_attention_backward",
+                            backward_flops(q, k))
+        return dq, dk, dv
     fn = _build.function("flash_attn_bwd", "repro_flash_attention_backward",
                          10, 22, 2)
     rc = fn(*(_build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv,
@@ -431,6 +468,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             float(softcap), _build.stream(q.device))
     _build.check_launch(rc, "flash_attention_backward")
     flash_attention_backward.launches += 1
+    if _build.FLOP_SINKS:
+        _build.report_flops("flash_attention_backward", backward_flops(q, k))
     return dq, dk, dv
 
 

@@ -163,19 +163,20 @@ def init_caches(cfg, batch_size: int, s_max: int, rules=None, dtype=None,
     """Preallocated decode caches sized for an s_max-token context. With
     ``rules`` (bound to the mesh of the ranks), this rank's blocks of
     them for a global batch of ``batch_size`` rows
-    (`sharding.params.cache_blocks`'s layout); an s_max or a batch that
-    does not divide over the mesh is refused."""
+    (`sharding.params.cache_blocks`'s layout): its rows, or every row
+    where the batch does not divide over the batch axes
+    (`sharding.params.serve_rows`); an s_max that does not divide over
+    the model ranks is refused."""
     dev = resolve_device(device)
     dtype = dtype or transformer.torch_dtype(cfg)
     if rules is None:
         return transformer.empty_caches(cfg, batch_size, s_max, dtype, dev)
-    from repro_torch.sharding.params import check_serve
-    from repro_torch.sharding.rules import mesh_axes
+    from repro_torch.sharding.params import check_serve, serve_rows
 
-    check_serve(rules, rules.mesh, s_max=s_max, batch=batch_size)
-    dp = math.prod(mesh_axes(rules.mesh)[a] for a in rules.batch)
-    return transformer.empty_caches(cfg, batch_size // dp, s_max, dtype, dev,
-                                    rules.tp)
+    check_serve(rules, rules.mesh, s_max=s_max)
+    return transformer.empty_caches(
+        cfg, serve_rows(rules, rules.mesh, batch_size), s_max, dtype, dev,
+        rules.tp)
 
 
 def extend_caches(cfg, caches: dict, s_max: int) -> dict:

@@ -20,10 +20,23 @@ import torch
 from repro_torch.models import lm
 
 
+def _layout_now(cfg, rules) -> None:
+    """Build the rank's layout (its groups and spec trees) when the step is
+    made, as `runtime.train.make_train_step` does, so that a step's first
+    call does no set-up (and `launch.step_analysis` counts the step
+    alone)."""
+    if rules is not None:
+        from repro_torch.sharding.spmd import layout
+
+        layout(cfg, rules)
+
+
 def make_prefill_step(cfg, s_max: int | None = None, rules=None):
     """Prefill: (params, batch) -> (logits, caches); with s_max the caches
     have s_max slots, ready for decode (with ``rules``: a rank's blocks,
     `models.lm.prefill`)."""
+    _layout_now(cfg, rules)
+
     def prefill_step(params, batch):
         return lm.prefill(params, cfg, batch, s_max=s_max, rules=rules)
     return prefill_step
@@ -32,6 +45,8 @@ def make_prefill_step(cfg, s_max: int | None = None, rules=None):
 def make_serve_step(cfg, rules=None):
     """One-token decode: (params, token (B, 1), caches, pos) ->
     (logits, caches)."""
+    _layout_now(cfg, rules)
+
     def serve_step(params, token, caches, pos):
         return lm.decode_step(params, cfg, token, caches, pos, rules=rules)
     return serve_step
@@ -47,10 +62,11 @@ def generate(params, cfg, prompt_batch: dict, n_tokens: int, s_max: int,
     required. Returns (B, n_tokens) int32; `n_tokens=0` returns (B, 0).
 
     With ``rules``: ``params`` are this rank's blocks and ``prompt_batch``
-    its rows; every model rank of those rows picks from the same gathered
-    logits, so they return the same tokens (a sampling caller gives each
-    of them a generator in the same state). s_max must divide over the
-    model ranks.
+    its rows (every row where the batch does not divide over the batch
+    axes, `sharding.params.serve_rows`); every model rank of those rows
+    picks from the same gathered logits, so they return the same tokens (a
+    sampling caller gives each of them a generator in the same state).
+    s_max must divide over the model ranks.
     """
     tokens = prompt_batch["tokens"]
     if n_tokens <= 0:

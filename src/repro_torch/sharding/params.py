@@ -228,23 +228,27 @@ def cache_specs(cfg, rules, mesh, caches: dict) -> dict:
     return pytree.tree_map(one, caches)
 
 
-def check_serve(rules: MeshRules, mesh, s_max: int | None = None,
-                batch: int | None = None) -> None:
-    """Sharded serving's shapes: the cache's ``s_max`` slots over the model
-    axis (context-parallel decode), the global ``batch`` over the batch
-    axes. The JAX package replicates a dim that does not divide (what
-    `cache_specs` writes); the port refuses it with a `ValueError`."""
-    ms = mesh_axes(mesh)
-    tp = ms.get(rules.model, 1)
+def check_serve(rules: MeshRules, mesh, s_max: int | None = None) -> None:
+    """Sharded serving's one refused shape: the cache's ``s_max`` slots
+    over the model axis (context-parallel decode); a `ValueError` where
+    they do not divide. (A global batch that does not divide over the
+    batch axes is replicated over them, as `cache_specs` writes it:
+    `serve_rows`.)"""
+    tp = mesh_axes(mesh).get(rules.model, 1)
     if s_max is not None and s_max % tp:
         raise ValueError(f"sharded serving shards the cache's s_max={s_max} "
                          f"slots over the {tp} model ranks (context-parallel "
                          f"decode); it does not divide")
-    dp = _axes_size(ms, tuple(rules.batch))
-    if batch is not None and batch % dp:
-        raise ValueError(f"sharded serving shards the batch ({batch} rows) "
-                         f"over the {dp} ranks of {tuple(rules.batch)}; it "
-                         f"does not divide")
+
+
+def serve_rows(rules: MeshRules, mesh, batch: int) -> int:
+    """A rank's rows of a served global ``batch``: its block over the batch
+    axes where the batch divides over them, else the whole batch (the JAX
+    package's GSPMD replicates a dim that does not divide,
+    `batch_specs` / `cache_specs`), so every rank of those axes holds and
+    computes every row."""
+    dp = _axes_size(mesh_axes(mesh), tuple(rules.batch))
+    return batch if batch % dp else batch // dp
 
 
 def cache_blocks(cfg, rules: MeshRules, caches: dict, mesh) -> dict:
@@ -254,12 +258,12 @@ def cache_blocks(cfg, rules: MeshRules, caches: dict, mesh) -> dict:
     SSM states' batch and heads), except the SSM conv cache (L, B, K-1,
     d_inner + 2N), which `cache_specs` replicates over ``model``: a rank
     keeps its batch rows of [its d_inner/tp x channels | B | C], what the
-    sharded Mamba2 block computes (`models.ssm.ssm_block_sharded`). Shapes
-    that do not divide are refused (`check_serve`)."""
+    sharded Mamba2 block computes (`models.ssm.ssm_block_sharded`). A batch
+    that does not divide over the batch axes is replicated (every rank
+    keeps every row); an s_max that does not divide over ``model`` is
+    refused (`check_serve`)."""
     kv = caches.get("kv", caches.get("shared_kv"))
-    lead = (kv or caches["ssm"])[0]
-    check_serve(rules, mesh, s_max=kv[0].shape[2] if kv else None,
-                batch=lead.shape[1])
+    check_serve(rules, mesh, s_max=kv[0].shape[2] if kv else None)
     out = _map_tree(lambda leaf, spec: shard(leaf, spec, mesh), caches,
                     cache_specs(cfg, rules, mesh, caches))
     if "ssm" in out:
@@ -272,11 +276,15 @@ def cache_blocks(cfg, rules: MeshRules, caches: dict, mesh) -> dict:
     return out
 
 
-def gather_caches(cfg, rules: MeshRules, blocks: dict, mesh) -> dict:
+def gather_caches(cfg, rules: MeshRules, blocks: dict, mesh,
+                  batch: int | None = None) -> dict:
     """The whole decode caches, in the JAX package's layout, from every
     rank's `cache_blocks` (every rank gets them): the conv caches' x
     channels gathered over ``model``, then every leaf under
-    `cache_specs`."""
+    `cache_specs`. ``batch`` is the global batch, by default the blocks'
+    rows times the batch ranks; a batch the batch axes replicate
+    (`serve_rows`) must be given, since its blocks' rows alone do not
+    tell it from a sharded one."""
     from repro_torch.core import comm
 
     out = dict(blocks)
@@ -288,8 +296,9 @@ def gather_caches(cfg, rules: MeshRules, blocks: dict, mesh) -> dict:
                                 mesh.get_group(rules.model), 3)
         out["ssm"] = (torch.cat([x, conv[..., di_l:]], dim=-1), state)
     kv = out.get("kv", out.get("shared_kv"))
-    lead = (kv or out["ssm"])[0]
-    batch = lead.shape[1] * _axes_size(ms, tuple(rules.batch))
+    if batch is None:
+        lead = (kv or out["ssm"])[0]
+        batch = lead.shape[1] * _axes_size(ms, tuple(rules.batch))
     s_max = kv[0].shape[2] * ms[rules.model] if kv else ms[rules.model]
     specs = cache_specs(cfg, rules, mesh, transformer.empty_caches(
         cfg, batch, s_max, torch.float32, "meta"))   # the whole caches'

@@ -44,8 +44,10 @@ residual sequence-parallel as training does; a decode step's one-token
 residual is whole on every model rank (the JAX package's), each block's
 row-parallel partial sums all-reduced over ``model``. Its caches are a
 rank's blocks (`sharding.params.cache_blocks`): the KV caches' slots over
-``model`` (context-parallel decode), so s_max must divide over it too,
-and the batch over the batch axes (`sharding.params.check_serve`).
+``model`` (context-parallel decode), so s_max must divide over it too
+(`sharding.params.check_serve`), and the batch over the batch axes where
+it divides, every row on every rank of them where it does not
+(`sharding.params.serve_rows`).
 """
 from __future__ import annotations
 

@@ -300,9 +300,23 @@ def test_kernel_operand_strides():
     assert t_fa._strides(torch.zeros((1, 1, 1, hd))) == [hd] * 3
 
 
+class _Elsewhere(torch.Tensor):
+    """A meta tensor that reports a device the port has no branch for."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(shape) -> torch.Tensor:
+    return torch.Tensor._make_subclass(_Elsewhere,
+                                       torch.empty(shape, device="meta"))
+
+
 def test_registered_with_build_and_counters():
     """The source is built with the others and the wrapper is counted; a
-    tensor on neither the CPU nor a GPU is refused, never run."""
+    meta tensor takes the dry run's meta branch (no launch counted); a
+    tensor on neither the CPU, a GPU nor meta is refused, never run."""
     assert "flash_attn" in _build.SOURCES
     assert (_build.CSRC / "flash_attn.cu").exists()
     assert kernels.KERNEL_WRAPPERS["flash_attention"] is t_fa.flash_attention
@@ -311,8 +325,11 @@ def test_registered_with_build_and_counters():
     t_fa.flash_attention(q, q, q)
     assert kernels.launch_counts()["flash_attention"] == 0  # CPU: the plain
     meta = torch.empty((2, 4, 64), device="meta")
+    assert t_fa.flash_attention(meta, meta, meta).is_meta
+    assert kernels.launch_counts()["flash_attention"] == 0
+    other = _elsewhere((2, 4, 64))
     with pytest.raises(ValueError, match="unsupported device"):
-        t_fa.flash_attention(meta, meta, meta)
+        t_fa.flash_attention(other, other, other)
 
 
 # ---------------------------------------------------------------------------
@@ -453,7 +470,9 @@ def test_backward_refuses_bad_operands(bad):
 
 def test_backward_registered_with_build_and_counters():
     """The backward's source is built with the others and counted under
-    its own name; on the CPU the wrapper runs the plain version."""
+    its own name; on the CPU the wrapper runs the plain version, on meta
+    the dry run's branch (no launch counted); any other device is
+    refused."""
     assert "flash_attn_bwd" in _build.SOURCES
     assert (_build.CSRC / "flash_attn_bwd.cu").exists()
     assert kernels.KERNEL_WRAPPERS["flash_attention_backward"] is \
@@ -465,10 +484,17 @@ def test_backward_registered_with_build_and_counters():
     assert all(float(t.abs().max()) == 0 for t in out)
     assert kernels.launch_counts()["flash_attention_backward"] == 0
     meta = torch.empty((1, 8, 4, 64), device="meta")
+    kv = torch.empty((1, 8, 2, 64), device="meta")
+    got = t_fa.flash_attention_backward(
+        meta, kv, kv, meta, torch.empty((1, 4, 8), device="meta"), meta)
+    assert [tuple(t.shape) for t in got] == [(1, 8, 4, 64), (1, 8, 2, 64),
+                                             (1, 8, 2, 64)]
+    assert all(t.is_meta for t in got)
+    assert kernels.launch_counts()["flash_attention_backward"] == 0
+    q4, kv4 = _elsewhere((1, 8, 4, 64)), _elsewhere((1, 8, 2, 64))
     with pytest.raises(ValueError, match="unsupported device"):
-        t_fa.flash_attention_backward(meta, meta[:, :, :2], meta[:, :, :2],
-                                      meta, torch.empty((1, 4, 8),
-                                                        device="meta"), meta)
+        t_fa.flash_attention_backward(q4, kv4, kv4, q4,
+                                      _elsewhere((1, 4, 8)), q4)
 
 
 @pytest.fixture

@@ -27,7 +27,12 @@ Also held: each rank's ZeRO-1 moment shapes against the spec tree;
 first case saved on (2, 2) and restored onto (1, 4) and onto one device
 equal to the gathered state, bit for bit; `optim.compress.compressed_psum`
 over a 2-rank ``pod`` axis equal to the JAX package's under
-`jax.vmap(..., axis_name="pod")`.
+`jax.vmap(..., axis_name="pod")`; each case's collectives at head dim 64
+(a head dim of the attention kernel, whose meta branch holds to the
+card's), counted by `core.comm` on every rank in one real step, equal
+per kind (count, result bytes, bytes sent) to the dry run's
+(`launch.dryrun.cell_inputs` on a fake (2, 2) group, run in a subprocess
+while the ranks work: a fake group wants a process with no group).
 
 Tolerances: those of `tests/test_torch_train_step.py` (float32): the
 metrics within 1e-5 of the JAX value, the optimizer states within 1e-4 of
@@ -37,6 +42,11 @@ float32 products on both sides).
 """
 from __future__ import annotations
 
+import json
+import os
+import pathlib
+import subprocess
+import sys
 import tempfile
 import types
 
@@ -46,8 +56,10 @@ import torch
 
 from repro_torch import convert, pytree
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.core import comm
 from repro_torch.data import SyntheticLMData
 from repro_torch.launch import mesh as t_mesh
+from repro_torch.launch.step_analysis import JAX_KIND
 from repro_torch.models import transformer
 from repro_torch.optim import get_optimizer
 from repro_torch.optim import compress
@@ -63,11 +75,42 @@ CASES = {
                                         optimizer="adafactor")),
 }
 PSUM_SHAPES = ((5, 7), (33,))
+COMM_HD = 64     # the collectives' cells: a head dim the kernel takes
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+# argv: {case: [arch, overrides]}, B, S; prints {case: [each rank's
+# collectives]}
+DRY_SIDE = r"""
+import json, sys
+import torch
+from repro_torch.configs import ShapeConfig, get_config, reduced_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+
+torch.set_num_threads(1)
+cells, b, s = json.loads(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+out = {}
+for case, (arch, over) in cells.items():
+    cfg = reduced_config(get_config(arch), **over)
+    out[case] = []
+    for rank in range(4):
+        with dryrun.fake_group(4, rank):
+            mesh = make_host_mesh(4, ("data", "model"), device="cpu")
+            out[case].append(dryrun.timed_analysis(*dryrun.cell_inputs(
+                cfg, ShapeConfig("cell", s, b, "train"), mesh))
+                ["collectives"])
+print(json.dumps(out))
+"""
 
 
 def _cfg(configs, case):
     arch, over = CASES[case]
     return configs.reduced_config(configs.get_config(arch), **over)
+
+
+def _comm_cells() -> dict:
+    return {case: (arch, dict(over, head_dim=COMM_HD))
+            for case, (arch, over) in CASES.items()}
 
 
 def _batch(cfg, step) -> dict:
@@ -144,6 +187,19 @@ def _ranks(inputs: dict, ckpt_dir: str) -> dict:
             back = t_sp.gather_tree(like, specs14, mesh14)
             out["elastic_1x4"] = all(torch.equal(a, b) for a, b in zip(
                 pytree.leaves(back), pytree.leaves(gathered)))
+    out["comm"] = {}
+    for case, (arch, over) in _comm_cells().items():
+        cfg = configs.reduced_config(configs.get_config(arch), **over)
+        opt = get_optimizer(cfg)
+        state = train.init_sharded_train_state(
+            t_sp.init_sharded_params(0, cfg, rules, mesh, device="cpu"), opt,
+            cfg, rules)
+        comm.reset_collectives()
+        train.make_train_step(cfg, rules=rules, optimizer=opt)(
+            state, {k: torch.as_tensor(v) for k, v in _batch(cfg, 0).items()})
+        out["comm"][case] = (dict(comm.COLLECTIVES),
+                             dict(comm.COLLECTIVE_RESULT_BYTES),
+                             dict(comm.COLLECTIVE_BYTES))
     pods = init_device_mesh("cpu", (2, 2), mesh_dim_names=("pod", "model"))
     mean = compress.make_crosspod_mean(pods, "pod")(pytree.tree_map(
         torch.as_tensor, _psum_inputs(pods.get_local_rank("pod"))))
@@ -167,7 +223,14 @@ def jx():
 @pytest.fixture(scope="module")
 def runs(jx):
     """(JAX's initial states and steps, the ranks' results, the
-    checkpoint directory), once for the module."""
+    checkpoint directory, the dry run's collectives), once for the
+    module."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    dry = subprocess.Popen(
+        [sys.executable, "-c", DRY_SIDE, json.dumps(_comm_cells()), str(B),
+         str(S)], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
     to_np = lambda t: jx.jax.tree.map(np.asarray, t)  # noqa: E731
     states, want = {}, {}
     for case in CASES:
@@ -194,7 +257,10 @@ def runs(jx):
             get_optimizer(reduced_config(get_config("minitron-8b"),
                                          **CASES["kv_repeat"][1])))
         restored, _ = checkpoint.restore_tree(d, STEPS, like)
-        yield types.SimpleNamespace(want=want, outs=outs, restored=restored)
+        log, err = dry.communicate(timeout=600)
+        assert dry.returncode == 0, err[-4000:]
+        yield types.SimpleNamespace(want=want, outs=outs, restored=restored,
+                                    dry=json.loads(log.splitlines()[-1]))
 
 
 def _hold(got, want, rel=None, atol=None):
@@ -279,3 +345,18 @@ def test_compressed_psum_matches_jax(runs, jx):
         for k in stacked:
             np.testing.assert_array_equal(out["psum"][k],
                                           np.asarray(want[k])[0])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_collectives_equal_the_dry_run(runs, case):
+    """A real sharded step's collectives on each gloo rank equal, kind by
+    kind, what the dry run counts for that rank on a fake (2, 2) group:
+    the count, the result bytes and the bytes sent."""
+    for out in runs.outs:
+        counts, result, sent = out["comm"][case]
+        want = runs.dry[case][out["rank"]]
+        assert sum(counts.values()) > 0
+        for kind, name in JAX_KIND.items():
+            assert (counts[kind], result[kind], sent[kind]) == (
+                want[name]["count"], want[name]["bytes"],
+                want[name]["sent_bytes"]), (case, kind)

@@ -26,7 +26,10 @@ configs:
   attention blocks, and a tail layer);
 - ``kimi``: kimi-k2-1t-a32b with the int8 all-to-all ("alltoall": 4
   experts over the 2 data ranks; int8 both ways in decode);
-- ``grok``: grok-1-314b with 3 experts ("gathered", the softcap).
+- ``grok``: grok-1-314b with 3 experts ("gathered", the softcap);
+- ``llama_b1``: llama3.2-3b with a batch of ONE row, which does not
+  divide over the 2 data ranks: replicated over them, as JAX's GSPMD
+  replicates it (`sharding.params.serve_rows`), every rank serving it.
 
 Held against JAX: the prefill's last logits, every cache leaf gathered
 from the ranks (`convert.lm_caches_to_arrays(..., rules=)`) after the
@@ -82,11 +85,14 @@ CASES = {   # name: (arch, overrides)
     "zamba2": ("zamba2-7b", {"n_layers": 7}),
     "kimi": ("kimi-k2-1t-a32b", {"moe_a2a_int8": True}),
     "grok": ("grok-1-314b", {"n_experts": 3}),
+    "llama_b1": ("llama3.2-3b", {}),
 }
+ROWS = {"llama_b1": 1}    # the global batch where it is not B
 MOE = ("kimi", "grok")
 SSD = ("mamba2", "zamba2")
 # the JAX side's two subprocesses, run at once
-JAX_PARTS = (("llama", "paligemma", "mamba2"), ("zamba2", "kimi", "grok"))
+JAX_PARTS = (("llama", "paligemma", "mamba2", "llama_b1"),
+             ("zamba2", "kimi", "grok"))
 KV_REPEAT = ("llama3.2-3b", {"n_kv_heads": 1})   # port-only: kv_repeat 2
 
 # argv: the inputs (.npz), the initial parameters (.npz, written first),
@@ -168,6 +174,18 @@ def _cfg(arch, over):
     return reduced_config(get_config(arch), **over)
 
 
+def _b(case) -> int:
+    return ROWS.get(case, B)
+
+
+def _case_rows(case, data: int) -> slice:
+    """Data rank ``data``'s rows of the case's batch: its half, or every
+    row of a batch that does not divide over the 2 data ranks."""
+    b = _b(case)
+    return slice(None) if b % 2 else slice(data * b // 2,
+                                           (data + 1) * b // 2)
+
+
 def _inputs() -> dict:
     """Each case's prompt (the same rows on both sides) and the spec."""
     out = {"spec": np.asarray(json.dumps({"cases": CASES, "s_max": S_MAX,
@@ -175,11 +193,12 @@ def _inputs() -> dict:
     rng = np.random.default_rng(5)
     for case, (arch, over) in CASES.items():
         cfg = _cfg(arch, over)
-        out[case + "/tokens"] = rng.integers(0, cfg.vocab_size, (B, S)) \
-            .astype(np.int32)
+        out[case + "/tokens"] = rng.integers(
+            0, cfg.vocab_size, (_b(case), S)).astype(np.int32)
         if cfg.prefix_len:
             out[case + "/prefix_embed"] = rng.normal(
-                size=(B, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+                size=(_b(case), cfg.prefix_len, cfg.d_model)).astype(
+                    np.float32)
     return out
 
 
@@ -212,18 +231,18 @@ def _blocks(caches) -> dict:
             for k, pair in caches.items()}
 
 
-def _serve(params, cfg, batch, rules, gathered: bool):
+def _serve(params, cfg, batch, rules, rows: int):
     """Prefill, then N_TOKENS - 1 greedy decode steps: the logits of each,
     the tokens, and the caches after the prefill and after the last step
-    (this rank's blocks, and with ``gathered`` the whole ones)."""
+    (this rank's blocks, and the whole ones of the ``rows``-row global
+    batch)."""
     out = {}
     logits, caches = lm_serve.make_prefill_step(cfg, S_MAX, rules)(params,
                                                                    batch)
     out["prefill_logits"] = logits.numpy().copy()
     out["prefill_blocks"] = _blocks(caches)
-    if gathered:
-        out["prefill_caches"] = convert.lm_caches_to_arrays(caches, cfg,
-                                                            rules)
+    out["prefill_caches"] = convert.lm_caches_to_arrays(caches, cfg, rules,
+                                                        rows)
     step = lm_serve.make_serve_step(cfg, rules)
 
     def pick(lg):
@@ -238,8 +257,8 @@ def _serve(params, cfg, batch, rules, gathered: bool):
         toks.append(tok)
     out["decode_logits"] = decode
     out["tokens"] = torch.cat(toks, dim=1).numpy()
-    if gathered:
-        out["final_caches"] = convert.lm_caches_to_arrays(caches, cfg, rules)
+    out["final_caches"] = convert.lm_caches_to_arrays(caches, cfg, rules,
+                                                      rows)
     return out
 
 
@@ -251,15 +270,15 @@ def _ranks(init: dict, inputs: dict) -> dict:
     mesh = t_mesh.make_host_mesh(4, ("data", "model"), device="cpu")
     rules = MeshRules(tp=2, mesh=mesh)
     d = mesh.get_local_rank("data")
-    rows = slice(d * B // 2, (d + 1) * B // 2)
+    rows = _case_rows("llama", d)
     out = {"rank": dist.get_rank(), "data": d,
            "model": mesh.get_local_rank("model")}
     for case, (arch, over) in CASES.items():
         cfg = _cfg(arch, over)
         params = convert.lm_params_from_arrays(init[case], cfg, "cpu",
                                                rules=rules)
-        batch = _batch(inputs, case, rows)
-        out[case] = _serve(params, cfg, batch, rules, gathered=True)
+        batch = _batch(inputs, case, _case_rows(case, d))
+        out[case] = _serve(params, cfg, batch, rules, _b(case))
         out[case]["generate"] = lm_serve.generate(
             params, cfg, batch, N_TOKENS, S_MAX, rules=rules).numpy()
         if case == "llama":    # each data row's own generator state
@@ -324,8 +343,8 @@ def _tol(case) -> float:
     return SSD_TOL if case in SSD else TOL
 
 
-def _rows(out) -> slice:
-    return slice(out["data"] * B // 2, (out["data"] + 1) * B // 2)
+def _rows(out, case="llama") -> slice:
+    return _case_rows(case, out["data"])
 
 
 def _jax_caches(want, prefix) -> dict:
@@ -342,7 +361,7 @@ def test_sharded_serving_matches_jax(runs, case):
     by the decode loop and by `generate(rules=)`."""
     tol = _tol(case)
     for out in runs.outs:
-        got, rows = out[case], _rows(out)
+        got, rows = out[case], _rows(out, case)
         np.testing.assert_allclose(
             got["prefill_logits"], runs.want[case + "/prefill_logits"][rows],
             rtol=tol, atol=tol)
@@ -378,9 +397,10 @@ class _Coords:
 def test_cache_blocks_follow_cache_specs(runs, case):
     """Each rank's blocks after the prefill are `cache_blocks` of JAX's
     caches at its coordinates: the KV caches (L, B/2, S_max/2, KV, hd) (the
-    slots of model rank m from m·S_max/2, the true kv heads), the SSM
-    states (L, B/2, NH/2, HD, N) as `cache_specs` cuts them, the conv
-    caches [the rank's d_inner/2 x channels | B | C]."""
+    slots of model rank m from m·S_max/2, the true kv heads; B rows where
+    B does not divide), the SSM states (L, B/2, NH/2, HD, N) as
+    `cache_specs` cuts them, the conv caches [the rank's d_inner/2 x
+    channels | B | C]."""
     arch, over = CASES[case]
     cfg = _cfg(arch, over)
     rules = MeshRules(tp=2)
@@ -388,6 +408,7 @@ def test_cache_blocks_follow_cache_specs(runs, case):
                  _jax_caches(runs.want, case + "/prefill_caches").items()}
     for out in runs.outs:
         view = _Coords(out["data"], out["model"])
+        rows = t_sp.serve_rows(rules, view, _b(case))
         want = t_sp.cache_blocks(cfg, rules, want_full, view)
         got = out[case]["prefill_blocks"]
         assert set(got) == set(want)
@@ -397,10 +418,10 @@ def test_cache_blocks_follow_cache_specs(runs, case):
                 np.testing.assert_allclose(a, w.numpy(), rtol=_tol(case),
                                            atol=_tol(case), err_msg=key)
         if "kv" in got:
-            assert got["kv"][0].shape == (cfg.n_layers, B // 2, S_MAX // 2,
+            assert got["kv"][0].shape == (cfg.n_layers, rows, S_MAX // 2,
                                           cfg.n_kv_heads, cfg.head_dim)
         if "ssm" in got:
-            assert got["ssm"][1].shape == (cfg.n_layers, B // 2,
+            assert got["ssm"][1].shape == (cfg.n_layers, rows,
                                            cfg.ssm_nheads // 2,
                                            cfg.ssm_head_dim, cfg.ssm_state)
             assert got["ssm"][0].shape[-1] == \
@@ -423,7 +444,8 @@ def test_sharded_tokens_equal_one_device(runs, case):
     single-device `generate`'s."""
     _, toks = _one_device(runs, case)
     for out in runs.outs:
-        np.testing.assert_array_equal(out[case]["tokens"], toks[_rows(out)])
+        np.testing.assert_array_equal(out[case]["tokens"],
+                                      toks[_rows(out, case)])
 
 
 def test_sharded_moe_differs_from_one_device(runs):
@@ -526,16 +548,14 @@ class _NoRanks:
 
 
 def test_serving_refuses_shapes_that_do_not_divide():
-    """s_max over the model ranks, the prompt (prefix included) over them,
-    and the batch over the data ranks: `ValueError` where the JAX package
-    would replicate the dim."""
+    """s_max over the model ranks and the prompt (prefix included) over
+    them: `ValueError` where the JAX package would replicate the dim. (A
+    batch that does not divide over the data ranks is replicated, as JAX
+    does: the ``llama_b1`` case of the spawn.)"""
     cfg = _cfg("llama3.2-3b", {})
     rules = MeshRules(tp=2, mesh=_NoRanks(data=2, model=2))
     with pytest.raises(ValueError, match=r"s_max=63 slots over the 2 model"):
         lm.init_caches(cfg, 4, 63, rules=rules, device="cpu")
-    with pytest.raises(ValueError, match=r"batch \(3 rows\) over the 2 "
-                                         r"ranks of \('data',\)"):
-        lm.init_caches(cfg, 3, 64, rules=rules, device="cpu")
     params = transformer.init_params(0, cfg, device="cpu")
     tokens = torch.zeros((2, 31), dtype=torch.int64)
     with pytest.raises(ValueError, match=r"sequence \(31 positions\) over "
@@ -551,9 +571,6 @@ def test_serving_refuses_shapes_that_do_not_divide():
     with pytest.raises(ValueError, match=r"sequence \(39 positions\)"):
         lm.prefill(transformer.init_params(0, pali, device="cpu"), pali,
                    batch, s_max=64, rules=pali_rules)
-    caches = lm.init_caches(cfg, 3, 64, device="cpu")
-    with pytest.raises(ValueError, match=r"batch \(3 rows\)"):
-        t_sp.cache_blocks(cfg, rules, caches, _NoRanks(data=2, model=2))
 
 
 def test_decode_refuses_a_position_past_s_max():
