@@ -1047,12 +1047,11 @@ def phase_mlp_path(problem, dataset: str, pop: int, out_dir: str) -> dict:
     from repro_torch.core import netlist
     from repro_torch.datasets import load_dataset
     from repro_torch.families import printed_mlp as pm
+    from repro_torch.runtime import trace
     from repro_torch.runtime.classify import ClassifyServer
 
-    from repro_torch.kernels import qmatmul as qmm
-
     tag = f"[mlp {dataset}]"
-    float_launches = qmm.qmatmul.float_launches
+    float_launches = trace.counters().get("launches.qmatmul.float", 0)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     result = search.run_search(problem, backend="kernel", pop_size=pop,
@@ -1104,7 +1103,8 @@ def phase_mlp_path(problem, dataset: str, pop: int, out_dir: str) -> dict:
     counts = kernels.launch_counts()
     check(counts["qmatmul"] > searched["qmatmul"],
           "serving the MLP point never launched qmatmul")
-    check(qmm.qmatmul.float_launches == float_launches,
+    check(trace.counters().get("launches.qmatmul.float", 0)
+          == float_launches,
           "the MLP path ran qmatmul's float kernel, not the integer one")
     log(f"{tag} served point {idx} (acc_loss "
         f"{art.points[idx]['acc_loss']:+.4f}, norm_area "
@@ -3592,7 +3592,7 @@ def mesh_rank(problems_path: str, dirs: dict, n_ranks: int) -> dict:
     out["a"] = _cpu_state(res.state)
     out["a_s"] = (time.perf_counter() - t0, res.wall_s)
     out["a_counts"] = kernels.launch_counts()
-    out["a_slab"] = domination.domination_block.launches
+    out["a_slab"] = kernels.launched(domination.domination_block)
     search.run_search(problem, backend="kernel", pop_size=POP,
                       n_generations=GENS // 2, seed=SEED, out_dir=dirs["b"],
                       checkpoint_every=GENS // 2, mesh=str(n_ranks))
@@ -3608,7 +3608,7 @@ def mesh_rank(problems_path: str, dirs: dict, n_ranks: int) -> dict:
     out["d"] = {n: (_cpu_state(r.state), r.pareto_objs, r.pareto_genes)
                 for n, r in sw.results.items()}
     out["counts"] = kernels.launch_counts()
-    out["slab"] = domination.domination_block.launches
+    out["slab"] = kernels.launched(domination.domination_block)
     out["collectives"] = dict(dist.COLLECTIVES)
 
     # one sharded generation's host time, from (a)'s final population

@@ -39,6 +39,14 @@ table under the same budget, so it runs up to eight times the lanes a
 dispatch. The level index tensors are built once per simulator, on its
 device, and on the card a run captures one chunk as a CUDA graph and
 replays it for every chunk.
+
+Spans and counters (`runtime.trace`): `run_sites`' one-hot masks are the
+span ``faults.masks``; a `run_masks` call's phases ``faults.upload``,
+``faults.capture``, ``faults.lanes`` and ``faults.readback``; the counters
+``faults.lanes`` (lanes asked for, padding not counted),
+``faults.upload_bytes`` (host arrays handed to the simulator's device: its
+index tables, masks, values and input codes) and ``faults.readback_bytes``
+(the predictions brought back).
 """
 from __future__ import annotations
 
@@ -59,7 +67,7 @@ from repro_torch.core.netlist import (
     level_gates,
 )
 from repro_torch.device import resolve_device
-from repro_torch.runtime import graphs
+from repro_torch.runtime import graphs, trace
 
 # fault-lane chunk sizing: lanes per dispatch are chosen so a chunk's value
 # table stays under this budget (`auto_chunk`: the reference's (chunk, B, G)
@@ -168,8 +176,10 @@ class FaultSimulator:
         row[order] = np.arange(circuit.n_gates)
 
         def t(arr, dtype=torch.int64):
-            return torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype,
-                                   device=dev)
+            out = torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype,
+                                  device=dev)
+            trace.count("faults.upload_bytes", out.nbytes)
+            return out
 
         self._order = t(order)
         self._n_base = len(base)
@@ -241,7 +251,6 @@ class FaultSimulator:
         end.
         """
         dev = self.device
-        x8 = torch.as_tensor(x8, device=dev).to(torch.int32)
         stuck_mask = np.asarray(stuck_mask, bool)
         stuck_val = np.asarray(stuck_val, bool)
         g = self.circuit.n_gates
@@ -252,13 +261,14 @@ class FaultSimulator:
             raise ValueError(
                 f"stuck values {stuck_val.shape} do not match masks "
                 f"{stuck_mask.shape}")
-        s, n_b = stuck_mask.shape[0], int(x8.shape[0])
+        s, n_b = stuck_mask.shape[0], len(x8)
         if s == 0:
             return np.zeros((0, n_b), np.int32)
         if chunk is None:
             chunk = packed_chunk(self.circuit, n_b)
         chunk = max(1, min(int(chunk), s))
         s_pad = -(-s // chunk) * chunk
+        trace.count("faults.lanes", s)
 
         def table_order(m):   # (S, G) -> (G, s_pad), zero-fault padding
             out = torch.zeros((g, s_pad), dtype=torch.bool, device=dev)
@@ -266,14 +276,24 @@ class FaultSimulator:
                 1, self._order).T
             return out
 
-        mask_t = table_order(stuck_mask)
-        val_t = table_order(stuck_val).to(torch.uint8) * 255
-        step = self._chunk_step(self._base_rows(x8), chunk, n_b)
+        with trace.span("faults.upload"):
+            x8 = to_device(x8, dev).to(torch.int32)
+            trace.count("faults.upload_bytes",
+                        stuck_mask.nbytes + stuck_val.nbytes)
+            mask_t = table_order(stuck_mask)
+            val_t = table_order(stuck_val).to(torch.uint8) * 255
+            base_rows = self._base_rows(x8)
+        with trace.span("faults.capture"):
+            step = self._chunk_step(base_rows, chunk, n_b)
         preds = torch.empty((s_pad, n_b), dtype=torch.int32, device=dev)
-        for lo in range(0, s_pad, chunk):
-            step(mask_t[:, lo:lo + chunk, None], val_t[:, lo:lo + chunk, None],
-                 preds[lo:lo + chunk])
-        return preds[:s].cpu().numpy()
+        with trace.span("faults.lanes"):
+            for lo in range(0, s_pad, chunk):
+                step(mask_t[:, lo:lo + chunk, None],
+                     val_t[:, lo:lo + chunk, None], preds[lo:lo + chunk])
+        with trace.span("faults.readback"):
+            out = preds[:s].cpu().numpy()
+        trace.count("faults.readback_bytes", out.nbytes)
+        return out
 
     def _chunk_step(self, base_rows, chunk: int, n_b: int):
         """``step(mask, val, cls)``: one chunk through `_run_chunk` over one
@@ -288,7 +308,8 @@ class FaultSimulator:
     def run_sites(self, x8, gates, values,
                   chunk: int | None = None) -> np.ndarray:
         """Single-fault lanes: (S,) site gates + stuck values -> (S, B)."""
-        mask, val = site_masks(self.circuit.n_gates, gates, values)
+        with trace.span("faults.masks"):
+            mask, val = site_masks(self.circuit.n_gates, gates, values)
         return self.run_masks(x8, mask, val, chunk=chunk)
 
     def run_zero_fault(self, x8) -> np.ndarray:
@@ -297,6 +318,16 @@ class FaultSimulator:
         computes the same booleans)."""
         empty = np.zeros((1, self.circuit.n_gates), bool)
         return self.run_masks(x8, empty, empty, chunk=1)[0]
+
+
+def to_device(x, device) -> torch.Tensor:
+    """``x`` as a tensor on ``device``. Where that hands a host array over
+    (anything but a tensor already there), its bytes count in
+    ``faults.upload_bytes``."""
+    out = torch.as_tensor(x, device=device)
+    if out is not x:
+        trace.count("faults.upload_bytes", out.nbytes)
+    return out
 
 
 class _ChunkGraph:

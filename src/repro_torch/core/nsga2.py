@@ -39,10 +39,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import kernels
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.domination import domination_block
-from repro_torch.runtime import graphs
+from repro_torch.runtime import graphs, trace
 
 _BIG = 1e9
 
@@ -273,6 +272,7 @@ def draw_step(generator, pop_size: int, n_genes: int, device,
             draw_step(g, pop_size, n_genes, device, out=out.member(i))
         return out
     shapes = _step_shapes(pop_size, n_genes)
+    trace.count("nsga2.draws", len(shapes))
     drawn = {}
     for name, shape in shapes.items():
         kw = dict(generator=generator, device=device)
@@ -367,9 +367,13 @@ def make_chunk(fitness_fn, cfg: NSGA2Config, chunk_len: int):
     kernel is built and nothing in the step waits for the host), then
     captures the ``chunk_len`` steps. Each call draws the chunk's numbers
     eagerly, in generation order, into static buffers that generation g of
-    the graph reads, copies the state in and replays. Kernel launch counts
-    advance by the graph's launches at every replay
-    (`kernels.add_launches`); `make_chunk.captures` counts the graphs.
+    the graph reads (each draw counted in ``nsga2.draws``), copies the
+    state in and replays. Kernel launch counts and the fitness's
+    ``nsga2.evaluations`` advance by the graph's at every replay
+    (`runtime.graphs.Graph.replay`); `make_chunk.captures` counts the
+    graphs. A call is the span ``nsga2.chunk``; on the card its phases
+    are ``nsga2.chunk.draw``, ``.load``, ``.replay`` and ``.unload``
+    (`runtime.trace`).
 
     A batched state (K problems) takes a list of K generators, problem i
     drawing from generator i (`draw_step`); ``fitness_fn`` then maps
@@ -382,13 +386,14 @@ def make_chunk(fitness_fn, cfg: NSGA2Config, chunk_len: int):
     def chunk(state: NSGA2State, generator) -> NSGA2State:
         p, g = state.genes.shape[-2:]
         dev = state.genes.device
-        if dev.type != "cuda":
-            for _ in range(chunk_len):
-                state = step(state, draw_step(generator, p, g, dev))
-            return state
-        if not captured:
-            captured.append(_GraphChunk(step, chunk_len, state))
-        return captured[0].run(state, generator)
+        with trace.span("nsga2.chunk"):
+            if dev.type != "cuda":
+                for _ in range(chunk_len):
+                    state = step(state, draw_step(generator, p, g, dev))
+                return state
+            if not captured:
+                captured.append(_GraphChunk(step, chunk_len, state))
+            return captured[0].run(state, generator)
 
     return chunk
 
@@ -410,28 +415,29 @@ class _GraphChunk:
         self.draws = [draws.member(i) for i in range(chunk_len)]
 
         def chunk():
-            before = kernels.launch_snapshot()
             out = self.inputs
             for d in self.draws:
                 out = step(out, d)
-            return out, before
+            return out
 
-        self.graph, (self.outputs, before) = graphs.capture(
+        self.graph, self.outputs = graphs.capture(
             lambda: step(self.inputs, self.draws[0]), chunk, dev)
-        self.launches = kernels.rewind_launches(before)
         make_chunk.captures += 1
 
     def run(self, state: NSGA2State, generator) -> NSGA2State:
         p, g = state.genes.shape[-2:]
-        for d in self.draws:
-            draw_step(generator, p, g, state.genes.device, out=d)
-        for f in _STATE_TENSORS:
-            getattr(self.inputs, f).copy_(getattr(state, f))
-        self.graph.replay()
-        kernels.add_launches(self.launches)
-        return NSGA2State(*(getattr(self.outputs, f).clone()
-                            for f in _STATE_TENSORS),
-                          state.generation + len(self.draws))
+        with trace.span("nsga2.chunk.draw"):
+            for d in self.draws:
+                draw_step(generator, p, g, state.genes.device, out=d)
+        with trace.span("nsga2.chunk.load"):
+            for f in _STATE_TENSORS:
+                getattr(self.inputs, f).copy_(getattr(state, f))
+        with trace.span("nsga2.chunk.replay"):
+            self.graph.replay()
+        with trace.span("nsga2.chunk.unload"):
+            return NSGA2State(*(getattr(self.outputs, f).clone()
+                                for f in _STATE_TENSORS),
+                              state.generation + len(self.draws))
 
 
 def make_batched_init(fitness_fn, n_genes: int, cfg: NSGA2Config,

@@ -58,6 +58,7 @@ from repro_torch.device import resolve_device
 from repro_torch.families.base import ClassifierFamily
 from repro_torch.kernels.qmatmul import code_buffer
 from repro_torch.quantize import bespoke
+from repro_torch.runtime import trace
 
 MASTER_WBITS = 4            # master weight codes are 4-bit signed: [-8, 7]
 WB_MIN, WB_MAX = 2, 4       # precision gene range (truncations of the master)
@@ -399,6 +400,7 @@ def population_objectives(problem: MLPProblem,
 
 def make_reference_fitness(problem: MLPProblem):
     def fitness(pop):
+        trace.count("nsga2.evaluations", pop.shape[:-1].numel())
         return population_objectives(problem, pop)
 
     return fitness
@@ -408,10 +410,12 @@ def make_kernel_fitness(problem: MLPProblem):
     """Kernel fitness: the population's first layer as ONE `qmatmul`
     launch, ``x8u (B, F) uint8 @ w (F, P*H) int8`` on the integer tensor
     cores, so the test split streams through the kernel once per
-    generation. Equal to the reference."""
+    generation. Equal to the reference; both count the rows they score in
+    ``nsga2.evaluations`` (`runtime.trace`)."""
     from repro_torch.kernels import ops as kops
 
     def fitness(pop):
+        trace.count("nsga2.evaluations", pop.shape[:-1].numel())
         combos = decode_combos(pop)
         w1, w2, units = _gather_layers(problem, combos)
         p = pop.shape[0]

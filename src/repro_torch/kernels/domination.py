@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.runtime import trace
 
 
 def domination_block_plain(objs_i: torch.Tensor,
@@ -45,7 +46,7 @@ def domination_block(objs_i: torch.Tensor,
                      objs_j: torch.Tensor) -> torch.Tensor:
     """(Pi, Pj) bool: row i dominates column j. objs_i (Pi, M) and objs_j
     (Pj, M) float32. Counts its kernel launches in
-    ``domination_block.launches``."""
+    ``launches.domination_block``."""
     if not _build.on_cuda(objs_i, "domination_block"):
         return domination_block_plain(objs_i, objs_j)
     dev = objs_i.device
@@ -60,11 +61,10 @@ def domination_block(objs_i: torch.Tensor,
     rc = fn(_build.ptr(objs_i), _build.ptr(objs_j), _build.ptr(dom), pi, pj, m,
             _build.stream(dev))
     _build.check_launch(rc, "domination_block")
-    domination_block.launches += 1
+    trace.count("launches.domination_block")
     return dom
 
 
-domination_block.launches = 0
 
 
 def domination_matrix(objs: torch.Tensor) -> torch.Tensor:
@@ -107,7 +107,7 @@ def domination_bits(objs: torch.Tensor):
     W = `relation_words(P)`, bit k of ``rel[w, j]`` set iff row 32w + k
     dominates row j; counts (P,) int32 dominators of each row. For K pools,
     objs (K, P, M), rel (K, W, P) and counts (K, P), one launch. Counts its
-    kernel launches in ``domination_bits.launches``."""
+    kernel launches in ``launches.domination_bits``."""
     if not _build.on_cuda(objs, "domination_bits"):
         return domination_bits_plain(objs)
     dev = objs.device
@@ -126,11 +126,10 @@ def domination_bits(objs: torch.Tensor):
     rc = fn(_build.ptr(objs), _build.ptr(rel), _build.ptr(counts), n_prob,
             p, m, _build.stream(dev))
     _build.check_launch(rc, "domination_bits")
-    domination_bits.launches += 1
+    trace.count("launches.domination_bits")
     return rel, counts
 
 
-domination_bits.launches = 0
 
 
 def non_dominated_rank_plain(objs: torch.Tensor) -> torch.Tensor:
@@ -159,7 +158,7 @@ def non_dominated_rank(objs: torch.Tensor) -> torch.Tensor:
     (K, P) for K pools, objs (K, P, M). On the card: `domination_bits`,
     then one launch that peels every front of every pool (a block a pool),
     and no host sync. Counts the peel's launches in
-    ``non_dominated_rank.launches``."""
+    ``launches.non_dominated_rank``."""
     if not _build.on_cuda(objs, "non_dominated_rank"):
         return non_dominated_rank_plain(objs)
     dev = objs.device
@@ -174,8 +173,7 @@ def non_dominated_rank(objs: torch.Tensor) -> torch.Tensor:
     rc = fn(_build.ptr(rel), _build.ptr(counts), _build.ptr(rank), n_prob, p,
             _build.stream(dev))
     _build.check_launch(rc, "non_dominated_rank")
-    non_dominated_rank.launches += 1
+    trace.count("launches.non_dominated_rank")
     return rank
 
 
-non_dominated_rank.launches = 0

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.tree_infer import PLAIN_CHUNK, leaf_votes_plain
+from repro_torch.runtime import trace
 
 # The operand layout of csrc/fitness.cu (a test holds the two files equal):
 # K (comparators) padded to a multiple of K_ALIGN bytes, leaves to a
@@ -163,7 +164,7 @@ def fitness_correct_counts(ops: FitnessOperands, shift: torch.Tensor,
     """(P,) int32 correct-sample counts; shift/thr (P, N) int32, vote_cap
     (P,) int32. With stacked operands (K problems) shift/thr are (K, P, N),
     vote_cap (K, P) and the counts (K, P), still one launch. Counts its
-    kernel launches in ``fitness_correct_counts.launches``."""
+    kernel launches in ``launches.fitness_correct_counts``."""
     if not _build.on_cuda(shift, "fitness_correct_counts"):
         return fitness_correct_counts_plain(ops, shift, thr, vote_cap)
     dev = shift.device
@@ -205,8 +206,7 @@ def fitness_correct_counts(ops: FitnessOperands, shift: torch.Tensor,
             n_prob, n_pop, batch, n, k_pad, l_pad, ops.n_classes, ops.chunk,
             _build.stream(dev))
     _build.check_launch(rc, "fitness_correct_counts")
-    fitness_correct_counts.launches += 1
+    trace.count("launches.fitness_correct_counts")
     return correct
 
 
-fitness_correct_counts.launches = 0

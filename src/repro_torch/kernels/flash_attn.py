@@ -9,7 +9,7 @@ head axis and query head h reading kv head h // group (group = H / Hkv).
 Positions are absolute from 0 on both axes (query i sees keys 0..i), as in
 the TPU kernel. Two wrappers launch one entry point of `csrc/flash_attn.cu`
 (its bound and design are stated there) and count on one counter,
-``flash_attention.launches``:
+``launches.flash_attention``:
 
 - `flash_attention(q, k, v, *, group, softcap)` takes the JAX contract's
   (H, S, hd) layout;
@@ -52,7 +52,7 @@ through a `torch.autograd.Function`: its forward launches the same kernel
 with each query row's log-sum-exp kept (float32 (B, H, Sq), natural log),
 its backward launches `flash_attention_backward`, two kernels of
 `csrc/flash_attn_bwd.cu` (no TPU kernel: the JAX package differentiates its
-jnp attention) counted on ``flash_attention_backward.launches``. Its plain
+jnp attention) counted on ``launches.flash_attention_backward``. Its plain
 version `flash_attention_backward_plain` computes the same equations in
 float32 PyTorch, and `flash_attention_lse_plain` the log-sum-exp; on the
 CPU the wrappers run the plain forward and autograd differentiates it.
@@ -76,6 +76,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.runtime import trace
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (64, 112, 128, 256)
@@ -252,7 +253,7 @@ def _launch(q, k, v, out, softcap: float, lse=None) -> None:
             *_strides(q), *_strides(k), *_strides(v), *_strides(out),
             hd ** -0.5, float(softcap), _build.stream(dev))
     _build.check_launch(rc, "flash_attention")
-    flash_attention.launches += 1
+    trace.count("launches.flash_attention")
     if _build.FLOP_SINKS:
         _build.report_flops("flash_attention", forward_flops(q, k))
 
@@ -305,7 +306,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     group: int = 1, softcap: float = 0.0) -> torch.Tensor:
     """(H, Sq, hd) causal attention of q over k, v (Hkv, Skv, hd), query
     head h on kv head h // group, tanh softcap when ``softcap`` > 0; in q's
-    dtype. Counts its kernel launches in ``flash_attention.launches``; on
+    dtype. Counts its kernel launches in ``launches.flash_attention``; on
     the card, differentiable through `flash_attention_backward`."""
     _check(q, k, v, group)
     _check_layout(("q", q), ("k", k), ("v", v))
@@ -324,7 +325,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, Sq, H, hd) causal attention of q over k, v (B, Skv, Hkv, hd) in
     the model's layout, query head h on kv head h // (H / Hkv), tanh softcap
     when ``softcap`` > 0; in q's dtype, a new contiguous tensor. Counts its
-    launches in ``flash_attention.launches``."""
+    launches in ``launches.flash_attention``."""
     _check_bshd(q, k, v)
     _check_layout(("q", q), ("k", k), ("v", v))
     if not _build.on_meta(q) and not _build.on_cuda(q, "flash_attention"):
@@ -336,7 +337,6 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-flash_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +417,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     (B, Sq, H, hd), k, v (B, Skv, Hkv, hd), lse the forward's float32 (B,
     H, Sq) log-sum-exp; new contiguous tensors in the inputs' dtype. On a
     CUDA tensor it launches the two kernels of `csrc/flash_attn_bwd.cu`
-    (counted once in ``flash_attention_backward.launches``), on a CPU
+    (counted once in ``launches.flash_attention_backward``), on a CPU
     tensor it runs `flash_attention_backward_plain`."""
     _check_bshd(q, k, v)
     b, sq, h, hd = q.shape
@@ -467,10 +467,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             *_strides(v), *_strides(o), *_strides(do), hd ** -0.5,
             float(softcap), _build.stream(q.device))
     _build.check_launch(rc, "flash_attention_backward")
-    flash_attention_backward.launches += 1
+    trace.count("launches.flash_attention_backward")
     if _build.FLOP_SINKS:
         _build.report_flops("flash_attention_backward", backward_flops(q, k))
     return dq, dk, dv
 
 
-flash_attention_backward.launches = 0

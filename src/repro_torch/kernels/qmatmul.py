@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.runtime import trace
 
 X_DTYPES = (torch.uint8, torch.float32, torch.bfloat16)
 ROW_ALIGN = 16  # bytes: rows of a `code_buffer` start on this boundary
@@ -69,8 +70,8 @@ def qmatmul(x: torch.Tensor, w_q: torch.Tensor,
     """(M, N) float32 ``(x @ w_q) * scale``: x (M, K) uint8, float32 or
     bfloat16 (uint8 with unit column stride, float contiguous), w_q (K, N)
     int8, scale (N,) or (1, N) float32. Counts its kernel launches in
-    ``qmatmul.launches``, and those of the float kernel among them in
-    ``qmatmul.float_launches``."""
+    ``launches.qmatmul``, and those of the float kernel among them in
+    ``launches.qmatmul.float``."""
     if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0]:
         raise ValueError(f"qmatmul: x {tuple(x.shape)} and w_q "
                          f"{tuple(w_q.shape)} do not chain as (M, K) @ (K, N)")
@@ -106,10 +107,8 @@ def qmatmul(x: torch.Tensor, w_q: torch.Tensor,
                 _build.ptr(out), m, n, k, int(x.dtype == torch.bfloat16),
                 _build.stream(dev))
     _build.check_launch(rc, "qmatmul")
-    qmatmul.launches += 1
-    qmatmul.float_launches += x.dtype != torch.uint8
+    trace.count("launches.qmatmul")
+    trace.count("launches.qmatmul.float", x.dtype != torch.uint8)
     return out
 
 
-qmatmul.launches = 0
-qmatmul.float_launches = 0

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.runtime import trace
 
 # 32-bit words per leaf mask the CUDA kernel is instantiated for; must
 # equal REPRO_NWP_CASES in csrc/tree_infer.cu (a test holds them equal).
@@ -159,7 +160,7 @@ def tree_infer_scores(x8: torch.Tensor, ops: TreeOperands,
                       shift: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     """(P, B, C) int32 per-class votes; x8 (B, F) int32 master codes,
     shift/thr (P, N) int32. Counts its kernel launches in
-    ``tree_infer_scores.launches``."""
+    ``launches.tree_infer_scores``."""
     if not _build.on_cuda(x8, "tree_infer_scores"):
         return tree_infer_scores_plain(x8, ops, shift, thr)
     dev = x8.device
@@ -202,8 +203,7 @@ def tree_infer_scores(x8: torch.Tensor, ops: TreeOperands,
             n_pop, batch, ops.n_features, n, n_leaves, ops.n_classes,
             ops.nwp, ops.n_seg, ops.d_words, _build.stream(dev))
     _build.check_launch(rc, "tree_infer_scores")
-    tree_infer_scores.launches += 1
+    trace.count("launches.tree_infer_scores")
     return votes
 
 
-tree_infer_scores.launches = 0

@@ -9,7 +9,8 @@ For a tree or forest `SearchProblem` (genes (P, 3N+1)):
 
 The two agree exactly: the kernel's counts equal the plain dataflow's, and
 both turn the same integer into an accuracy with `problem.accuracy`.
-`make_fitness` takes any family's problem and hands it to that family's
+Either counts the rows it scores in ``nsga2.evaluations``
+(`runtime.trace`). `make_fitness` takes any family's problem and hands it to that family's
 own `make_fitness` (`repro_torch.families`), so `engine.run_search` stays
 generic.
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.runtime import trace
 from repro_torch.search.problem import (SearchProblem, accuracy, area_units,
                                         normalized_area, objectives)
 
@@ -27,6 +29,7 @@ def make_reference_fitness(problem: SearchProblem):
     """Population fitness: (P, n_genes) genes -> (P, 2) objectives."""
 
     def fitness(pop):
+        trace.count("nsga2.evaluations", pop.shape[:-1].numel())
         return objectives(problem, pop)
 
     return fitness
@@ -45,6 +48,7 @@ def make_kernel_fitness(problem: SearchProblem):
                                   device=problem.device)
 
     def fitness(pop):
+        trace.count("nsga2.evaluations", pop.shape[:-1].numel())
         shift, t_eff, bits, vote_cap = kops.decode_population_full(
             problem.threshold, pop)
         errors = kops.fitness_errors(fit_operands, shift, t_eff, vote_cap)

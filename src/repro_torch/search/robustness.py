@@ -21,6 +21,13 @@ JAX's included. Accuracies and their reductions are float64 numpy on the
 host from the (S, B) predictions, as in the reference, so a report equals
 the JAX package's in every key but `monte_carlo` (and `source`).
 
+A campaign (`point_robustness`) is the span ``faults.campaign``
+(`runtime.trace`); its host phases are ``faults.simulator`` (building the
+simulator), ``faults.oracle`` (`netlist.simulate` and its read back),
+``faults.draws``, ``faults.masks`` (the sites and the (S, G) masks built in
+numpy) and ``faults.reduce`` (the accuracies and the ranking), beside the
+simulator's own.
+
 `fault_report.json` keeps the reference's schema and its two-sided key
 discipline: `validate_fault_report` rejects missing AND unknown keys with a
 named `ValueError`, on write and on load.
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import faults, netlist
+from repro_torch.runtime import trace
 
 DEFAULT_DEFECT_RATE = 0.02
 DEFAULT_TRIALS = 32
@@ -130,10 +138,12 @@ def single_stuck_at(sim: faults.FaultSimulator, x8, y,
     of `faults.single_fault_lanes`).
     """
     y = _host(y).astype(np.int64)
-    sites = faults.enumerate_fault_sites(sim.circuit)
-    gates, values = faults.single_fault_lanes(sim.circuit, sites)
+    with trace.span("faults.masks"):
+        sites = faults.enumerate_fault_sites(sim.circuit)
+        gates, values = faults.single_fault_lanes(sim.circuit, sites)
     preds = sim.run_sites(x8, gates, values, chunk=chunk)   # (2S, B)
-    accs = (preds == y[None, :]).mean(axis=1)
+    with trace.span("faults.reduce"):
+        accs = (preds == y[None, :]).mean(axis=1)
     return sites, accs
 
 
@@ -165,23 +175,25 @@ def monte_carlo_metrics(sim: faults.FaultSimulator, x8, y, hit, pol,
     stuck at ``pol[t, s]``): the metric dict plus the per-trial accuracy
     array under "_accuracies" (stripped before serialization)."""
     y = _host(y).astype(np.int64)
-    sites = faults.enumerate_fault_sites(sim.circuit)
-    site_gates = np.asarray([s.gate for s in sites], np.int64)
-    hit = np.asarray(hit, bool)
-    pol = np.asarray(pol, bool)
-    mask = np.zeros((hit.shape[0], sim.circuit.n_gates), bool)
-    val = np.zeros_like(mask)
-    mask[:, site_gates] = hit
-    val[:, site_gates] = hit & pol
+    with trace.span("faults.masks"):
+        sites = faults.enumerate_fault_sites(sim.circuit)
+        site_gates = np.asarray([s.gate for s in sites], np.int64)
+        hit = np.asarray(hit, bool)
+        pol = np.asarray(pol, bool)
+        mask = np.zeros((hit.shape[0], sim.circuit.n_gates), bool)
+        val = np.zeros_like(mask)
+        mask[:, site_gates] = hit
+        val[:, site_gates] = hit & pol
     preds = sim.run_masks(x8, mask, val, chunk=chunk)       # (T, B)
-    accs = (preds == y[None, :]).mean(axis=1)
-    return {
-        "expected_accuracy": float(accs.mean()),
-        "std_accuracy": float(accs.std()),
-        "worst_accuracy": float(accs.min()),
-        "mean_faulty_sites": float(mask.sum(axis=1).mean()),
-        "_accuracies": accs,
-    }
+    with trace.span("faults.reduce"):
+        accs = (preds == y[None, :]).mean(axis=1)
+        return {
+            "expected_accuracy": float(accs.mean()),
+            "std_accuracy": float(accs.std()),
+            "worst_accuracy": float(accs.min()),
+            "mean_faulty_sites": float(mask.sum(axis=1).mean()),
+            "_accuracies": accs,
+        }
 
 
 def monte_carlo(sim: faults.FaultSimulator, x8, y, *,
@@ -191,9 +203,10 @@ def monte_carlo(sim: faults.FaultSimulator, x8, y, *,
                 chunk: int | None = None) -> dict:
     """Expected accuracy under iid per-site defects (`draw_defects` under
     ``seed``, scored by `monte_carlo_metrics`)."""
-    hit, pol = draw_defects(len(faults.enumerate_fault_sites(sim.circuit)),
-                            defect_rate=defect_rate, n_trials=n_trials,
-                            seed=seed)
+    with trace.span("faults.draws"):
+        hit, pol = draw_defects(
+            len(faults.enumerate_fault_sites(sim.circuit)),
+            defect_rate=defect_rate, n_trials=n_trials, seed=seed)
     return monte_carlo_metrics(sim, x8, y, hit, pol, chunk=chunk)
 
 
@@ -231,33 +244,39 @@ def point_robustness(circuit, x8, y, *,
     depend on the artifact (`run_campaign` adds point/acc_loss/norm_area/
     area_mm2/recorded_accuracy).
     """
-    y = _host(y).astype(np.int64)
-    sim = faults.FaultSimulator(circuit, device=device)
-    zero = sim.run_zero_fault(x8)
-    oracle = netlist.simulate(
-        circuit, torch.as_tensor(x8, device=sim.device)).cpu().numpy()
-    zero_ok = bool(np.array_equal(zero, oracle))
-    baseline = float((zero == y).mean())
-    sites, accs = single_stuck_at(sim, x8, y, chunk=chunk)
-    mc = monte_carlo(sim, x8, y, defect_rate=defect_rate,
-                     n_trials=n_trials, seed=seed, chunk=chunk)
-    mc.pop("_accuracies")
-    return {
-        "n_gates": int(circuit.n_gates),
-        "n_sites": len(sites),
-        "n_faults": int(accs.shape[0]),
-        "baseline_accuracy": baseline,
-        "zero_fault_matches_simulate": zero_ok,
-        "single_fault": {
-            "mean_accuracy": float(accs.mean()),
-            "worst_accuracy": float(accs.min()),
-            "mean_drop": float((baseline - accs).mean()),
-            "worst_drop": float((baseline - accs).max()),
-        },
-        "critical_gates": critical_gates(sites, accs, baseline,
-                                         top_k=top_k),
-        "monte_carlo": mc,
-    }
+    with trace.span("faults.campaign"):
+        y = _host(y).astype(np.int64)
+        with trace.span("faults.simulator"):
+            sim = faults.FaultSimulator(circuit, device=device)
+        zero = sim.run_zero_fault(x8)
+        with trace.span("faults.oracle"):
+            oracle = netlist.simulate(
+                circuit, faults.to_device(x8, sim.device)).cpu().numpy()
+        trace.count("faults.readback_bytes", oracle.nbytes)
+        with trace.span("faults.reduce"):
+            zero_ok = bool(np.array_equal(zero, oracle))
+            baseline = float((zero == y).mean())
+        sites, accs = single_stuck_at(sim, x8, y, chunk=chunk)
+        mc = monte_carlo(sim, x8, y, defect_rate=defect_rate,
+                         n_trials=n_trials, seed=seed, chunk=chunk)
+        mc.pop("_accuracies")
+        with trace.span("faults.reduce"):
+            return {
+                "n_gates": int(circuit.n_gates),
+                "n_sites": len(sites),
+                "n_faults": int(accs.shape[0]),
+                "baseline_accuracy": baseline,
+                "zero_fault_matches_simulate": zero_ok,
+                "single_fault": {
+                    "mean_accuracy": float(accs.mean()),
+                    "worst_accuracy": float(accs.min()),
+                    "mean_drop": float((baseline - accs).mean()),
+                    "worst_drop": float((baseline - accs).max()),
+                },
+                "critical_gates": critical_gates(sites, accs, baseline,
+                                                 top_k=top_k),
+                "monte_carlo": mc,
+            }
 
 
 def select_points(artifact, point: str = "all",

@@ -41,6 +41,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch import kernels
 from repro_torch import pytree
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, reduced_config
 from repro_torch.kernels import _build
@@ -205,7 +206,7 @@ def test_meta_forward_is_the_plain_forward_in_shape_and_flops(dtype):
     version on the CPU."""
     q, k, v = _qkv("cpu", dtype=dtype)
     mq, mk, mv = _qkv("meta", dtype=dtype)
-    before = fa.flash_attention.launches
+    before = kernels.launched(fa.flash_attention)
     want = fa.flash_attention_bshd_plain(q, k, v)
     got = {}
     rep = _reported(lambda: got.setdefault(
@@ -222,7 +223,7 @@ def test_meta_forward_is_the_plain_forward_in_shape_and_flops(dtype):
     assert rep == {"flash_attention": _counted(
         lambda: fa.flash_attention_plain(fold(q), fold(k), fold(v),
                                          group=2))}
-    assert fa.flash_attention.launches == before
+    assert kernels.launched(fa.flash_attention) == before
 
 
 def test_meta_backward_is_autograd_of_the_plain_forward_in_flops():

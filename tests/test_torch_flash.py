@@ -544,10 +544,10 @@ class TestFlashAttentionOnCuda:
                                   dtype, softcap):
         q, k, v = (torch.as_tensor(a, device=cuda_device).to(dtype)
                    for a in _qkv(h + sq + hd, h, hkv, sq, skv, hd))
-        launches = t_fa.flash_attention.launches
+        launches = kernels.launched(t_fa.flash_attention)
         got = t_fa.flash_attention(q, k, v, group=h // hkv, softcap=softcap)
         torch.cuda.synchronize()
-        assert t_fa.flash_attention.launches == launches + 1
+        assert kernels.launched(t_fa.flash_attention) == launches + 1
         want = t_fa.flash_attention_plain(q, k, v, group=h // hkv,
                                           softcap=softcap)
         if dtype == torch.float32:
@@ -567,10 +567,10 @@ class TestFlashAttentionOnCuda:
             pytest.skip("a fused qkv tensor has one length")
         q, k, v = _model_layout(cuda_device, h, hkv, sq, skv, hd, dtype,
                                 fused)
-        launches = t_fa.flash_attention.launches
+        launches = kernels.launched(t_fa.flash_attention)
         got = t_fa.flash_attention_bshd(q, k, v, softcap=softcap)
         torch.cuda.synchronize()
-        assert t_fa.flash_attention.launches == launches + 1
+        assert kernels.launched(t_fa.flash_attention) == launches + 1
         assert got.shape == q.shape and got.is_contiguous()
         want = t_fa.flash_attention_bshd_plain(q, k, v, softcap=softcap)
         if dtype == torch.float32:
@@ -635,10 +635,10 @@ class TestFlashBackwardOnCuda:
         dv within their limits, two calls bit-equal, autograd through both
         wrappers == the kernel, planted faults read where the cap is
         reached."""
-        launches = t_fa.flash_attention_backward.launches
+        launches = kernels.launched(t_fa.flash_attention_backward)
         res = cs.check_flash_backward(case)
         assert len(res["errs"]) == 3
-        assert t_fa.flash_attention_backward.launches > launches + 1
+        assert kernels.launched(t_fa.flash_attention_backward) > launches + 1
 
     def test_autograd_runs_the_kernels(self, cuda_device):
         q, k, v = _model_layout(cuda_device, 8, 2, 300, 300, 128,
@@ -646,11 +646,11 @@ class TestFlashBackwardOnCuda:
         do = torch.randn_like(q)
         o, lse = t_fa.flash_attention_forward(q, k, v)
         want = t_fa.flash_attention_backward(q, k, v, o, lse, do)
-        fwd = t_fa.flash_attention.launches
-        bwd = t_fa.flash_attention_backward.launches
+        fwd = kernels.launched(t_fa.flash_attention)
+        bwd = kernels.launched(t_fa.flash_attention_backward)
         qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
         t_fa.flash_attention_bshd(qg, kg, vg).backward(do)
-        assert t_fa.flash_attention.launches == fwd + 1
-        assert t_fa.flash_attention_backward.launches == bwd + 1
+        assert kernels.launched(t_fa.flash_attention) == fwd + 1
+        assert kernels.launched(t_fa.flash_attention_backward) == bwd + 1
         for t, w in zip((qg, kg, vg), want):
             assert torch.equal(t.grad, w)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import nsga2 as t_nsga2
 from repro_torch.core import quant as t_quant
 from repro_torch.kernels import _build
@@ -107,9 +108,9 @@ def test_fitness_plain_matches_ref(jref, seed, p, b, n, l, c):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), expect.astype(np.int32))
     # the wrapper takes the plain version for CPU tensors, launching nothing
-    launches = t_fit.fitness_correct_counts.launches
+    launches = kernels.launched(t_fit.fitness_correct_counts)
     errors = t_ops.fitness_errors(ops, shift, thr_t, cap_t)
-    assert t_fit.fitness_correct_counts.launches == launches
+    assert kernels.launched(t_fit.fitness_correct_counts) == launches
     np.testing.assert_array_equal(errors.numpy(),
                                   int((case["y"] >= 0).sum()) - expect)
 
@@ -666,10 +667,10 @@ class TestKernelsOnCuda:
             case["approx"][:] = True
         ops = _port_fitness_operands(case, device=cuda_device)
         shift, thr, cap = _to(cuda_device, *_port_chromosome_operands(case))
-        launches = t_fit.fitness_correct_counts.launches
+        launches = kernels.launched(t_fit.fitness_correct_counts)
         got = t_fit.fitness_correct_counts(ops, shift, thr, cap)
         torch.cuda.synchronize()
-        assert t_fit.fitness_correct_counts.launches == launches + 1
+        assert kernels.launched(t_fit.fitness_correct_counts) == launches + 1
         expect = t_fit.fitness_correct_counts_plain(ops, shift, thr, cap)
         assert torch.equal(got, expect)
 
@@ -771,10 +772,10 @@ class TestKernelsOnCuda:
             device=cuda_device)
         shift, thr, _ = _to(cuda_device, *_port_chromosome_operands(case))
         x8 = torch.as_tensor(case["x8"], device=cuda_device)
-        launches = t_ti.tree_infer_scores.launches
+        launches = kernels.launched(t_ti.tree_infer_scores)
         got = t_ti.tree_infer_scores(x8, ops, shift, thr)
         torch.cuda.synchronize()
-        assert t_ti.tree_infer_scores.launches == launches + 1
+        assert kernels.launched(t_ti.tree_infer_scores) == launches + 1
         want = t_ti.tree_infer_scores_plain(x8, ops, shift, thr)
         assert torch.equal(got, want)
         if leaves == "tree-like":
@@ -802,8 +803,8 @@ class TestKernelsOnCuda:
             objs = _sort_case(name)
         objs = torch.as_tensor(objs, device=cuda_device)
         t_dom.domination_bits(objs)          # build and load first
-        before = (t_dom.domination_bits.launches,
-                  t_dom.non_dominated_rank.launches)
+        before = (kernels.launched(t_dom.domination_bits),
+                  kernels.launched(t_dom.non_dominated_rank))
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -811,8 +812,8 @@ class TestKernelsOnCuda:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        assert (t_dom.domination_bits.launches,
-                t_dom.non_dominated_rank.launches) == (before[0] + 1,
+        assert (kernels.launched(t_dom.domination_bits),
+                kernels.launched(t_dom.non_dominated_rank)) == (before[0] + 1,
                                                        before[1] + 1)
         want = t_dom.non_dominated_rank_plain(objs)
         assert torch.equal(got, want)

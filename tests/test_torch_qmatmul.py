@@ -198,10 +198,10 @@ class TestQmatmulOnCuda:
     def test_codes_exact(self, cuda_device, m, k, n):
         x, w, scale = (torch.as_tensor(a, device=cuda_device)
                        for a in _case(m + n, m, k, n, "codes"))
-        launches = t_qmm.qmatmul.launches
+        launches = kernels.launched(t_qmm.qmatmul)
         got = t_qmm.qmatmul(x, w, scale)
         torch.cuda.synchronize()
-        assert t_qmm.qmatmul.launches == launches + 1
+        assert kernels.launched(t_qmm.qmatmul) == launches + 1
         assert torch.equal(got, t_qmm.qmatmul_plain(x, w, scale))
 
     @pytest.mark.parametrize("m,k,n", SHAPES + [
@@ -217,10 +217,10 @@ class TestQmatmulOnCuda:
         if layout == "code_buffer":
             xu = t_qmm.code_buffer(xu)
         w, scale = (torch.as_tensor(a, device=cuda_device) for a in (w, scale))
-        launches = t_qmm.qmatmul.launches
+        launches = kernels.launched(t_qmm.qmatmul)
         got = t_qmm.qmatmul(xu, w, scale)
         torch.cuda.synchronize()
-        assert t_qmm.qmatmul.launches == launches + 1
+        assert kernels.launched(t_qmm.qmatmul) == launches + 1
         assert torch.equal(got, t_qmm.qmatmul_plain(xu, w, scale))
 
     def test_uint8_refuses_strided_columns(self, cuda_device):

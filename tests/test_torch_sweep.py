@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from repro_torch import convert
+from repro_torch import kernels
 from repro_torch import search as t_search
 from repro_torch.core import forest as t_forest
 from repro_torch.core import nsga2 as t_nsga2
@@ -495,10 +496,10 @@ class TestSweepOnCuda:
         pop = torch.rand((len(padded), 96, padded[0].n_genes), generator=gen,
                          device=cuda_device)
         shift, t_sub, cap = t_sweep.padded_fitness_args(stacked, pop)
-        launches = t_fit.fitness_correct_counts.launches
+        launches = kernels.launched(t_fit.fitness_correct_counts)
         both = t_fit.fitness_correct_counts(stacked.fit_ops, shift, t_sub,
                                             cap)
-        assert t_fit.fitness_correct_counts.launches == launches + 1
+        assert kernels.launched(t_fit.fitness_correct_counts) == launches + 1
         plain = t_fit.fitness_correct_counts_plain(stacked.fit_ops, shift,
                                                    t_sub, cap)
         assert torch.equal(both, plain)
