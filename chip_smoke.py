@@ -5,7 +5,7 @@
 
 Phases, each of which stops the script with a non-zero exit on failure:
 
-1. Build the six Hopper kernel sources from `src/repro_torch/csrc/` (one
+1. Build the seven Hopper kernel sources from `src/repro_torch/csrc/` (one
    nvcc per source, all started together, `sm_90a`) and report nvcc's
    register and spill summary, for `fitness`, `qmatmul`, `flash_attn` and
    `flash_attn_bwd` by kernel.
@@ -166,18 +166,20 @@ Phases, each of which stops the script with a non-zero exit on failure:
    two-tree forests in one bucket, seeds and pendigits MLPs in another,
    pop 16, 4 generations), batched == serial.
 15. `[faults]`: the stuck-at campaign (`core.faults`, `search.robustness`,
-   plain PyTorch on the card). The har tree's best point over all 3090
-   test rows: its zero-fault lane == `netlist.simulate` == the argmax of
-   `tree_infer_scores`' votes (`ops.classify`, the `--verify-rtl` leg);
-   16 single-fault lanes spread over the campaign == the numpy oracle
-   `simulate_faulty_serial`; the exhaustive single stuck-at campaign at
-   the default chunk and at `--chunk 64`, equal, each with its lanes,
-   chunks, wall s and device busy s (busy and idle share from a profiled
-   window of its first chunks). The pendigits MLP's best point the same
-   way (its zero-fault lane == the `qmatmul` server) at chunk 256, its
-   default chunk reckoned from a window; every campaign run holds its
-   rows at the 16 spread lanes to the oracle. The har forest's
-   campaign reckoned, not run. Point reports on the card == the CPU's,
+   the fault-lane kernel `fault_sim.fault_lanes` on the card). The har
+   tree's best point over all 3090 test rows: its zero-fault lane ==
+   `netlist.simulate` == the argmax of `tree_infer_scores`' votes
+   (`ops.classify`, the `--verify-rtl` leg); 16 single-fault lanes spread
+   over the campaign == the numpy oracle `simulate_faulty_serial`; the
+   kernel == its plain version over every single lane, timed beside its
+   bound (the kernels line's `fault_lanes` row); the exhaustive single
+   stuck-at campaign at the default chunk (one launch) and at `--chunk
+   64` (a launch a chunk), equal, each with its launches, wall s and
+   device busy s (busy and idle share from a second, traced call). The
+   pendigits MLP's best point the same way (its zero-fault lane == the
+   `qmatmul` server) at the default chunk and at chunk 256, the har
+   forest's at the default chunk; every campaign run holds its rows at
+   the 16 spread lanes to the oracle. Point reports on the card == the CPU's,
    floats included, for a seeds tree and a vertebral three-tree forest
    under both vote adders, and their Monte-Carlo draws reproduce under a
    seed. Then `sweep --fault-report` (with `--verify-rtl` and `--report`)
@@ -348,6 +350,12 @@ TPU_KERNELS = {  # kernel -> (port source, the TPU kernel it replaces,
         "[lm-mesh]'s ranks: (a) each on its local 12 query and 4 kv heads, "
         "(b) the reduced float32 steps of every layer kind with "
         "attention"),
+    "fault_lanes": (
+        "src/repro_torch/csrc/fault_sim.cu",
+        "none: no TPU kernel (the JAX package's stuck-at simulator is jnp, "
+        "src/repro/core/faults.py::FaultSimulator)",
+        "every single stuck-at lane of the har tree point's circuit over "
+        "its 3090 rows in one launch; the plain version 1024 lanes a call"),
 }
 # [dryrun] (c): (arch, shape, multi_pod) of the production cells run on
 # fake groups; paper-dt-ga is the GA cell
@@ -1808,27 +1816,13 @@ def phase_sweep(rng, root: str) -> dict:
 
 FAULT_SPREAD = 16       # [faults]: single-fault lanes held to the numpy oracle
 FAULT_CHUNK = 64        # [faults]: the har campaign's second run, --chunk 64
-FAULT_WIDE_CHUNK = 256  # MAX_CHUNK: the MLP campaigns (default: 8 lanes)
-FAULT_WINDOW_MS = 50    # device ms of the smaller traced window, at least
-FAULT_TRACE = 25000     # kernels in the smaller traced window, at most
-
-
-def fault_window(timer, sim, x8, gates, values, chunk: int, k: int):
-    """``(ms per chunk, k, ms of k chunks, ms of 2k)`` of ``chunk`` lanes by
-    ``timer(fn) -> ms``: the difference between a campaign's first 2k
-    chunks and its first k, which cancels each run's set-up and graph
-    capture."""
-    k = max(1, min(k, len(gates) // (2 * chunk)))
-    big = timer(fault_run(sim, x8, gates, values, chunk, 2 * k))
-    small = timer(fault_run(sim, x8, gates, values, chunk, k))
-    return (big - small) / k, k, small, big
+FAULT_WIDE_CHUNK = 256  # MAX_CHUNK: the MLP campaign's second run
+FAULT_PLAIN_LANES = 1024   # lanes a call of the plain level chain, timed
 
 
 def busy_ms(fn) -> float:
     """Device time of one call of ``fn``: the summed device activities of a
-    `torch.profiler` trace of the device alone (a deep circuit's chunk is
-    thousands of kernels, and host events double the trace's parse time),
-    with no warm-up call: `fault_window` differences two such calls."""
+    `torch.profiler` trace of the device alone, with no warm-up call."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1838,54 +1832,85 @@ def busy_ms(fn) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
-def fault_run(sim, x8, gates, values, chunk: int, n: int):
-    """A call of the campaign's first ``n`` chunks of ``chunk`` lanes."""
-    return lambda: sim.run_sites(x8, gates[:n * chunk], values[:n * chunk],
-                                 chunk=chunk)
-
-
-def fault_campaign(what: str, sim, x8, gates, values, chunk, run=True):
+def fault_campaign(what: str, sim, x8, gates, values, chunk):
     """The exhaustive single stuck-at campaign over ``gates``/``values`` at
-    ``chunk`` (None: the default, `packed_chunk`): its predictions and
-    wall s, with its lanes, chunks, and device busy s scaled from a traced
-    window (`busy_ms`). With ``run=False`` it is
-    reckoned instead, not run: chunks x the larger of a chunk's busy time
-    and its host time (median host clock over a window of ~100 ms)."""
-    from repro_torch.core import faults, netlist
+    ``chunk`` (None: the default, every lane in one launch of the
+    fault-lane kernel): its predictions and wall s, with its launches and
+    the device busy s of a second, traced call (`busy_ms`)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import fault_sim
 
-    per = chunk or faults.packed_chunk(sim.circuit, x8.shape[0])
-    per = max(1, min(per, len(gates)))
-    n_chunks = -(-len(gates) // per)
-    # the smaller window holds >= FAULT_WINDOW_MS of device time and, at ~9
-    # kernels a logic level a chunk, <= FAULT_TRACE kernels; the pilot, a
-    # one-chunk run, is its capture's warm-up chunk and one replay
-    pilot = busy_ms(fault_run(sim, x8, gates, values, per, 1)) / 2
-    kernels = 9 * len(netlist.level_gates(sim.circuit)[1])
-    busy, k, small, big = fault_window(
-        busy_ms, sim, x8, gates, values, per,
-        min(int(np.ceil(FAULT_WINDOW_MS / pilot)),
-            max(1, FAULT_TRACE // kernels)))
-    busy_s = busy * n_chunks / 1e3
-    head = (f"[faults] {what}: {len(gates)} lanes over {x8.shape[0]} rows, "
-            f"G={sim.circuit.n_gates}, chunk {per} "
-            f"({'default' if chunk is None else '--chunk'}): {n_chunks} "
-            f"chunks")
-    tail = (f"a chunk {busy:.3f} ms busy (traced runs of {k} and {2 * k} "
-            f"chunks, {small:.1f} and {big:.1f} ms busy)")
-    if not run:
-        host, kh, _, _ = fault_window(host_ms, sim, x8, gates, values, per,
-                                      int(np.ceil(100 / max(busy, 0.1))))
-        log(f"{head}, NOT RUN: reckoned {max(busy, host) * n_chunks / 1e3:.1f}"
-            f" s, device busy {busy_s:.1f} s; {tail}, {host:.3f} ms on the "
-            f"host clock (runs of {kh} and {2 * kh})")
-        return None, None
+    before = kernels.launched(fault_sim.fault_lanes)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     preds = sim.run_sites(x8, gates, values, chunk=chunk)
     wall = time.perf_counter() - t0
-    log(f"{head}, wall {wall:.2f} s, device busy {busy_s:.2f} s, idle share "
-        f"{1 - busy_s / wall:.3f}; {tail}")
+    launches = kernels.launched(fault_sim.fault_lanes) - before
+    want = 1 if chunk is None else -(-len(gates) // chunk)
+    check(launches == want, f"{what}: the campaign launched the fault-lane "
+          f"kernel {launches} times, not {want}")
+    busy = busy_ms(lambda: sim.run_sites(x8, gates, values, chunk=chunk))
+    # a trace that holds no device activity measured nothing
+    busy_text = (f"device busy {busy / 1e3:.3f} s (a traced call), idle "
+                 f"share {1 - busy / 1e3 / wall:.3f}" if busy else
+                 "device busy not measured (the traced call holds no device "
+                 "activity)")
+    log(f"[faults] {what}: {len(gates)} lanes over {x8.shape[0]} rows, "
+        f"G={sim.circuit.n_gates}, "
+        f"{'default chunk' if chunk is None else f'--chunk {chunk}'}: "
+        f"{launches} launches, wall {wall:.3f} s, {busy_text}")
     return preds, wall
+
+
+def fault_kernel_row(what: str, circuit, x8, gates, values) -> dict:
+    """`fault_lanes` over the single lanes ``gates``/``values`` of
+    ``circuit`` against its plain version (`FAULT_PLAIN_LANES` lanes a
+    call) on the same operands on the card: equal; its device ms a call
+    beside its bound. Returns its row of the kernels line."""
+    from repro_torch.core import faults
+    from repro_torch.kernels import fault_sim
+
+    sim = faults.FaultSimulator(circuit, device="cuda")
+    tables, b = sim._tables, x8.shape[0]
+    mask, val = faults.site_masks(circuit.n_gates, gates, values)
+    mask_t = torch.as_tensor(mask, device="cuda")
+    val_t = torch.as_tensor(val, device="cuda")
+    base = fault_sim.pack_words(sim._base_bits(
+        torch.as_tensor(x8, device="cuda").to(torch.int32)))
+
+    def kernel():
+        return fault_sim.fault_lanes(base, tables, mask_t, val_t, b)
+
+    def plain():
+        return [fault_sim.fault_lanes_plain(
+            base, tables, mask_t[lo:lo + FAULT_PLAIN_LANES],
+            val_t[lo:lo + FAULT_PLAIN_LANES], b)
+            for lo in range(0, len(mask), FAULT_PLAIN_LANES)]
+
+    got = kernel()
+    torch.cuda.synchronize()
+    err = int((got != torch.cat(plain())).sum())
+    check(err == 0, f"{what}: fault_lanes differs from its plain version on "
+          f"{err} of {got.numel()} classes")
+    ms, plain_ms, text = timed(kernel, plain, "fault_lanes_kernel", reps=10,
+                               plain_reps=1)
+    s, g = mask.shape
+    words = -(-b // 32)
+    n_ops = (g - tables.n_base) * words * s   # a logic op a gate a word
+    n_bytes = 2 * s * g + 4 * s * b + 4 * tables.n_base * words
+    bms, by = bound(n_bytes, n_ops, FP32_OPS_PER_S)
+    log_t, in_smem = fault_sim.placement(g)
+    log(f"[kernel] fault_lanes {what}: G={g} ({tables.n_base} base, "
+        f"{tables.level_off.numel() - 1} levels), {s} lanes x {b} rows, "
+        f"{1 << log_t}-word tiles in "
+        f"{'shared memory' if in_smem else 'global scratch'}: "
+        f"equal to the plain version; {text}; bound {bms:.5f} ms ({by}; "
+        f"{n_ops} logic word ops, {n_bytes} bytes); {ms / bms:.0f}x")
+    return dict(name="fault_lanes", route="cuda",
+                source=TPU_KERNELS["fault_lanes"][0],
+                replaces=TPU_KERNELS["fault_lanes"][1], launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
 
 
 def fault_spread(what: str, sim, x8, gates, values):
@@ -1917,16 +1942,17 @@ def phase_faults(tree_art, mlp_art, forest_art, root: str) -> dict:
     """`[faults]`: the stuck-at campaign on the card. The har tree's best
     point over its whole test split: zero-fault lane == `netlist.simulate`
     == the `tree_infer_scores` leg (`ops.classify`), a spread of lanes ==
-    the numpy oracle, the exhaustive campaign at the default chunk and at
-    --chunk 64 (equal, and equal to the oracle at the spread lanes); the
-    pendigits MLP's best point the same way (its zero-fault lane == the
-    `qmatmul` server), at chunk 256 (equal to the oracle at the spread
-    lanes), its default chunk reckoned; the har forest's campaign reckoned
-    from a window, not run; the card's reports == the CPU's on a seeds
-    tree and a vertebral three-tree forest under both vote adders,
-    Monte-Carlo draws reproducible; then `sweep --fault-report` on the
-    mixed campaign, a robustness row per dataset, each report == the
-    CPU's. The phase's launch count is that sweep's alone."""
+    the numpy oracle, the fault-lane kernel == its plain version over every
+    single lane, timed (the kernels line's row), the exhaustive campaign at
+    the default chunk (one launch) and at --chunk 64 (equal, and equal to
+    the oracle at the spread lanes); the pendigits MLP's best point the
+    same way (its zero-fault lane == the `qmatmul` server), at the default
+    chunk and at 256; the har forest's at the default chunk; the card's
+    reports == the CPU's on a seeds tree and a vertebral three-tree forest
+    under both vote adders, Monte-Carlo draws reproducible; then `sweep
+    --fault-report` on the mixed campaign, a robustness row per dataset,
+    each report == the CPU's. The phase's launch count is that sweep's
+    alone."""
     from repro_torch import kernels
     from repro_torch.core import faults, netlist, quant
     from repro_torch.core.forest import train_forest
@@ -1970,6 +1996,8 @@ def phase_faults(tree_art, mlp_art, forest_art, root: str) -> dict:
         f"netlist.simulate == tree_infer_scores over {x8.shape[0]} rows")
     gates, values = faults.single_fault_lanes(circuit)
     sel, want = fault_spread("har tree", sim, x8, gates, values)
+    row = fault_kernel_row(f"har tree point {idx}", circuit, x8, gates,
+                           values)
     marks["har tree checks"] = time.perf_counter()
     auto, t_auto = fault_campaign("har tree", sim, x8, gates, values, None)
     check_lanes("har tree, default chunk", auto[sel], want, sel, gates,
@@ -2006,25 +2034,27 @@ def phase_faults(tree_art, mlp_art, forest_art, root: str) -> dict:
     gates, values = faults.single_fault_lanes(circuit)
     sel, want = fault_spread(f"{name} mlp", sim, mx8, gates, values)
     marks[f"{name} mlp checks"] = time.perf_counter()
-    fault_campaign(f"{name} mlp", sim, mx8, gates, values, None, run=False)
-    marks[f"{name} mlp reckoned"] = time.perf_counter()
-    wide, t_mlp = fault_campaign(f"{name} mlp", sim, mx8, gates, values,
-                                 FAULT_WIDE_CHUNK)
-    check_lanes(f"{name} mlp, chunk {FAULT_WIDE_CHUNK}", wide[sel], want,
-                sel, gates, values)
-    log(f"[faults] {name} mlp: the campaign at chunk {FAULT_WIDE_CHUNK} == "
-        f"simulate_faulty_serial at the {len(sel)} spread lanes")
+    t_mlp = {}
+    for chunk in (None, FAULT_WIDE_CHUNK):
+        got, t_mlp[chunk] = fault_campaign(f"{name} mlp", sim, mx8, gates,
+                                           values, chunk)
+        check_lanes(f"{name} mlp, chunk {chunk}", got[sel], want, sel, gates,
+                    values)
+    log(f"[faults] {name} mlp: the campaign at the default chunk and at "
+        f"{FAULT_WIDE_CHUNK} == simulate_faulty_serial at the {len(sel)} "
+        f"spread lanes")
     marks[f"{name} mlp campaign"] = time.perf_counter()
 
-    # the har forest's campaign: reckoned, not run
+    # the har forest's campaign
     idx = best_point(forest_art)
     circuit = get_family("tree").build_point_circuit(forest_art, idx)
     sim = faults.FaultSimulator(circuit, device="cuda")
     gates, values = faults.single_fault_lanes(circuit)
-    for chunk in (None, FAULT_CHUNK):
-        fault_campaign(f"har forest[{forest_art.n_trees}] point {idx}", sim,
-                       x8, gates, values, chunk, run=False)
-    marks["har forest reckoned"] = time.perf_counter()
+    what = f"har forest[{forest_art.n_trees}] point {idx}"
+    sel, want = fault_spread(what, sim, x8, gates, values)
+    got, t_forest = fault_campaign(what, sim, x8, gates, values, None)
+    check_lanes(what, got[sel], want, sel, gates, values)
+    marks["har forest campaign"] = time.perf_counter()
 
     # the card's reports against the CPU's on small circuits
     small = {}
@@ -2108,7 +2138,8 @@ def phase_faults(tree_art, mlp_art, forest_art, root: str) -> dict:
         f"{sorted(rows)}: {t_sweep:.1f} s with search, verify_rtl and the "
         f"report; robustness rows {json.dumps(rows)}; every report but "
         f"{MLP_RUNS[1][0]}_mlp's == the CPU's")
-    check(all(counts[k] > 0 for k in (*TREE_KERNELS, "qmatmul")),
+    check(all(counts[k] > 0 for k in (*TREE_KERNELS, "qmatmul",
+                                      "fault_lanes")),
           f"a kernel of the fault path never launched: {counts}")
     steps, last = [], t_start
     for step, t in marks.items():
@@ -2116,10 +2147,11 @@ def phase_faults(tree_art, mlp_art, forest_art, root: str) -> dict:
         last = t
     log(f"[faults] launches of sweep --fault-report: {counts}; phase "
         f"{time.perf_counter() - t_start:.1f} s: {', '.join(steps)} (har "
-        f"tree campaign {t_auto:.1f} s at the default chunk, {t_64:.1f} s "
-        f"at --chunk {FAULT_CHUNK}; {name} mlp {t_mlp:.1f} s at chunk "
-        f"{FAULT_WIDE_CHUNK})")
-    return dict(counts=counts)
+        f"tree campaign {t_auto:.2f} s at the default chunk, {t_64:.2f} s "
+        f"at --chunk {FAULT_CHUNK}; {name} mlp {t_mlp[None]:.2f} s at the "
+        f"default chunk, {t_mlp[FAULT_WIDE_CHUNK]:.2f} s at chunk "
+        f"{FAULT_WIDE_CHUNK}; har forest {t_forest:.2f} s)")
+    return dict(counts=counts, row=row)
 
 
 def attention_pairs(sq: int, skv: int) -> int:
@@ -5046,7 +5078,7 @@ def main() -> None:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
-    from repro_torch import search
+    from repro_torch import kernels, search
     from repro_torch.core.train import train_tree
     from repro_torch.core.tree import to_parallel
     from repro_torch.datasets import load_dataset
@@ -5087,7 +5119,7 @@ def main() -> None:
     results["flash_attention"] = flash_rows["flash_attention"]
     bwd_rows = phase_flash_backward()
     results[FLASH_BWD] = bwd_rows[FLASH_BWD]
-    launches = dict.fromkeys(results, 0)
+    launches = dict.fromkeys(kernels.KERNEL_WRAPPERS, 0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         tree_path = phase_main_path(problem, out_dir)
     mlp_paths = {}
@@ -5109,6 +5141,7 @@ def main() -> None:
         faults_path = phase_faults(tree_path["art"],
                                    mlp_paths[MLP_RUNS[1][0]]["art"],
                                    forest_path["art"], d)
+    results["fault_lanes"] = faults_path["row"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
         mesh_path = phase_mesh(problem, tree_path, sweep_path, d, rng)
     torch.cuda.empty_cache()

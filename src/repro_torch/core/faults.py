@@ -21,31 +21,32 @@ fault-injection target:
 
 Lanes are dense (G,) stuck masks and values, so one simulator serves both
 campaign shapes: single stuck-at faults are one-hot masks (`site_masks`),
-Monte-Carlo defects multi-hot masks (`search.robustness`). A dispatch runs
-a chunk of lanes; the last chunk is padded with zero-fault lanes and
-cropped, so chunking is invisible in the result.
+Monte-Carlo defects multi-hot masks (`search.robustness`). Chunking is
+invisible in the result.
 
-Layout. A chunk's value table holds the same chunk x B x G samples as
-the reference's vmapped (chunk, B, G) bool table, laid out for the card:
-the gate axis leads, the gates stand in level order, and the samples are
-packed eight to a uint8 word, (G, chunk, ceil(B / 8)). A level's gathers
-then copy whole contiguous rows, its outputs are one contiguous block of
-rows written in place, its lanes' stuck masks are a view of the chunk's
-(G, chunk) mask columns, and every boolean op of the `torch.where` chain
-acts on eight samples at once (a stuck value is a word of 0s or 1s).
-`auto_chunk` is the reference's sizing (its bool table under the budget);
-`run_masks` sizes its default chunk by `packed_chunk` instead, the packed
-table under the same budget, so it runs up to eight times the lanes a
-dispatch. The level index tensors are built once per simulator, on its
-device, and on the card a run captures one chunk as a CUDA graph and
-replays it for every chunk.
+Layout. The gates stand in level order (the base gates, then each logic
+level's) and the samples are packed into words, so every boolean op acts
+on a word of samples at once and a stuck value is a word of 0s or 1s. On
+the card a `run_masks` call is one launch of `kernels.fault_sim.fault_lanes`
+over every lane (an explicit ``chunk`` splits it into launches of that
+many lanes): it reads the lanes' (S, G) masks and values as they are
+uploaded and writes the (S, B) classes that are read back; its tables
+(`fault_sim.FaultTables`) are made once per simulator. On the CPU a run
+goes in chunks through the plain level chain (`fault_sim.run_chunk_plain`)
+over a (G, chunk, ceil(B / 8)) uint8 table, eight samples a word, whose
+level gathers copy whole contiguous rows; the last chunk is padded with
+zero-fault lanes and cropped. `auto_chunk` is the reference's sizing (its
+bool table under the budget); the CPU's default chunk is `packed_chunk`,
+the packed table under the same budget, up to eight times the lanes a
+dispatch.
 
 Spans and counters (`runtime.trace`): `run_sites`' one-hot masks are the
 span ``faults.masks``; a `run_masks` call's phases ``faults.upload``,
-``faults.capture``, ``faults.lanes`` and ``faults.readback``; the counters
+``faults.lanes`` and ``faults.readback`` (on the CPU also
+``faults.capture``, the chunk step's set-up); the counters
 ``faults.lanes`` (lanes asked for, padding not counted),
 ``faults.upload_bytes`` (host arrays handed to the simulator's device: its
-index tables, masks, values and input codes) and ``faults.readback_bytes``
+tables, masks, values and input codes) and ``faults.readback_bytes``
 (the predictions brought back).
 """
 from __future__ import annotations
@@ -67,11 +68,12 @@ from repro_torch.core.netlist import (
     level_gates,
 )
 from repro_torch.device import resolve_device
-from repro_torch.runtime import graphs, trace
+from repro_torch.kernels import fault_sim
+from repro_torch.runtime import trace
 
 # fault-lane chunk sizing: lanes per dispatch are chosen so a chunk's value
 # table stays under this budget (`auto_chunk`: the reference's (chunk, B, G)
-# bool table; `packed_chunk`: the port's (G, chunk, ceil(B / 8)) uint8 one)
+# bool table; `packed_chunk`: the CPU's (G, chunk, ceil(B / 8)) uint8 one)
 DEFAULT_CHUNK_BUDGET_BYTES = 64 << 20
 MAX_CHUNK = 256
 
@@ -146,8 +148,8 @@ def auto_chunk(circuit: Circuit, n_samples: int,
 
 def packed_chunk(circuit: Circuit, n_samples: int,
                  budget_bytes: int = DEFAULT_CHUNK_BUDGET_BYTES) -> int:
-    """Fault lanes per dispatch of `FaultSimulator.run_masks` by default:
-    its packed (G, chunk, ceil(B / 8)) uint8 value table under
+    """Fault lanes per dispatch of `FaultSimulator.run_masks` on the CPU by
+    default: its packed (G, chunk, ceil(B / 8)) uint8 value table under
     `budget_bytes` (clamped to [1, MAX_CHUNK])."""
     per_lane = max(1, -(-int(n_samples) // 8) * circuit.n_gates)
     return int(np.clip(budget_bytes // per_lane, 1, MAX_CHUNK))
@@ -171,9 +173,6 @@ class FaultSimulator:
         self.device = dev = resolve_device(device)
         op, a, b = circuit.op, circuit.a, circuit.b
         base, levels = level_gates(circuit)
-        order = np.concatenate([base, *levels])
-        row = np.empty(circuit.n_gates, np.int64)  # table row of each gate
-        row[order] = np.arange(circuit.n_gates)
 
         def t(arr, dtype=torch.int64):
             out = torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype,
@@ -181,11 +180,18 @@ class FaultSimulator:
             trace.count("faults.upload_bytes", out.nbytes)
             return out
 
-        self._order = t(order)
-        self._n_base = len(base)
         self._feat = t(np.maximum(a[base], 0))
         self._bit = t(np.maximum(b[base], 0), torch.int32)
         self._base_ops = t(op[base])[None, :]
+        if dev.type == "cuda":
+            self._tables = fault_sim.fault_tables(
+                op, a, b, circuit.out_bits, base, levels,
+                lambda arr: t(arr, torch.int32))
+            return
+        order = np.concatenate([base, *levels])
+        row = np.empty(circuit.n_gates, np.int64)  # table row of each gate
+        row[order] = np.arange(circuit.n_gates)
+        self._order = t(order)
         self._levels = []   # (lo, hi, a rows, b rows, is NOT, AND, OR)
         lo = len(base)
         for idx in levels:
@@ -210,45 +216,35 @@ class FaultSimulator:
         return (padded.view(*bits.shape[:-1], words, 8)
                 << self._bit_shift).sum(-1, dtype=torch.uint8)
 
-    def _base_rows(self, x8: torch.Tensor) -> torch.Tensor:
-        """(n_base, 1, W) packed fault-free values of the inputs and
+    def _base_bits(self, x8: torch.Tensor) -> torch.Tensor:
+        """(n_base, B) bool fault-free values of the inputs and
         constants."""
         in_vals = ((x8[:, self._feat] >> self._bit[None, :]) & 1).to(
             torch.bool)
-        base_vals = torch.where(self._base_ops == INPUT, in_vals,
-                                self._base_ops == CONST1)
-        return self._pack(base_vals.T)[:, None, :]
+        return torch.where(self._base_ops == INPUT, in_vals,
+                           self._base_ops == CONST1).T
 
     def _run_chunk(self, vals, base_rows, mask, val, cls) -> None:
-        """One chunk: ``vals`` (G, chunk, W) packed table, ``mask`` (G,
-        chunk, 1) bool and ``val`` (G, chunk, 1) words of 0s or 1s, the
-        stuck overrides in table order; ``cls`` (chunk, B) int32 receives
-        the predicted classes."""
-        n0 = self._n_base
-        torch.where(mask[:n0], val[:n0], base_rows, out=vals[:n0])
-        for lo, hi, a_rows, b_rows, is_not, is_and, is_or in self._levels:
-            av = vals.index_select(0, a_rows)
-            bv = vals.index_select(0, b_rows)
-            out = torch.where(
-                is_not, ~av,
-                torch.where(is_and, av & bv,
-                            torch.where(is_or, av | bv, av ^ bv)))
-            torch.where(mask[lo:hi], val[lo:hi], out, out=vals[lo:hi])
-        words = vals.index_select(0, self._out_rows)   # (bits, chunk, W)
-        bits = ((words[..., None] >> self._bit_shift) & 1).flatten(-2)
-        cls.copy_((bits[..., :cls.shape[-1]].to(torch.int32)
-                   << self._out_shift).sum(0, dtype=torch.int32))
+        """One chunk of the CPU's chain (`fault_sim.run_chunk_plain`):
+        ``vals`` (G, chunk, W) packed table, ``mask`` (G, chunk, 1) bool
+        and ``val`` (G, chunk, 1) words of 0s or 1s, the stuck overrides in
+        table order; ``cls`` (chunk, B) int32 receives the predicted
+        classes."""
+        fault_sim.run_chunk_plain(vals, base_rows, mask, val, cls,
+                                  self._levels, self._out_rows,
+                                  self._out_shift, self._bit_shift)
 
     # -- batched campaigns -------------------------------------------------
     def run_masks(self, x8, stuck_mask, stuck_val,
                   chunk: int | None = None) -> np.ndarray:
         """(S, G) stuck masks/values -> (S, B) int32 predictions.
 
-        Lanes run in chunks of `chunk` (by default `packed_chunk`: the
-        value table under the memory budget); the final chunk pads with
-        zero-fault lanes and crops. The chunks are queued back to back (on
-        the card as replays of one captured graph) and read once at the
-        end.
+        On the card the lanes run in one launch of `fault_sim.fault_lanes`,
+        or in launches of `chunk` lanes where one is given. On the CPU they
+        run in chunks of `chunk` (by default `packed_chunk`: the value table
+        under the memory budget); the final chunk pads with zero-fault
+        lanes and crops. The lanes are queued back to back and read once at
+        the end.
         """
         dev = self.device
         stuck_mask = np.asarray(stuck_mask, bool)
@@ -264,11 +260,50 @@ class FaultSimulator:
         s, n_b = stuck_mask.shape[0], len(x8)
         if s == 0:
             return np.zeros((0, n_b), np.int32)
+        trace.count("faults.lanes", s)
+        if dev.type == "cuda":
+            preds = self._run_card(x8, stuck_mask, stuck_val, chunk)
+        else:
+            preds = self._run_cpu(x8, stuck_mask, stuck_val, chunk)
+        with trace.span("faults.readback"):
+            out = preds[:s].cpu().numpy()
+        trace.count("faults.readback_bytes", out.nbytes)
+        return out
+
+    def _run_card(self, x8, stuck_mask, stuck_val, chunk):
+        """(S, B) int32 classes on the card: the masks and values uploaded
+        as they are, then `fault_sim.fault_lanes` over them."""
+        dev = self.device
+        s, n_b = stuck_mask.shape[0], len(x8)
+        with trace.span("faults.upload"):
+            x8 = to_device(x8, dev).to(torch.int32)
+            trace.count("faults.upload_bytes",
+                        stuck_mask.nbytes + stuck_val.nbytes)
+            mask_t = torch.as_tensor(np.ascontiguousarray(stuck_mask),
+                                     device=dev)
+            val_t = torch.as_tensor(np.ascontiguousarray(stuck_val),
+                                    device=dev)
+            base = fault_sim.pack_words(self._base_bits(x8))
+        step = s if chunk is None else max(1, int(chunk))
+        preds = torch.empty((s, n_b), dtype=torch.int32, device=dev)
+        with trace.span("faults.lanes"):
+            for lo in range(0, s, step):
+                fault_sim.fault_lanes(base, self._tables,
+                                      mask_t[lo:lo + step],
+                                      val_t[lo:lo + step], n_b,
+                                      out=preds[lo:lo + step])
+        return preds
+
+    def _run_cpu(self, x8, stuck_mask, stuck_val, chunk):
+        """(s_pad, B) int32 classes on the CPU, in chunks of the plain
+        chain over one packed table."""
+        dev = self.device
+        g = self.circuit.n_gates
+        s, n_b = stuck_mask.shape[0], len(x8)
         if chunk is None:
             chunk = packed_chunk(self.circuit, n_b)
         chunk = max(1, min(int(chunk), s))
         s_pad = -(-s // chunk) * chunk
-        trace.count("faults.lanes", s)
 
         def table_order(m):   # (S, G) -> (G, s_pad), zero-fault padding
             out = torch.zeros((g, s_pad), dtype=torch.bool, device=dev)
@@ -282,7 +317,7 @@ class FaultSimulator:
                         stuck_mask.nbytes + stuck_val.nbytes)
             mask_t = table_order(stuck_mask)
             val_t = table_order(stuck_val).to(torch.uint8) * 255
-            base_rows = self._base_rows(x8)
+            base_rows = self._pack(self._base_bits(x8))[:, None, :]
         with trace.span("faults.capture"):
             step = self._chunk_step(base_rows, chunk, n_b)
         preds = torch.empty((s_pad, n_b), dtype=torch.int32, device=dev)
@@ -290,18 +325,13 @@ class FaultSimulator:
             for lo in range(0, s_pad, chunk):
                 step(mask_t[:, lo:lo + chunk, None],
                      val_t[:, lo:lo + chunk, None], preds[lo:lo + chunk])
-        with trace.span("faults.readback"):
-            out = preds[:s].cpu().numpy()
-        trace.count("faults.readback_bytes", out.nbytes)
-        return out
+        return preds
 
     def _chunk_step(self, base_rows, chunk: int, n_b: int):
         """``step(mask, val, cls)``: one chunk through `_run_chunk` over one
-        value table; on the card a `_ChunkGraph`."""
+        value table."""
         vals = torch.empty((self.circuit.n_gates, chunk, -(-n_b // 8)),
                            dtype=torch.uint8, device=self.device)
-        if self.device.type == "cuda":
-            return _ChunkGraph(self._run_chunk, vals, base_rows, n_b)
         return lambda mask, val, cls: self._run_chunk(vals, base_rows, mask,
                                                       val, cls)
 
@@ -328,35 +358,6 @@ def to_device(x, device) -> torch.Tensor:
     if out is not x:
         trace.count("faults.upload_bytes", out.nbytes)
     return out
-
-
-class _ChunkGraph:
-    """One chunk of `FaultSimulator._run_chunk` captured as a CUDA graph and
-    replayed for every chunk of a run, its inputs copied into static
-    buffers and its classes out of one: a handful of launches a chunk
-    instead of ~9 a logic level. It holds every tensor the graph reads or
-    writes (the value table and base rows too) for as long as it can
-    replay (`runtime.graphs.capture`)."""
-
-    def __init__(self, run_chunk, vals, base_rows, n_b: int):
-        g, chunk, _ = vals.shape
-        dev = vals.device
-        self.vals, self.base_rows = vals, base_rows
-        self.mask = torch.zeros((g, chunk, 1), dtype=torch.bool, device=dev)
-        self.val = torch.zeros((g, chunk, 1), dtype=torch.uint8, device=dev)
-        self.cls = torch.empty((chunk, n_b), dtype=torch.int32, device=dev)
-        args = (vals, base_rows, self.mask, self.val, self.cls)
-
-        def chunk():
-            run_chunk(*args)
-
-        self.graph, _ = graphs.capture(chunk, chunk, dev)
-
-    def __call__(self, mask, val, cls) -> None:
-        self.mask.copy_(mask)
-        self.val.copy_(val)
-        self.graph.replay()
-        cls.copy_(self.cls)
 
 
 def simulate_faulty_serial(circuit: Circuit, x8, faults=()) -> np.ndarray:

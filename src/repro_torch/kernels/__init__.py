@@ -1,9 +1,11 @@
 """Hand-written Hopper kernels of the port and their wrappers.
 
 Each kernel module (`fitness`, `domination`, `tree_infer`, `qmatmul`,
-`flash_attn`) holds the CUDA wrapper, its plain PyTorch version, and a
-launch counter for the wrapper (`flash_attn` two: the forward and
-`flash_attention_backward`, its gradient, which replaces no TPU kernel);
+`flash_attn`, `fault_sim`) holds the CUDA wrapper, its plain PyTorch
+version, and a launch counter for the wrapper (`flash_attn` two: the
+forward and `flash_attention_backward`, its gradient). Two replace no TPU
+kernel: `flash_attention_backward`, and `fault_sim.fault_lanes`, the
+stuck-at simulator's level chain, which the JAX package runs as jnp;
 `ops` holds the operand preparation and the call sites the search and the
 server use. `launch_counts` / `reset_launch_counts` read and
 clear the counters, so a run can show that it went through the kernels.
@@ -16,8 +18,8 @@ peel, `domination.non_dominated_rank`) count under `domination_block`, the
 TPU kernel they replace together with the slab: that count is two per sort
 plus one per slab.
 """
-from repro_torch.kernels import (domination, fitness, flash_attn, qmatmul,
-                                 tree_infer)
+from repro_torch.kernels import (domination, fault_sim, fitness, flash_attn,
+                                 qmatmul, tree_infer)
 from repro_torch.runtime import trace
 
 KERNEL_WRAPPERS = {
@@ -27,6 +29,7 @@ KERNEL_WRAPPERS = {
     "qmatmul": qmatmul.qmatmul,
     "flash_attention": flash_attn.flash_attention,
     "flash_attention_backward": flash_attn.flash_attention_backward,
+    "fault_lanes": fault_sim.fault_lanes,
 }
 
 

@@ -40,7 +40,7 @@ BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 BUILD_DIR = Path(os.environ.get(BUILD_DIR_ENV) or Path(__file__).resolve()
                  .parents[3] / "build" / "repro_torch_kernels")
 SOURCES = ("fitness", "domination", "tree_infer", "qmatmul", "flash_attn",
-           "flash_attn_bwd")
+           "flash_attn_bwd", "fault_sim")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,6 +1,4 @@
-"""CUDA graph capture, shared by the chunked generations
-(`core.nsga2.make_chunk`) and the fault simulator's chunks
-(`core.faults.FaultSimulator`).
+"""CUDA graph capture of the chunked generations (`core.nsga2.make_chunk`).
 
 A captured graph reads and writes fixed addresses: whoever replays it
 must hold every tensor the captured work touches for as long as it

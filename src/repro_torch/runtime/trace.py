@@ -27,13 +27,14 @@ Spans: ``nsga2.chunk`` (a `make_chunk` call) and, on the card, its
 ``nsga2.chunk.draw``, ``.load``, ``.replay`` and ``.unload``;
 ``graphs.capture``; ``faults.campaign`` (`point_robustness`) and its
 ``faults.simulator``, ``faults.oracle``, ``faults.draws``,
-``faults.masks``, ``faults.upload``, ``faults.capture``, ``faults.lanes``,
-``faults.readback`` and ``faults.reduce``. Counters:
+``faults.masks``, ``faults.upload``, ``faults.capture`` (the CPU's chunk
+step alone), ``faults.lanes``, ``faults.readback`` and ``faults.reduce``.
+Counters:
 ``nsga2.evaluations`` (rows a family's fitness scored), ``nsga2.draws``
 (random tensors the engine drew), ``graphs.captures``, ``faults.lanes``,
 ``faults.upload_bytes`` (host arrays handed to the simulator's device),
 ``faults.readback_bytes`` (predictions brought back) and the launch
-counters.
+counters (the fault simulator's ``launches.fault_lanes`` among them).
 """
 from __future__ import annotations
 

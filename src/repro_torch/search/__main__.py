@@ -302,8 +302,9 @@ def sweep_main(argv=None) -> None:
                          "vs-area section in REPORT.md")
     ap.add_argument("--fault-chunk", type=int, default=None,
                     help="fault lanes per dispatch of --fault-report, as "
-                         "faults --chunk (default: auto-sized to the "
-                         "memory budget)")
+                         "faults --chunk (default: every lane in one "
+                         "kernel launch on the card; auto-sized to the "
+                         "memory budget on the CPU)")
     ap.add_argument("--max-loss", type=float, default=0.01)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
@@ -470,8 +471,9 @@ def faults_main(argv=None) -> None:
     ap.add_argument("--top-k", type=int, default=robustness.DEFAULT_TOP_K,
                     help="critical gates reported per point")
     ap.add_argument("--chunk", type=int, default=None,
-                    help="fault lanes per dispatch (default: auto-sized to "
-                         "the memory budget)")
+                    help="fault lanes per dispatch (default: every lane in "
+                         "one kernel launch on the card; auto-sized to the "
+                         "memory budget on the CPU)")
     ap.add_argument("--out", default=None,
                     help="fault_report.json path (default: next to --pareto)")
     ap.add_argument("--device", default="cuda",

@@ -5,8 +5,9 @@ fault campaign's spans nest as they should; the evaluation, draw and
 campaign counters equal what the shapes give; and what a graph capture
 counts, the kernels' launches among it, is taken back and added again at
 every replay (`runtime.graphs.record`, with a fake graph: capture needs a
-card). One test, marked for the card, hands the simulator codes that are
-already there. Imports no JAX."""
+card). Two tests are marked for the card: the simulator handed codes that
+are already there, and a campaign on the card (one kernel launch a
+`run_masks` call, no graph). Imports no JAX."""
 from __future__ import annotations
 
 import dataclasses
@@ -270,7 +271,7 @@ def test_campaign_spans_nest_under_it(seeds_circuit):
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the simulator's graphs run on "
+        pytest.skip("needs a CUDA device: the simulator's kernel runs on "
                     "the card")
     return torch.device("cuda")
 
@@ -293,3 +294,36 @@ def test_codes_on_the_card_are_no_upload(seeds_circuit, cuda_device):
     sim.run_masks(x8, masks, masks)
     assert (_delta(before)["faults.upload_bytes"]
             == 2 * masks.nbytes + x8.nbytes)
+
+
+@pytest.mark.torch_cuda
+def test_card_campaign_spans_and_counts(seeds_circuit, cuda_device):
+    """A campaign on the card: each `run_masks` call is its upload, one
+    launch of the fault-lane kernel and its readback; no span
+    ``faults.capture``, no graph captured; the bytes as on the CPU, with
+    the card's tables."""
+    circuit, x8, y = seeds_circuit
+    before = trace.counters()
+    t_faults.FaultSimulator(circuit, device="cuda")
+    tables = _delta(before)["faults.upload_bytes"]
+    robustness.point_robustness(circuit, x8, y, n_trials=TRIALS,
+                                device="cuda")   # every shape built once
+    before = trace.counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        report = robustness.point_robustness(circuit, x8, y,
+                                             n_trials=TRIALS, device="cuda")
+    lanes = 1 + 2 * report["n_sites"] + TRIALS
+    assert _delta(before) == {
+        "faults.lanes": lanes,
+        "faults.upload_bytes": (tables + 2 * lanes * circuit.n_gates
+                                + 4 * x8.nbytes),
+        "faults.readback_bytes": 4 * lanes * N_VECTORS + 4 * N_VECTORS,
+        "launches.fault_lanes": 3,
+    }
+    per_run = ["faults.upload", "faults.lanes", "faults.readback"]
+    names = [n for _, _, n in _spans(prof)]
+    assert names == (
+        ["faults.campaign", "faults.simulator", *per_run, "faults.oracle",
+         "faults.reduce", "faults.masks", "faults.masks", *per_run,
+         "faults.reduce", "faults.draws", "faults.masks", *per_run,
+         "faults.reduce", "faults.reduce"])
