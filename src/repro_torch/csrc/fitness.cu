@@ -58,8 +58,9 @@
 // paths touch: the span [lo, hi) of its tile (`spans`, multiples of 32,
 // from the nonzero columns of its 32 path rows). A forest's super-tree is
 // block diagonal, so a tile spans one tree (two where it straddles a
-// boundary) and the product costs the sum of the trees' products, not the
-// dense N x L one; a tree's own tiles start at its root's column. The block
+// boundary) from its root's column to its leaves' deepest comparator: the
+// product costs less than the sum of the trees' products (the har forest's
+// 66% of it, 13% of the dense N x L one; `fitness.path_macs`). The block
 // walks a work list of (tile, chunk): each tile's span in chunks of at
 // most kc comparators (kc <= kMaxChunk, the widest span up to that), so
 // the ring stages, the byte thresholds and the bit planes hold kc

@@ -11,9 +11,12 @@ classifies correctly:
 
 Only the (P,) counts leave the kernel (`csrc/fitness.cu`: the path product
 ``d @ PATH^T`` as an s8 x s8 -> s32 product on the int8 tensor cores, each
-leaf tile over its own comparator span, so any N and a forest's block
-diagonal cost only the trees' products; what bounds it on the H100 and how
-the design answers is stated there). The
+leaf tile of 32 over its own comparator span, so any N runs and a forest's
+block diagonal costs less than the trees' own products: the har forest of
+five trees (N = 2,227, L = 2,232) runs 662,528 multiply-adds a
+(chromosome, sample) row, 66% of sum_k N_k L_k and 13% of the dense
+product, counted in ``fitness.path_macs``; what bounds it on the H100 and
+how the design answers is stated there). The
 TPU kernel's (P, 128) lane-replicated output was a layout artifact; this
 returns (P,). Everything is integer: `floor(x * 2^-(8-p))` of the TPU
 kernel is ``x >> (8 - p)`` on integer codes, and ``vote_cap`` is an int32
@@ -52,13 +55,14 @@ def k_padded(n_comparators: int) -> int:
     return max(K_ALIGN, -(-n_comparators // K_ALIGN) * K_ALIGN)
 
 
-def tile_spans(path: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """(spans, chunk) of a padded path (L_pad, K_pad): spans (L_pad /
-    LEAF_TILE, 2) int32, each tile's [lo, hi) from the first to the last
+def tile_spans(path: torch.Tensor) -> tuple[torch.Tensor, int, int]:
+    """(spans, chunk, columns) of a padded path (L_pad, K_pad): spans (L_pad
+    / LEAF_TILE, 2) int32, each tile's [lo, hi) from the first to the last
     nonzero column of its rows, widened to multiples of K_ALIGN (one
     K_ALIGN step where a tile has none: its scores are all 0); chunk the
     widest span, at most MAX_CHUNK, the comparators the kernel holds at a
-    time."""
+    time; columns the spans' widths summed, sum(hi - lo): a row's path
+    product runs LEAF_TILE * columns multiply-adds."""
     l_pad, k_pad = path.shape
     live = (path != 0).view(l_pad // LEAF_TILE, LEAF_TILE, k_pad).any(1)
     any_live = live.any(1)
@@ -69,7 +73,7 @@ def tile_spans(path: torch.Tensor) -> tuple[torch.Tensor, int]:
     hi = torch.where(any_live, (last // K_ALIGN + 1) * K_ALIGN, K_ALIGN)
     spans = torch.stack([lo, hi], 1).to(torch.int32).contiguous()
     chunk = min(MAX_CHUNK, int((hi - lo).max())) if l_pad else K_ALIGN
-    return spans, chunk
+    return spans, chunk, int((hi - lo).sum())
 
 
 @dataclasses.dataclass
@@ -90,6 +94,7 @@ class FitnessOperands:
     n_classes: int
     n_valid: int | tuple      # rows with a label >= 0 (per problem, stacked)
     chunk: int                # comparators the kernel holds at a time
+    span_columns: int | tuple  # sum(hi - lo) of `spans` (per problem)
 
     @property
     def device(self) -> torch.device:
@@ -105,7 +110,16 @@ class FitnessOperands:
         return dataclasses.replace(
             self, x_sel=self.x_sel[i], y=self.y[i], path=self.path[i],
             spans=self.spans[i], target=self.target[i],
-            leaf_class=self.leaf_class[i], n_valid=self.n_valid[i])
+            leaf_class=self.leaf_class[i], n_valid=self.n_valid[i],
+            span_columns=self.span_columns[i])
+
+    def path_macs(self, n_pop: int, batch: int) -> int:
+        """The int8 multiply-adds a launch's path product runs for
+        ``n_pop`` chromosomes of ``batch`` samples, each problem's: every
+        (chromosome, sample) row runs each leaf tile over its span."""
+        columns = (sum(self.span_columns) if self.stacked
+                   else self.span_columns)
+        return n_pop * batch * LEAF_TILE * columns
 
 
 def stack_operands(members) -> FitnessOperands:
@@ -130,7 +144,8 @@ def stack_operands(members) -> FitnessOperands:
         leaf_class=stack("leaf_class"), n_comparators=first.n_comparators,
         n_classes=first.n_classes,
         n_valid=tuple(m.n_valid for m in members),
-        chunk=max(m.chunk for m in members))
+        chunk=max(m.chunk for m in members),
+        span_columns=tuple(m.span_columns for m in members))
 
 
 def fitness_correct_counts_plain(ops: FitnessOperands, shift: torch.Tensor,
@@ -164,7 +179,9 @@ def fitness_correct_counts(ops: FitnessOperands, shift: torch.Tensor,
     """(P,) int32 correct-sample counts; shift/thr (P, N) int32, vote_cap
     (P,) int32. With stacked operands (K problems) shift/thr are (K, P, N),
     vote_cap (K, P) and the counts (K, P), still one launch. Counts its
-    kernel launches in ``launches.fitness_correct_counts``."""
+    kernel launches in ``launches.fitness_correct_counts`` and the path
+    product's multiply-adds in ``fitness.path_macs`` (`FitnessOperands.
+    path_macs`); the plain version counts neither."""
     if not _build.on_cuda(shift, "fitness_correct_counts"):
         return fitness_correct_counts_plain(ops, shift, thr, vote_cap)
     dev = shift.device
@@ -207,6 +224,7 @@ def fitness_correct_counts(ops: FitnessOperands, shift: torch.Tensor,
             _build.stream(dev))
     _build.check_launch(rc, "fitness_correct_counts")
     trace.count("launches.fitness_correct_counts")
+    trace.count("fitness.path_macs", ops.path_macs(n_pop, batch))
     return correct
 
 

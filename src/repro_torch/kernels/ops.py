@@ -106,11 +106,12 @@ def prepare_fitness_operands(x_sel, y, path, path_len, n_neg, leaf_class,
     target_pad[:n_leaves] = target
     class_pad = torch.zeros((l_pad,), dtype=torch.int32, device=device)
     class_pad[:n_leaves] = leaf_class
-    spans, chunk = _fit.tile_spans(path_pad)
+    spans, chunk, columns = _fit.tile_spans(path_pad)
     return _fit.FitnessOperands(
         x_sel=codes, y=y, path=path_pad, spans=spans, target=target_pad,
         leaf_class=class_pad, n_comparators=int(n),
-        n_classes=int(n_classes), n_valid=int((y >= 0).sum()), chunk=chunk)
+        n_classes=int(n_classes), n_valid=int((y >= 0).sum()), chunk=chunk,
+        span_columns=columns)
 
 
 def decode_population_full(threshold: torch.Tensor, genes: torch.Tensor):

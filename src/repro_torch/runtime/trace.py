@@ -33,8 +33,11 @@ Counters:
 ``nsga2.evaluations`` (rows a family's fitness scored), ``nsga2.draws``
 (random tensors the engine drew), ``graphs.captures``, ``faults.lanes``,
 ``faults.upload_bytes`` (host arrays handed to the simulator's device),
-``faults.readback_bytes`` (predictions brought back) and the launch
-counters (the fault simulator's ``launches.fault_lanes`` among them).
+``faults.readback_bytes`` (predictions brought back),
+``fitness.path_macs`` (the int8 multiply-adds the tree fitness kernel's
+path product runs, `kernels.fitness.FitnessOperands.path_macs`; the
+CPU's plain version counts none) and the launch counters (the fault
+simulator's ``launches.fault_lanes`` among them).
 """
 from __future__ import annotations
 

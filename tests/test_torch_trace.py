@@ -2,12 +2,14 @@
 a span enters `record_function` only under a recording profiler, and
 only then keeps its interval for `trace.recorded`; the engine's and the
 fault campaign's spans nest as they should; the evaluation, draw and
-campaign counters equal what the shapes give; and what a graph capture
-counts, the kernels' launches among it, is taken back and added again at
-every replay (`runtime.graphs.record`, with a fake graph: capture needs a
-card). Two tests are marked for the card: the simulator handed codes that
-are already there, and a campaign on the card (one kernel launch a
-`run_masks` call, no graph). Imports no JAX."""
+campaign counters, and a fitness launch's path multiply-adds, equal what
+the shapes give; and what a graph capture counts, the kernels' launches
+among it, is taken back and added again at every replay
+(`runtime.graphs.record`, with a fake graph: capture needs a card). Three
+tests are marked for the card: the simulator handed codes that are
+already there, a campaign on the card (one kernel launch a `run_masks`
+call, no graph), and ``fitness.path_macs`` at a forest's fitness launches
+and chunk replays. Imports no JAX."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,6 +27,7 @@ from repro_torch.core.tree import to_parallel
 from repro_torch.datasets import load_dataset, quantize_u8
 from repro_torch.families import get_family
 from repro_torch.kernels import fitness as t_fit
+from repro_torch.kernels import ops as kops
 from repro_torch.runtime import graphs, trace
 from repro_torch.search import backends, robustness
 
@@ -203,6 +206,47 @@ def test_graph_chunk_replay_adds_its_evaluations(monkeypatch, seeds_problem):
     assert all(a[1] <= b[0] for a, b in zip(marks, marks[1:]))
 
 
+def _plain_span_columns(path: np.ndarray) -> int:
+    """The comparator columns a padded path's leaf tiles run over: each
+    tile of 32 rows from the 32-aligned start of its first nonzero column
+    to the 32-aligned end of its last, 32 where it has none."""
+    total = 0
+    for rows in path.reshape(-1, t_fit.LEAF_TILE, path.shape[1]):
+        cols = np.flatnonzero(rows.any(0))
+        total += (cols[-1] // 32 + 1 - cols[0] // 32) * 32 if cols.size else 32
+    return total
+
+
+def _fitness_operands(problem):
+    return kops.prepare_fitness_operands(
+        problem.x_sel, problem.y, problem.path, problem.path_len,
+        problem.n_neg, problem.leaf_class, problem.n_classes)
+
+
+@pytest.mark.parametrize("dataset", ["seeds", "vertebral"])
+@pytest.mark.parametrize("n_trees", [1, 3, 5])
+def test_path_macs_equal_a_plain_count_over_the_padded_path(n_trees, dataset):
+    """`FitnessOperands.path_macs`, what a launch adds to
+    ``fitness.path_macs``: P x B x 32 x the plain count of its tiles'
+    columns, each stacked problem's summed; the CPU's plain version
+    counts nothing."""
+    problem = get_family("tree").build_problem(dataset, n_trees=n_trees,
+                                               device="cpu")
+    ops = _fitness_operands(problem)
+    columns = _plain_span_columns(ops.path.numpy())
+    assert ops.span_columns == columns
+    assert ops.path_macs(7, 50) == 7 * 50 * t_fit.LEAF_TILE * columns
+    stacked = t_fit.stack_operands([ops, ops])
+    assert stacked.path_macs(7, 50) == 2 * ops.path_macs(7, 50)
+    assert stacked.member(1).path_macs(7, 50) == ops.path_macs(7, 50)
+    genes = torch.rand((4, problem.n_genes),
+                       generator=torch.Generator().manual_seed(n_trees))
+    shift, thr, _, cap = kops.decode_population_full(problem.threshold, genes)
+    before = trace.counters()
+    t_fit.fitness_correct_counts(ops, shift, thr, cap)
+    assert _delta(before) == {}
+
+
 @pytest.fixture(scope="module")
 def seeds_circuit():
     ds = load_dataset("seeds")
@@ -327,3 +371,32 @@ def test_card_campaign_spans_and_counts(seeds_circuit, cuda_device):
          "faults.reduce", "faults.masks", "faults.masks", *per_run,
          "faults.reduce", "faults.draws", "faults.masks", *per_run,
          "faults.reduce", "faults.reduce"])
+
+
+@pytest.mark.torch_cuda
+def test_card_fitness_counts_path_macs_at_launches_and_replays(cuda_device):
+    """On the card each fitness launch adds its path product's
+    multiply-adds to ``fitness.path_macs``, and a captured chunk adds its
+    generations' at each replay, not at its capture."""
+    problem = get_family("tree").build_problem("seeds", n_trees=3,
+                                               device=cuda_device)
+    per_launch = _fitness_operands(problem).path_macs(POP, problem.y.shape[0])
+    fitness = backends.make_fitness(problem, "kernel")
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    draws = nsga2.draw_init(gen, POP, problem.n_genes, 0, cuda_device)
+    cfg = nsga2.NSGA2Config(pop_size=POP)
+    before = trace.counters()
+    state = nsga2.init_state(fitness, cfg, draws)
+    got = _delta(before)
+    assert got["fitness.path_macs"] == per_launch
+    assert got["launches.fitness_correct_counts"] == 1
+    chunk = nsga2.make_chunk(fitness, cfg, LENGTH)
+    state = chunk(state, gen)                         # captures the graph
+    before = trace.counters()
+    for _ in range(2):
+        state = chunk(state, gen)
+    torch.cuda.synchronize(cuda_device)
+    got = _delta(before)
+    assert got["fitness.path_macs"] == 2 * LENGTH * per_launch
+    assert got["launches.fitness_correct_counts"] == 2 * LENGTH
+    assert got["nsga2.evaluations"] == 2 * LENGTH * POP
